@@ -1,0 +1,131 @@
+"""Plain PyTorch versions of every ported kernel, for any device.
+
+Each function computes what its CUDA kernel computes, in the kernel's order
+of float32 arithmetic (``scoring.lane_tree_sum``, ``scoring.dot_in_order``),
+so that on the card a kernel and its plain version agree bit for bit.  The
+wrappers run these for CPU tensors; ``chip_smoke.py`` and the GPU tests call
+them directly to hold the kernels against them.
+
+The engine's ``impl="ref"`` path uses the same functions, so the ``plaid``
+and ``plaid-cuda`` backends rank identically.  Work is cut into chunks of
+lanes so the (B, nd, L, nq) intermediates stay near ``_CHUNK_ELEMS``
+elements; results do not depend on the chunking.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.constants import NEG
+from repro_torch.core import residual_codec as rc
+from repro_torch.core import scoring
+
+#: element budget of one chunk's largest intermediate (2^27 f32 = 512 MiB)
+_CHUNK_ELEMS = 1 << 27
+
+
+def _lane_chunks(B: int, elems_per_lane: int):
+    step = max(1, _CHUNK_ELEMS // max(elems_per_lane, 1))
+    for b0 in range(0, B, step):
+        yield slice(b0, min(b0 + step, B))
+
+
+def centroid_interaction_batched_ref(
+    s_cq: torch.Tensor,  # (B, K, nq) f32 or bf16
+    codes: torch.Tensor,  # (B, nd, L) i32, -1 pad
+    keep: torch.Tensor | None,  # (B, K) bool
+    q_mask: torch.Tensor | None,  # (B, nq) f32
+) -> torch.Tensor:
+    """K1: ``sum_i q_mask[b,i] * max(0, max_t S_cq[b, code_t, i])`` over
+    valid, kept tokens -> (B, nd) f32."""
+    B, nd, L = codes.shape
+    nq = s_cq.shape[2]
+    out = torch.empty((B, nd), dtype=torch.float32, device=codes.device)
+    for sl in _lane_chunks(B, nd * L * nq):
+        c = codes[sl]
+        nb = c.shape[0]
+        valid = c >= 0
+        safe = torch.where(valid, c, 0).long().reshape(nb, nd * L)
+        lane = torch.arange(nb, device=c.device)[:, None]
+        tok = s_cq[sl][lane, safe].reshape(nb, nd, L, nq)
+        if keep is not None:
+            valid = valid & keep[sl][lane, safe].reshape(nb, nd, L)
+        tok = torch.where(valid[..., None], tok, NEG)
+        per_q = tok.amax(dim=2).float().clamp(min=0.0)  # (nb, nd, nq)
+        if q_mask is not None:
+            per_q = per_q * q_mask[sl][:, None, :]
+        out[sl] = scoring.lane_tree_sum(per_q)
+    return out
+
+
+def decompress_and_score_batched_ref(
+    q: torch.Tensor,  # (B, nq, d) f32
+    q_mask: torch.Tensor,  # (B, nq) f32
+    codes: torch.Tensor,  # (B, nd, L) i32, -1 pad
+    packed_res: torch.Tensor,  # (B, nd, L, pd) u8
+    tok_valid: torch.Tensor,  # (B, nd, L) bool
+    centroids: torch.Tensor,  # (K, d) f32
+    weights: torch.Tensor,  # (2^b,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K2: exact MaxSim over decompressed tokens -> (B, nd) f32.
+
+    ``emb = centroids[code] + weights[idx]``; invalid tokens score ``NEG``;
+    max over tokens, then ``sum_i q_mask * max`` (no 0-clamp).
+    """
+    B, nd, L = codes.shape
+    d = centroids.shape[1]
+    cents = centroids.float()
+    w = weights.float()
+    out = torch.empty((B, nd), dtype=torch.float32, device=codes.device)
+    for sl in _lane_chunks(B, nd * L * d):
+        c = codes[sl]
+        safe = torch.where(c >= 0, c, 0).long()
+        resid = w[rc.unpack_indices(packed_res[sl], nbits).long()]  # (nb, nd, L, d)
+        emb = cents[safe] + resid
+        emb_t = emb.transpose(-1, -2).contiguous()  # (nb, nd, d, L)
+        # (nb, 1, nq, d, 1) . (nb, nd, 1, d, L) over d -> (nb, nd, nq, L)
+        scores = scoring.dot_in_order(
+            q[sl].float()[:, None, :, :, None], emb_t[:, :, None, :, :]
+        )
+        scores = torch.where(tok_valid[sl][:, :, None, :], scores, NEG)
+        per_q = scores.amax(dim=-1) * q_mask[sl].float()[:, None, :]
+        out[sl] = scoring.lane_tree_sum(per_q)
+    return out
+
+
+def gather_decompress_maxsim_ref(
+    qs: torch.Tensor,  # (B, nq, d)
+    q_masks: torch.Tensor,  # (B, nq)
+    final_pids: torch.Tensor,  # (B, n3) i32, -1 pad
+    codes_tok: torch.Tensor,  # (Nt,) i32
+    residuals_tok: torch.Tensor,  # (Nt, pd) u8
+    doc_offsets: torch.Tensor,  # (Nd+1,)
+    doc_lens: torch.Tensor,  # (Nd,)
+    centroids: torch.Tensor,  # (K, d)
+    weights: torch.Tensor,  # (2^b,)
+    *,
+    nbits: int,
+    doc_maxlen: int,
+) -> torch.Tensor:
+    """K3: gather each finalist's codes and residual rows from the CSR token
+    arrays, then K2's math -> (B, n3) f32.  A ``pid == -1`` lane has no
+    tokens and scores ``sum_i NEG * q_mask[b, i]``."""
+    B, n3 = final_pids.shape
+    flat = final_pids.reshape(-1)
+    codes_blk, tok_valid = scoring.gather_doc_tokens(
+        codes_tok, doc_offsets, doc_lens, flat, doc_maxlen, fill=-1
+    )
+    res_blk, _ = scoring.gather_doc_tokens(
+        residuals_tok, doc_offsets, doc_lens, flat, doc_maxlen, fill=0
+    )
+    return decompress_and_score_batched_ref(
+        qs,
+        q_masks,
+        codes_blk.reshape(B, n3, doc_maxlen),
+        res_blk.reshape(B, n3, doc_maxlen, -1),
+        tok_valid.reshape(B, n3, doc_maxlen),
+        centroids,
+        weights,
+        nbits=nbits,
+    )

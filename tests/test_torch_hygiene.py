@@ -1,0 +1,94 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import neither
+``jax`` nor anything of ``repro`` (the JAX package)."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    )
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    mods = _port_modules()
+    assert "repro_torch.core.pipeline" in mods and "repro_torch.kernels.ops" in mods
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_importing_the_port_leaves_the_tf32_setting_alone():
+    """The port switches TF32 off around its own products only; importing
+    it must not change the setting for the rest of the process."""
+    code = (
+        "import importlib, torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = True\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert torch.backends.cuda.matmul.allow_tf32 is True\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_jax_or_repro_import_in_source(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card_or_the_repository(tmp_path):
+    """Run where it must fail: no card here (and, copied alone, no package)."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        proc = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        )
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
