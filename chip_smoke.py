@@ -16,14 +16,26 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
 5. kernels     K1/K2/K3 held against their plain PyTorch versions at the
                main path's shapes and at nbits 1/4, ragged nd, nq 20/40;
                median times of CUDA-event-timed launches;
-6. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
+6. flash       K7 (attention) against its plain version at the encoder's
+               two bf16 shapes (B=32 queries of 32 tokens, B=64 passages of
+               180; 48 heads over 12 KV heads, dh 64) and the reference's
+               f32 test shapes (causal, MQA); times beside SDPA's;
+7. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
                card), launch counts;
-7. persist     the main index saved and loaded through the facade: every
+8. encode      ColBERTv2 at full width (``attn_impl="flash"``, seeded
+               weights) encodes a corpus of 8..180-token passages,
+               ``build_index`` indexes it on the card (k-means at
+               ColBERTv2's centroid count), encoded B=32 query batches are
+               searched with ``plaid-cuda`` and ``plaid`` (identical pids)
+               and in the main index: encode and tokens -> pids latencies,
+               K7 launch counts, one encode held against the CPU;
+9. persist     the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
-8. profile     device time of one plaid-cuda batch by kernel (torch.profiler)
-               and the device's busy share of the batch's wall time.
+10. profile    device time of one plaid-cuda batch and of one B=32 query
+               encode by kernel (torch.profiler) and the device's busy
+               share of each.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -31,6 +43,7 @@ Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
@@ -41,21 +54,37 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
 from repro_torch import retrieval  # noqa: E402
+from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
-from repro_torch.core import pipeline, plaid, scoring  # noqa: E402
+from repro_torch.core import kmeans, pipeline, plaid, scoring  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.models import colbert  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 
 NBITS, DIM, NQ, BATCH = 2, 128, 32, 32
 TIMED_BATCHES = 4  # per (k, fused), after one warm-up batch
+SEARCH_KERNELS = ("centroid_interaction_batched", "decompress_and_score_batched",
+                  "gather_decompress_maxsim")
+ENCODE_PASSAGES, DOC_MAXLEN, ENCODE_BATCH = 8192, 180, 64
+#: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
+#: outputs one bf16 ulp apart (both round an f32 result once)
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2.0**-7, atol=1e-6)}
+#: the reference's flash test shapes (tests/test_flash_attention.py:10-18):
+#: B, S, H, Hkv, dh, causal
+JAX_FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 128, 8, 1, 32, True),
+                    (2, 64, 4, 4, 16, False), (1, 96, 6, 2, 8, True)]
 
 
 def emit(obj) -> None:
@@ -78,13 +107,6 @@ class Phase:
         return False
 
 
-def num_centroids_for(n_tokens: int, cap: int = 2**18) -> int:
-    """ColBERTv2's rule as the repository applies it (repro/core/kmeans.py:18-21):
-    next power of two >= 16 sqrt(n), capped."""
-    k = 2 ** int(math.ceil(math.log2(max(16.0 * math.sqrt(max(n_tokens, 1)), 2.0))))
-    return int(min(k, cap, max(2, n_tokens)))
-
-
 # --------------------------------------------------------------------------
 # synthetic corpus
 # --------------------------------------------------------------------------
@@ -100,7 +122,7 @@ def synth_index(*, passages, seed, n_centroids=None, maxlen=180):
     lens = lens.round().clamp(8, maxlen).to(torch.int32)
     lens[0] = maxlen
     nt = int(lens.long().sum())
-    K = n_centroids or num_centroids_for(nt)
+    K = n_centroids or kmeans.num_centroids_for(nt)
     cents = torch.randn(K, DIM, generator=g, device=dev)
     cents = cents / cents.norm(dim=1, keepdim=True)
     n_topics, pool = max(K // 32, 4), 64
@@ -158,8 +180,8 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -355,7 +377,12 @@ def main(argv=None) -> int:
         info["extra_cases"] = extra_kernel_cases(dev)
         del s_cq, cands, codes_blk, codes3, res4
 
-    # ---- 6. the main path: plaid-cuda vs plaid ----------------------------
+    # ---- 6. K7 against its plain version ----------------------------------
+    with Phase("flash") as info:
+        info["cases"] = flash_cases(dev)
+        kernels["flash_attention"] = next(c for c in info["cases"] if c["case"] == "passages")
+
+    # ---- 7. the search path: plaid-cuda vs plaid --------------------------
     ops.reset_launch_counts()
     with Phase("search") as info:
         runs = []
@@ -387,9 +414,13 @@ def main(argv=None) -> int:
                 runs.append(row)
         counts = ops.launch_counts()
         info.update(configs=len(runs), launches=counts)
-        assert all(v > 0 for v in counts.values()), counts
+        assert all(counts[name] > 0 for name in SEARCH_KERNELS), counts
 
-    # ---- 7. persistence of the main index ---------------------------------
+    # ---- 8. the encoder path: tokens -> vectors -> index -> pids ----------
+    with Phase("encode") as info:
+        model, encode_counts, q_toks = encode_phase(index, args.seed, dev, info)
+
+    # ---- 9. persistence of the main index ---------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
         qb = batches[1][0]
@@ -415,7 +446,7 @@ def main(argv=None) -> int:
         assert torch.equal(before.scores, after.scores)
         del r, r2, loaded
 
-    # ---- 8. where a plaid-cuda batch spends its device time ---------------
+    # ---- 10. where a plaid-cuda batch and a query encode spend device time -
     with Phase("profile") as info:
         info["configs"] = [
             dict(k=k, fused=False, **profile_batch(
@@ -424,18 +455,23 @@ def main(argv=None) -> int:
                 batches[1][0]))
             for k in (10, 1000)
         ]
+        info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
     replaces = {
         "centroid_interaction_batched": ("src/repro_torch/csrc/maxsim.cu", "src/repro/kernels/maxsim.py:110"),
         "decompress_and_score_batched": ("src/repro_torch/csrc/decompress.cu", "src/repro/kernels/decompress.py:205"),
         "gather_decompress_maxsim": ("src/repro_torch/csrc/fused_score.cu", "src/repro/kernels/fused_score.py:79"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:86"),
     }
+    # launches: the search kernels' from the search phase, K7's from the
+    # encode phase (each path's counts were zeroed just before it ran)
+    launches = dict(counts, flash_attention=encode_counts["flash_attention"])
     emit({"kernels": [
         dict(
             name=name, route="cuda", source=replaces[name][0], replaces=replaces[name][1],
-            launches=counts[name], max_abs_err=kv["max_abs_err"], ms=kv["ms"],
+            launches=launches[name], max_abs_err=kv["max_abs_err"], ms=kv["ms"],
             plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
-            library_ms=None,
+            library_ms=kv.get("library_ms"),
         )
         for name, kv in kernels.items()
     ]})
@@ -470,6 +506,217 @@ def profile_batch(retriever, qb, reps: int = 3) -> dict:
         launches=sum(e.count for e in kern) // reps,
         top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3 / reps,
                   calls=e.count // reps) for e in kern[:10]],
+    )
+
+
+def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool) -> dict:
+    """K7 against its plain version on one seeded case; at the encoder's
+    shapes also its time, the plain version's, SDPA's and the bound."""
+    dev = "cuda"
+    q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
+    k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+    v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
+
+    def kern():
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    row = dict(case=name, shape=dict(B=B, S=S, H=H, Hkv=Hkv, dh=dh), dtype=str(dtype),
+               causal=causal, tol=tol, max_abs_err=float((got.float() - want.float()).abs().max()),
+               ok=torch.allclose(got.float(), want.float(), **tol))
+    if timed:
+        def sdpa():  # the yardstick; the port never calls it
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal, enable_gqa=True)
+
+        lib = sdpa().transpose(1, 2)
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, o, k, v
+        flops = 4.0 * B * H * S * S * dh * (0.5 if causal else 1.0)
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        row.update(
+            ms=time_ms(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
+            library_ms=time_ms(sdpa, reps=25),
+            library_max_abs_err=float((lib.float() - want.float()).abs().max()),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+        )
+    emit({"kernel_check": "flash_attention", **row})
+    assert row["ok"], row
+    return row
+
+
+def flash_cases(dev) -> list:
+    g = torch.Generator(device=dev).manual_seed(321)
+    enc = [("queries", BATCH, NQ, 48, 12, 64, False, torch.bfloat16),
+           ("passages", ENCODE_BATCH, DOC_MAXLEN, 48, 12, 64, False, torch.bfloat16)]
+    jax_shapes = [(f"reference_test_{i}", *shape, torch.float32)
+                  for i, shape in enumerate(JAX_FLASH_SHAPES)]
+    return ([flash_check(*c, g, timed=True) for c in enc]
+            + [flash_check(*c, g, timed=False) for c in jax_shapes])
+
+
+def check_result(res, k) -> None:
+    """(BATCH, k) pids, -1 only in trailing slots, real scores finite and
+    in descending order."""
+    real = res.pids >= 0
+    assert res.pids.shape == (BATCH, k) and bool((res.pids >= -1).all())
+    assert bool((real[:, :-1] | ~real[:, 1:]).all()), "a -1 slot before a real pid"
+    assert bool(torch.isfinite(res.scores[real]).all())
+    s = torch.where(real, res.scores, -torch.inf)
+    assert bool((s[:, :-1] >= s[:, 1:]).all())
+
+
+def encode_phase(index, seed, dev, info: dict):
+    """ColBERTv2 at full width on the card: corpus -> build_index -> B=32
+    query batches searched with plaid-cuda and plaid (identical pids) and in
+    the main index.  Returns the model, the phase's launch counts and the
+    query tokens."""
+    cfg = colbert_cfg.full_config()
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, attn_impl="flash"))
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    model = colbert.init_params(cfg, gen, device=dev)
+    vocab, n = cfg.backbone.vocab, ENCODE_PASSAGES
+    lens = torch.randint(8, DOC_MAXLEN + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+    lens[0] = DOC_MAXLEN
+    toks = torch.randint(0, vocab, (n, DOC_MAXLEN), generator=gen, device=dev)
+    mask = torch.arange(DOC_MAXLEN, device=dev)[None, :] < lens[:, None]
+    n_batches = TIMED_BATCHES + 1
+    src = torch.randint(0, n, (BATCH * n_batches,), generator=gen, device=dev)
+    q_toks = toks[src, :NQ]  # a query is the head of a passage
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    calls = 0
+    t0 = time.perf_counter()
+    chunks = []
+    for i in range(0, n, ENCODE_BATCH):
+        e = colbert.encode(model, toks[i : i + ENCODE_BATCH], mask[i : i + ENCODE_BATCH])
+        chunks.append(e[mask[i : i + ENCODE_BATCH]])
+        calls += 1
+    doc_embs = torch.cat(chunks)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    norms = doc_embs.norm(dim=-1)
+    assert torch.isfinite(doc_embs).all() and bool(((norms - 1).abs() < 1e-3).all())
+
+    t0 = time.perf_counter()
+    enc_index = index_mod.build_index(doc_embs, lens, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assert enc_index.num_centroids == kmeans.num_centroids_for(doc_embs.shape[0])
+    t0 = time.perf_counter()  # the k-means step of that build, timed alone
+    kmeans.train_centroids(doc_embs, enc_index.num_centroids, seed=seed)
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+
+    q_batches, encode_ms = [], []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        qe = colbert.encode(model, q_toks[b * BATCH : (b + 1) * BATCH])
+        torch.cuda.synchronize()
+        calls += 1
+        assert qe.shape == (BATCH, NQ, DIM) and torch.isfinite(qe).all()
+        if b:
+            encode_ms.append((time.perf_counter() - t0) * 1e3)
+        q_batches.append(qe)
+
+    searches = []
+    for k in (10, 100):
+        p = retrieval.params_for_k(k)
+        cuda_r = retrieval.from_index(enc_index, backend="plaid-cuda", params=p)
+        plain_r = retrieval.from_index(enc_index, backend="plaid", params=p)
+        hits, filled, lat = 0, 0, []
+        for b, qe in enumerate(q_batches):
+            got, want = cuda_r.search_batch(qe), plain_r.search_batch(qe)
+            check_result(got, k)
+            assert torch.equal(got.pids, want.pids), f"encoded index: pids differ at k={k}"
+            assert torch.allclose(got.scores, want.scores, rtol=1e-5, atol=1e-5)
+            hits += int((got.pids == src[b * BATCH : (b + 1) * BATCH, None]).any(1).sum())
+            filled += int((got.pids >= 0).sum())
+            if b:
+                lat.append(got.latency_ms)
+        # with random weights a passage's tokens sit close together, so the
+        # probed centroids' lists can hold fewer than k passages (-1 slots)
+        searches.append(dict(k=k, plaid_cuda_p50_ms=statistics.median(lat),
+                             success_at_k=hits / (BATCH * n_batches),
+                             filled_share=filled / (BATCH * n_batches * k)))
+
+    big = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
+    e2e_ms = []
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        res = big.search_batch(colbert.encode(model, q_toks[b * BATCH : (b + 1) * BATCH]))
+        calls += 1
+        check_result(res, 10)
+        if b:
+            e2e_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    layers = cfg.backbone.n_layers
+    assert counts["flash_attention"] == layers * calls > 0, (counts, calls)
+
+    # one query batch on the card against the same weights on the CPU (K7's
+    # plain version there); bf16 rounds at other places on the two devices,
+    # in each of 12 layers, so the bound is looser than one layer's (0.999)
+    cpu_model = colbert.params_from_numpy(model.numpy_params(), cfg, device="cpu")
+    a = colbert.encode(model, q_toks[:2]).cpu()
+    b = colbert.encode(cpu_model, q_toks[:2].cpu())
+    cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+    info.update(
+        config=dict(n_layers=layers, d_model=cfg.backbone.d_model, heads=cfg.backbone.n_heads,
+                    padded_heads=cfg.backbone.padded_heads, d_ff=cfg.backbone.d_ff,
+                    vocab=cfg.backbone.vocab, dtype=str(cfg.backbone.dtype),
+                    attn_impl=cfg.backbone.attn_impl, out_dim=cfg.out_dim),
+        passages=n, tokens=int(doc_embs.shape[0]), corpus_encode_s=corpus_s,
+        corpus_tokens_per_s=doc_embs.shape[0] / corpus_s,
+        build_s=build_s, kmeans_s=kmeans_s, centroids=enc_index.num_centroids,
+        query_batch=BATCH, query_len=NQ, timed_batches=TIMED_BATCHES,
+        encode_p50_ms=statistics.median(encode_ms), encoded_index_search=searches,
+        main_index_passages=index.num_passages,
+        tokens_to_pids_p50_ms=statistics.median(e2e_ms),
+        encode_calls=calls, launches=counts, k7_launches_per_encode=layers,
+        cpu_check=dict(min_cosine=float(cos.min()), max_abs_err=float((a - b).abs().max())),
+    )
+    assert info["cpu_check"]["min_cosine"] >= 0.99 and info["cpu_check"]["max_abs_err"] <= 0.1
+    del cpu_model, enc_index, doc_embs, chunks
+    return model, counts, q_toks
+
+
+def profile_encode(model, toks, reps: int = 3) -> dict:
+    """Device time of one warm query encode, grouped: cuBLAS GEMMs, K7 and
+    everything else (elementwise ops, norms, reductions, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    colbert.encode(model, toks)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            colbert.encode(model, toks)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    groups = {"gemm": 0.0, "flash_attention": 0.0, "other": 0.0}
+    for e in kern:
+        name = e.key.lower()
+        grp = ("flash_attention" if "flash_attention_kernel" in name
+               else "gemm" if any(t in name for t in ("gemm", "xmma", "nvjet", "cutlass"))
+               else "other")
+        groups[grp] += e.self_device_time_total / 1e3 / reps
+    device_ms = sum(groups.values())
+    return dict(
+        wall_ms=wall_ms, device_ms=device_ms, device_ms_by_group=groups,
+        busy_share=device_ms / wall_ms if device_ms else None,
+        launches=sum(e.count for e in kern) // reps,
+        top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3 / reps,
+                  calls=e.count // reps) for e in kern[:12]],
     )
 
 

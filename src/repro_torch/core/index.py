@@ -10,10 +10,12 @@ numpy arrays (:func:`index_from_numpy` / :meth:`PlaidIndex.numpy_arrays`):
   * static caps (``ivf_list_cap``, ``doc_maxlen``) are recorded at build
     time.
 
-:func:`assemble_index` runs on whatever device its inputs live on.  On the
-card it replaces the reference's host ``np.unique(axis=0)`` over ``(code,
-pid)`` rows with a sorted unique int64 key ``code * Nd + pid`` — the same
-order — so a corpus of 1e8 tokens assembles in seconds.
+:func:`build_index` builds an index from token embeddings (k-means,
+assignment, residual codec, compression); :func:`assemble_index` runs on
+whatever device its inputs live on.  On the card it replaces the
+reference's host ``np.unique(axis=0)`` over ``(code, pid)`` rows with a
+sorted unique int64 key ``code * Nd + pid`` — the same order — so a
+corpus of 1e8 tokens assembles in seconds.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import kmeans as _kmeans
 from repro_torch.core import residual_codec as rc
 
 _STATIC = dict(static=True)
@@ -394,3 +397,74 @@ class IndexAssembler:
             prune_fraction=self._prune_fraction,
             device=self._device,
         )
+
+
+def build_index(
+    doc_embeddings,
+    doc_lens=None,
+    *,
+    num_centroids: int | None = None,
+    nbits: int = 2,
+    seed: int = 0,
+    kmeans_iters: int = 8,
+    ivf_list_cap: int | None = None,
+    centroids=None,
+    codec: rc.ResidualCodec | None = None,
+    prune_fraction: float = 0.0,
+    device: str | torch.device = "cuda",
+) -> PlaidIndex:
+    """Build a PLAID index from per-document token embeddings on ``device``
+    (the counterpart of the reference's monolithic ``build_index``).
+
+    ``doc_embeddings`` is a list of (len_i, d) arrays or tensors, or a
+    packed (Nt, d) array or tensor with ``doc_lens``.  The steps are the
+    reference's: k-means centroids (``16 sqrt(Nt)`` unless
+    ``num_centroids``) unless ``centroids=`` is given, nearest-centroid
+    assignment, the residual codec fitted unless ``codec=`` is given, b-bit
+    compression, then :func:`assemble_index`.  Under frozen ``centroids``
+    and ``codec`` the result is array-identical to the reference's on the
+    same embeddings.  The whole corpus is one float32 array; the streaming
+    builder and token pruning are not ported (ROADMAP Queue 1 item 5).
+    """
+    if prune_fraction > 0.0:
+        raise NotImplementedError(
+            "build_index(prune_fraction > 0): build-time token pruning is not "
+            "ported yet (ROADMAP Queue 1 item 5)"
+        )
+    dev = resolve_device(device)
+    if isinstance(doc_embeddings, (list, tuple)):
+        doc_lens = [len(d) for d in doc_embeddings]
+        packed = torch.cat([_as_tensor(d, torch.float32, dev) for d in doc_embeddings])
+    else:
+        if doc_lens is None:
+            raise ValueError("packed doc_embeddings need doc_lens")
+        packed = _as_tensor(doc_embeddings, torch.float32, dev)
+    doc_lens = _as_tensor(doc_lens, torch.int32, dev)
+    if int(doc_lens.long().sum()) != packed.shape[0]:
+        raise ValueError(f"doc_lens sum {int(doc_lens.long().sum())} != tokens {packed.shape[0]}")
+
+    if centroids is None:
+        centroids = _kmeans.train_centroids(
+            packed, num_centroids or _kmeans.num_centroids_for(packed.shape[0]),
+            seed=seed, iters=kmeans_iters,
+        )
+    else:
+        centroids = _as_tensor(centroids, torch.float32, dev)
+
+    codes, _ = _kmeans._assign_chunked(packed, centroids)
+    residuals = packed - centroids[codes.long()]
+    if codec is None:
+        codec = rc.fit_codec(residuals, nbits)
+    else:
+        codec = rc.ResidualCodec(
+            _as_tensor(codec.cutoffs, torch.float32, dev),
+            _as_tensor(codec.weights, torch.float32, dev),
+            codec.nbits,
+        )
+    packed_res = rc.compress_residuals(codec, residuals)
+    del residuals
+    return assemble_index(
+        centroids, codes, packed_res, doc_lens,
+        cutoffs=codec.cutoffs, weights=codec.weights, nbits=codec.nbits,
+        ivf_list_cap=ivf_list_cap, device=dev,
+    )

@@ -2,8 +2,9 @@
 
 Directories use the reference's v2 segment-manifest layout
 (``repro_torch.live.manifest``), so an index saved by ``repro`` loads here
-array-identically and the reverse holds too.  Index *building* from raw
-embeddings (k-means, streaming) is not ported yet.
+array-identically and the reverse holds too.  An index is built from raw
+embeddings by ``core.index.build_index`` (monolithic); the streaming
+builder is not ported yet.
 """
 from __future__ import annotations
 

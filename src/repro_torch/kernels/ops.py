@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decompress as _dec
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_score as _fs
 from repro_torch.kernels import maxsim as _ms
 
@@ -28,11 +29,13 @@ _WRAPPERS = {
     "centroid_interaction_batched": _ms,
     "decompress_and_score_batched": _dec,
     "gather_decompress_maxsim": _fs,
+    "flash_attention": _fa,
 }
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel."""
+    """Kernel launches so far, by kernel (the search kernels above and the
+    encoder's attention, ``kernels.flash_attention``)."""
     return {name: mod.launches for name, mod in _WRAPPERS.items()}
 
 

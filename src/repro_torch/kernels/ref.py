@@ -1,8 +1,11 @@
 """Plain PyTorch versions of every ported kernel, for any device.
 
-Each function computes what its CUDA kernel computes, in the kernel's order
-of float32 arithmetic (``scoring.lane_tree_sum``, ``scoring.dot_in_order``),
-so that on the card a kernel and its plain version agree bit for bit.  The
+Each search kernel's function (K1-K3) computes what its CUDA kernel
+computes, in the kernel's order of float32 arithmetic
+(``scoring.lane_tree_sum``, ``scoring.dot_in_order``), so that on the card
+a kernel and its plain version agree bit for bit.  K7's
+(``flash_attention_ref``) repeats the reference's math on one whole-S tile
+and agrees with its kernel to a stated tolerance.  The
 wrappers run these for CPU tensors; ``chip_smoke.py`` and the GPU tests call
 them directly to hold the kernels against them.
 
@@ -15,9 +18,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import ieee_f32_matmul
 from repro_torch.constants import NEG
 from repro_torch.core import residual_codec as rc
 from repro_torch.core import scoring
+
+#: the reference K7's mask value (``repro/kernels/flash_attention.py`` ``NEG``)
+FLASH_NEG = -1e30
 
 #: element budget of one chunk's largest intermediate (2^27 f32 = 512 MiB)
 _CHUNK_ELEMS = 1 << 27
@@ -129,3 +136,41 @@ def gather_decompress_maxsim_ref(
         weights,
         nbits=nbits,
     )
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, S, H, dh)
+    k: torch.Tensor,  # (B, S, Hkv, dh)
+    v: torch.Tensor,  # (B, S, Hkv, dh)
+    *,
+    causal: bool,
+) -> torch.Tensor:
+    """K7: the reference kernel's online softmax over one whole-S tile, in
+    f32 -> (B, S, H, dh) in ``q``'s dtype.
+
+    Query head ``h`` reads KV head ``h // (H // Hkv)``.  With one tile the
+    state update is ``m = max(NEG, rowmax s)``, ``p = exp(s - m)``,
+    ``l = sum p``, ``acc = p v`` (``p`` in f32); masked keys score ``NEG``
+    and the output is ``acc / max(l, 1e-20)``.  The CUDA kernel walks 64-key
+    tiles, so its sums are rounded in another order.
+    """
+    B, S, H, dh = q.shape
+    g = H // k.shape[2]
+    scale = dh**-0.5
+    out = torch.empty_like(q)
+    for sl in _lane_chunks(B, H * S * S):
+        qf = q[sl].float().transpose(1, 2)  # (nb, H, S, dh)
+        kf = k[sl].float().repeat_interleave(g, dim=2).transpose(1, 2)
+        vf = v[sl].float().repeat_interleave(g, dim=2).transpose(1, 2)
+        with ieee_f32_matmul():
+            s = (qf @ kf.transpose(-1, -2)) * scale  # (nb, H, S, S)
+        if causal:
+            pos = torch.arange(S, device=q.device)
+            s = torch.where(pos[:, None] >= pos[None, :], s, FLASH_NEG)
+        m = s.amax(dim=-1, keepdim=True).clamp(min=FLASH_NEG)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        with ieee_f32_matmul():
+            acc = p @ vf
+        out[sl] = (acc / l.clamp(min=1e-20)).transpose(1, 2).to(q.dtype)
+    return out

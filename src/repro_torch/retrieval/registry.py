@@ -64,12 +64,13 @@ def coerce_config(cfg: Any = None, **overrides) -> RetrieverConfig:
 
 
 def build(corpus_embs, cfg=None, *, doc_lens=None, **overrides):
-    """Corpus embeddings -> index -> Retriever: needs k-means and the
-    streaming builder, which are not ported yet."""
+    """Corpus embeddings -> index -> Retriever: routes through the streaming
+    builder, which is not ported yet."""
     raise NotImplementedError(
-        "repro_torch.retrieval.build needs the index build (k-means, "
-        "streaming builder): ROADMAP Queue 1 item 5, not ported yet.  Build "
-        "the index elsewhere and use from_index / load"
+        "repro_torch.retrieval.build routes through the streaming index "
+        "builder, which is not ported yet (ROADMAP Queue 1 item 5).  For an "
+        "in-memory corpus, build with repro_torch.core.index.build_index and "
+        "wrap the index with retrieval.from_index"
     )
 
 

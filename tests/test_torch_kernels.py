@@ -175,6 +175,7 @@ def test_cpu_calls_are_not_launches_and_other_devices_are_refused():
         "centroid_interaction_batched": 0,
         "decompress_and_score_batched": 0,
         "gather_decompress_maxsim": 0,
+        "flash_attention": 0,
     }
     meta = torch.empty((1, 4, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -186,7 +187,9 @@ def test_kernel_modules_import_without_building():
     from repro_torch.kernels import _build
 
     assert _build._LIBS == {}
-    assert {p.name for p in _build.sources()} == {"maxsim.cu", "decompress.cu", "fused_score.cu"}
+    assert {p.name for p in _build.sources()} == {
+        "maxsim.cu", "decompress.cu", "fused_score.cu", "flash_attention.cu",
+    }
 
 
 # --------------------------------------------------------------------------
