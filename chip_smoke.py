@@ -15,6 +15,8 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                force exact MaxSim written here, independent of the engine;
 5. kernels     K1/K2/K3 held against their plain PyTorch versions at the
                main path's shapes and at nbits 1/4, ragged nd, nq 20/40;
+               K4 at vanilla's stage-3 block (4096 passages x 180 rows)
+               and at nbits 1/4, K5/K6 at ``_search``'s k=1000 shapes;
                median times of CUDA-event-timed launches;
 6. flash       K7 (attention) against its plain version at the encoder's
                two bf16 shapes (B=32 queries of 32 tokens, B=64 passages of
@@ -24,18 +26,29 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
                card), launch counts;
-8. encode      ColBERTv2 at full width (``attn_impl="flash"``, seeded
+8. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
+               reference's ``vanilla_p4_c8192`` settings for k in {10,
+               1000} over a warm-up and 2 timed B=32 batches: pids
+               identical to ``VanillaEngine(impl="ref")``, p50 per batch
+               beside ``plaid-cuda``'s on the same batches, and
+               ``plaid-cuda``'s recall@10 against vanilla's top 10 (the
+               paper's Table 3 protocol, as smoke numbers);
+9. oracle      8 queries through the single-query ``plaid._search`` with
+               ``impl="cuda"`` (K5, K6) for k in {10, 100, 1000}: pids
+               identical to the same lanes of ``plaid-cuda``'s batch and to
+               ``_search(impl="ref")``;
+10. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
                weights) encodes a corpus of 8..180-token passages,
                ``build_index`` indexes it on the card (k-means at
                ColBERTv2's centroid count), encoded B=32 query batches are
                searched with ``plaid-cuda`` and ``plaid`` (identical pids)
                and in the main index: encode and tokens -> pids latencies,
                K7 launch counts, one encode held against the CPU;
-9. persist     the main index saved and loaded through the facade: every
+11. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
-10. profile    device time of one plaid-cuda batch and of one B=32 query
-               encode by kernel (torch.profiler) and the device's busy
-               share of each.
+12. profile    device time of one plaid-cuda batch, one vanilla batch and
+               one B=32 query encode by kernel (torch.profiler) and the
+               device's busy share of each.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -62,7 +75,7 @@ sys.path.insert(0, str(SRC))
 from repro_torch import retrieval  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
-from repro_torch.core import kmeans, pipeline, plaid, scoring  # noqa: E402
+from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -76,6 +89,20 @@ NBITS, DIM, NQ, BATCH = 2, 128, 32, 32
 TIMED_BATCHES = 4  # per (k, fused), after one warm-up batch
 SEARCH_KERNELS = ("centroid_interaction_batched", "decompress_and_score_batched",
                   "gather_decompress_maxsim")
+VANILLA_BATCHES = 3  # one warm-up, two timed
+ORACLE_QUERIES = 8
+#: the reference's vanilla_p4_c8192 (benchmarks/table3_endtoend.py:25-31)
+VANILLA_SETTINGS = dict(nprobe=4, candidate_cap=2**13, ndocs=4096)
+#: kernel -> (its CUDA source, the TPU kernel it replaces)
+REPLACES = {
+    "centroid_interaction_batched": ("src/repro_torch/csrc/maxsim.cu", "src/repro/kernels/maxsim.py:110"),
+    "decompress_and_score_batched": ("src/repro_torch/csrc/decompress.cu", "src/repro/kernels/decompress.py:205"),
+    "gather_decompress_maxsim": ("src/repro_torch/csrc/fused_score.cu", "src/repro/kernels/fused_score.py:79"),
+    "decompress_residuals": ("src/repro_torch/csrc/decompress.cu", "src/repro/kernels/decompress.py:54"),
+    "centroid_interaction": ("src/repro_torch/csrc/maxsim.cu", "src/repro/kernels/maxsim.py:48"),
+    "decompress_and_score": ("src/repro_torch/csrc/decompress.cu", "src/repro/kernels/decompress.py:119"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:86"),
+}
 ENCODE_PASSAGES, DOC_MAXLEN, ENCODE_BATCH = 8192, 180, 64
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -201,6 +228,12 @@ def k1_bound(s_cq, codes, keep):
     nbytes = codes.numel() * 4 + rows * nq * 4 + seen + B * nq * 4 + B * nd * 4
     flops = int(kept.sum()) * nq + B * nd * nq * 3
     return bound(nbytes, flops)
+
+
+def k4_bound(n_bytes, nbits):
+    """K4: each packed byte read once, its 8/nbits f32 fields written once;
+    no arithmetic (a lookup)."""
+    return bound(n_bytes * (1 + (8 // nbits) * 4) + 4 * 2**nbits, 0.0)
 
 
 def stage4_bound(n_tokens, codes_valid, nq, d, pd, B, n_out, extra_bytes):
@@ -356,12 +389,46 @@ def main(argv=None) -> int:
                          final_pids.numel() * 12),
             dict(shape, n3=final_pids.shape[1]),
         )
+        # K4 at vanilla's stage-3 block: 4096 passages' padded rows
+        res_v, _ = scoring.gather_doc_tokens(
+            index.residuals, index.doc_offsets, index.doc_lens, cands[0, :4096],
+            index.doc_maxlen, fill=0,
+        )
+        cases["decompress_residuals"] = (
+            lambda: ops.decompress_residuals(res_v, index.weights, nbits=NBITS),
+            lambda: ref.decompress_residuals_ref(res_v, index.weights, nbits=NBITS),
+            k4_bound(res_v.numel(), NBITS),
+            dict(n=res_v.shape[0] * res_v.shape[1], pd=res_v.shape[2], nbits=NBITS,
+                 passages=res_v.shape[0], L=res_v.shape[1]),
+        )
+        # K5 / K6 at _search's k=1000 shapes: lane 0's stage-2 block over
+        # all K centroids, and its stage-4 finalists
+        s1, c1, k1, m1 = s_cq[0], codes_blk[0], keep[0], qm[0]
+        cases["centroid_interaction"] = (
+            lambda: ops.centroid_interaction(s1, c1, m1, k1),
+            lambda: ref.centroid_interaction_ref(s1, c1, k1, m1),
+            k1_bound(s_cq[:1], codes_blk[:1], keep[:1]),
+            dict(nd=c1.shape[0], L=c1.shape[1], K=s1.shape[0], nq=NQ),
+        )
+        q6, c6, r6, v6 = qb[0], codes4[0], res4[0], valid4[0]
+        cases["decompress_and_score"] = (
+            lambda: ops.decompress_and_score(q6, m1, c6, r6, v6, index.centroids,
+                                             index.weights, nbits=NBITS),
+            lambda: ref.decompress_and_score_ref(q6, m1, c6, r6, v6, index.centroids,
+                                                 index.weights, nbits=NBITS),
+            stage4_bound(int(v6.sum()), c6[v6], NQ, DIM, r6.shape[-1], 1, c6.shape[0],
+                         v6.numel()),
+            dict(nd=c6.shape[0], L=c6.shape[1], pd=r6.shape[-1], nq=NQ, d=DIM),
+        )
         for name, (kern, plain, (bound_ms, bound_by), shp) in cases.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got - want).abs()
             rel = err / want.abs().clamp(min=1e-30)
-            ok = torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+            # K4 does no arithmetic: bit for bit; the scoring kernels share
+            # their plain versions' f32 order (stated tolerance 1e-5)
+            ok = (torch.equal(got, want) if name == "decompress_residuals"
+                  else torch.allclose(got, want, rtol=1e-5, atol=1e-5))
             kernels[name] = dict(
                 max_abs_err=float(err.max()), max_rel_err=float(rel.max()),
                 ms=time_ms(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
@@ -375,7 +442,8 @@ def main(argv=None) -> int:
         b = ref.centroid_interaction_batched_ref(s_cq, codes3, None, qm)
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), "K1 stage-3 shape"
         info["extra_cases"] = extra_kernel_cases(dev)
-        del s_cq, cands, codes_blk, codes3, res4
+        info["k4_nbits_cases"] = k4_nbits_cases(dev, res_v.shape[0] * res_v.shape[1])
+        del s_cq, cands, codes_blk, codes3, res4, res_v
 
     # ---- 6. K7 against its plain version ----------------------------------
     with Phase("flash") as info:
@@ -412,15 +480,32 @@ def main(argv=None) -> int:
                     row[name] = dict(p50_ms=p50, qps=BATCH / p50 * 1e3)
                 emit({"search": row})
                 runs.append(row)
-        counts = ops.launch_counts()
-        info.update(configs=len(runs), launches=counts)
-        assert all(counts[name] > 0 for name in SEARCH_KERNELS), counts
+        search_counts = ops.launch_counts()
+        info.update(configs=len(runs), launches=search_counts)
+        assert all(search_counts[name] > 0 for name in SEARCH_KERNELS), search_counts
 
-    # ---- 8. the encoder path: tokens -> vectors -> index -> pids ----------
+    # ---- 8. the vanilla ColBERTv2 baseline (K4) ---------------------------
+    ops.reset_launch_counts()
+    with Phase("vanilla") as info:
+        info["configs"] = vanilla_phase(index, batches[:VANILLA_BATCHES])
+        vanilla_counts = ops.launch_counts()
+        info["launches"] = vanilla_counts
+        assert vanilla_counts["decompress_residuals"] > 0, vanilla_counts
+
+    # ---- 9. the single-query _search oracle (K5, K6) ----------------------
+    ops.reset_launch_counts()
+    with Phase("oracle") as info:
+        info["configs"] = oracle_phase(index, batches[1][0])
+        oracle_counts = ops.launch_counts()
+        info["launches"] = oracle_counts
+        assert oracle_counts["centroid_interaction"] > 0, oracle_counts
+        assert oracle_counts["decompress_and_score"] > 0, oracle_counts
+
+    # ---- 10. the encoder path: tokens -> vectors -> index -> pids ---------
     with Phase("encode") as info:
         model, encode_counts, q_toks = encode_phase(index, args.seed, dev, info)
 
-    # ---- 9. persistence of the main index ---------------------------------
+    # ---- 11. persistence of the main index --------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
         qb = batches[1][0]
@@ -446,7 +531,7 @@ def main(argv=None) -> int:
         assert torch.equal(before.scores, after.scores)
         del r, r2, loaded
 
-    # ---- 10. where a plaid-cuda batch and a query encode spend device time -
+    # ---- 12. where a plaid-cuda batch and a query encode spend device time -
     with Phase("profile") as info:
         info["configs"] = [
             dict(k=k, fused=False, **profile_batch(
@@ -455,26 +540,32 @@ def main(argv=None) -> int:
                 batches[1][0]))
             for k in (10, 1000)
         ]
+        info["vanilla"] = dict(k=10, **profile_batch(
+            retrieval.from_index(index, backend="vanilla",
+                                 params=retrieval.SearchParams(k=10, **VANILLA_SETTINGS)),
+            batches[1][0]))
         info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
-    replaces = {
-        "centroid_interaction_batched": ("src/repro_torch/csrc/maxsim.cu", "src/repro/kernels/maxsim.py:110"),
-        "decompress_and_score_batched": ("src/repro_torch/csrc/decompress.cu", "src/repro/kernels/decompress.py:205"),
-        "gather_decompress_maxsim": ("src/repro_torch/csrc/fused_score.cu", "src/repro/kernels/fused_score.py:79"),
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:86"),
-    }
-    # launches: the search kernels' from the search phase, K7's from the
-    # encode phase (each path's counts were zeroed just before it ran)
-    launches = dict(counts, flash_attention=encode_counts["flash_attention"])
-    emit({"kernels": [
+    # launches: each kernel's from the path that runs it, its counts zeroed
+    # just before that path: K1-K3 in search, K4 in vanilla, K5/K6 in
+    # oracle, K7 in encode
+    launches = {name: search_counts[name] for name in SEARCH_KERNELS}
+    launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
+    for name in ("centroid_interaction", "decompress_and_score"):
+        launches[name] = oracle_counts[name]
+    launches["flash_attention"] = encode_counts["flash_attention"]
+    rows = [
         dict(
-            name=name, route="cuda", source=replaces[name][0], replaces=replaces[name][1],
+            name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
             launches=launches[name], max_abs_err=kv["max_abs_err"], ms=kv["ms"],
             plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
             library_ms=kv.get("library_ms"),
         )
         for name, kv in kernels.items()
-    ]})
+    ]
+    assert sorted(r["name"] for r in rows) == sorted(REPLACES), [r["name"] for r in rows]
+    assert all(r["launches"] > 0 for r in rows), launches
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -718,6 +809,106 @@ def profile_encode(model, toks, reps: int = 3) -> dict:
         top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3 / reps,
                   calls=e.count // reps) for e in kern[:12]],
     )
+
+
+def k4_nbits_cases(dev, n) -> list:
+    """K4 at nbits 1 and 4 on random bytes, as many rows as the stage-3
+    block: bit for bit against its plain version."""
+    g = torch.Generator(device="cuda").manual_seed(77)
+    out = []
+    for nbits in (1, 4):
+        packed = torch.randint(0, 256, (n, DIM * nbits // 8), generator=g, device=dev,
+                               dtype=torch.uint8)
+        w = torch.sort(torch.randn(2**nbits, generator=g, device=dev)).values
+        got = ops.decompress_residuals(packed, w, nbits=nbits)
+        want = ref.decompress_residuals_ref(packed, w, nbits=nbits)
+        torch.cuda.synchronize()
+        row = dict(nbits=nbits, n=n, pd=packed.shape[1], equal=torch.equal(got, want),
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=time_ms(lambda: ops.decompress_residuals(packed, w, nbits=nbits), reps=10),
+                   bound_ms=k4_bound(packed.numel(), nbits)[0])
+        out.append(row)
+        assert row["equal"], row
+        del packed, got, want
+    return out
+
+
+def vanilla_phase(index, batches) -> list:
+    """The ``vanilla`` backend at the reference's vanilla_p4_c8192 settings
+    against ``VanillaEngine(impl="ref")`` on the same card (identical pids,
+    scores within 1e-5), and against ``plaid-cuda`` at paper Table 2
+    settings on the same batches: p50 per batch of each and the ratio, and
+    ``plaid-cuda``'s recall@10 against vanilla's top 10 (batch 0 warms up);
+    success@k is the share of queries whose source passage each returns."""
+    rows = []
+    for k in (10, 1000):
+        van = retrieval.from_index(index, backend="vanilla",
+                                   params=retrieval.SearchParams(k=k, **VANILLA_SETTINGS))
+        plain = vanilla.VanillaEngine(index, vanilla.VanillaParams(
+            k=k, nprobe=VANILLA_SETTINGS["nprobe"], ncandidates=VANILLA_SETTINGS["candidate_cap"],
+            ndocs_cap=VANILLA_SETTINGS["ndocs"], impl="ref"))
+        pc = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(k))
+        lat = {"vanilla": [], "plaid-cuda": []}
+        hits, found = 0, {"vanilla": 0, "plaid-cuda": 0}
+        for i, (qb, src) in enumerate(batches):
+            got = van.search_batch(qb)
+            want_s, want_p = plain.search_batch(qb)
+            check_result(got, k)
+            assert torch.equal(got.pids, want_p), f"vanilla pids differ from impl='ref' at k={k}"
+            assert torch.allclose(got.scores, want_s, rtol=1e-5, atol=1e-5)
+            res = pc.search_batch(qb)
+            top_v, top_p = got.pids[:, :10], res.pids[:, :10]
+            hits += int(((top_p[:, :, None] == top_v[:, None, :]) & (top_v[:, None, :] >= 0))
+                        .any(-1).sum())
+            for name, r in (("vanilla", got), ("plaid-cuda", res)):
+                found[name] += int((r.pids == src[:, None]).any(1).sum())
+            if i:
+                lat["vanilla"].append(got.latency_ms)
+                lat["plaid-cuda"].append(res.latency_ms)
+        p50 = {name: statistics.median(xs) for name, xs in lat.items()}
+        row = dict(k=k, batch=BATCH, batches=len(batches) - 1, settings=VANILLA_SETTINGS,
+                   vanilla_p50_ms=p50["vanilla"], plaid_cuda_p50_ms=p50["plaid-cuda"],
+                   vanilla_over_plaid_cuda=p50["vanilla"] / p50["plaid-cuda"],
+                   plaid_cuda_recall_at_10_vs_vanilla=hits / (BATCH * len(batches) * 10),
+                   success_at_k={name: n / (BATCH * len(batches)) for name, n in found.items()})
+        emit({"vanilla": row})
+        rows.append(row)
+    return rows
+
+
+def oracle_phase(index, qb) -> list:
+    """``plaid._search`` one query at a time, ``impl="cuda"`` (K5, K6) and
+    ``"ref"``, against the lanes of one ``plaid-cuda`` batch, for k in
+    {10, 100, 1000} at paper Table 2 settings."""
+    rows = []
+    qm = torch.ones(NQ, device=qb.device)
+    s1_all = pipeline.stage1_scores_batched(index, qb)  # the batch's C.Q^T
+    for k in (10, 100, 1000):
+        eng = plaid.PlaidEngine(index, plaid.params_for_k(k, impl="cuda"))
+        kw, t_cs = eng._kwargs(), eng.params.t_cs
+        batch = retrieval.from_index(index, backend="plaid-cuda",
+                                     params=retrieval.params_for_k(k)).search_batch(qb)
+        batch_s, batch_p = batch.scores, batch.pids
+        same_s1, ms = 0, []
+        for i in range(ORACLE_QUERIES):
+            same_s1 += int(torch.equal(scoring.centroid_scores(qb[i], index.centroids), s1_all[i]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_c, p_c = plaid._search(index, qb[i], qm, t_cs=t_cs, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            s_r, p_r = plaid._search(index, qb[i], qm, t_cs=t_cs, **dict(kw, impl="ref"))
+            msg = f"k={k} query {i}: stage-1 identical to the batch's for {same_s1} of {i + 1}"
+            assert torch.equal(p_c, batch_p[i]), "oracle vs plaid-cuda batch: " + msg
+            assert torch.equal(p_c, p_r), "oracle cuda vs ref: " + msg
+            assert torch.allclose(s_c, batch_s[i], rtol=1e-5, atol=1e-5), msg
+            assert torch.equal(s_c, s_r), msg
+        row = dict(k=k, queries=ORACLE_QUERIES, pids_identical=True,
+                   stage1_identical_to_batch=same_s1, search_ms_p50=statistics.median(ms))
+        emit({"oracle": row})
+        rows.append(row)
+    del s1_all
+    return rows
 
 
 def extra_kernel_cases(dev) -> list:

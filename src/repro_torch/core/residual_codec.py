@@ -36,6 +36,11 @@ def _linear_quantiles(flat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     (``q * (f32(n) - 1)``, floor/ceil, complementary weights; above 2**24
     elements ``f32(n)`` rounds, and so does the reference).  ``torch.quantile``
     is not used: it refuses inputs above 2**24 elements.
+
+    The interpolation is rounded as XLA rounds ``jnp.quantile``'s
+    ``low * w_low + high * w_high``: ``fma(high, w_high, f32(low * w_low))``.
+    The product of two f32 values is exact in f64, so only the final sum is
+    rounded twice (f64, then f32).
     """
     a = torch.sort(flat).values
     n = a.shape[0]
@@ -47,7 +52,8 @@ def _linear_quantiles(flat: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     low_w = 1.0 - high_w
     low_i = low.clamp(0, n - 1).long()
     high_i = high.clamp(0, n - 1).long()
-    return a[low_i] * low_w + a[high_i] * high_w
+    low_part = (a[low_i] * low_w).double()
+    return (a[high_i].double() * high_w.double() + low_part).float()
 
 
 def fit_codec(residuals: torch.Tensor, nbits: int) -> ResidualCodec:

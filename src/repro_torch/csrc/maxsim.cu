@@ -1,7 +1,9 @@
 // K1: batched centroid interaction, stages 2 and 3 of the PLAID funnel.
 //
 // Replaces: src/repro/kernels/maxsim.py:110 centroid_interaction_batched_pallas
-// (kernel body :88, pallas_call :131).
+// (kernel body :88, pallas_call :131).  K5 (maxsim.py:48
+// centroid_interaction_pallas, pallas_call :64) is this kernel launched with
+// B = 1: the reference's single-query kernel is the B = 1 case of this one.
 //
 // Computes, for each lane b and candidate n,
 //   out[b, n] = sum_i q_mask[b, i] * max(0, max_t S_cq[b, code_t, i])

@@ -4,9 +4,12 @@
 //   PyTorch versions reproduce warp_tree_sum's order exactly
 //   (repro_torch.core.scoring.lane_tree_sum), so kernel and plain version
 //   agree bit for bit.
-// * reconstruct_byte: the counterpart of repro/kernels/decompress.py:25-37
-//   `_unpack` plus the `centroids[code] + weights[idx]` reconstruction --
-//   8/nbits bucket indices per byte, most-significant bits first.
+// * unpack_field: the counterpart of repro/kernels/decompress.py:25-37
+//   `_unpack` -- field v of a packed byte, 8/nbits bucket indices per byte,
+//   most-significant bits first.  K2, K3 (through reconstruct_byte) and K4
+//   (decompress.cu) all unpack with it.
+// * reconstruct_byte: unpack_field plus the `centroids[code] + weights[idx]`
+//   reconstruction.
 // * score_doc: the exact-MaxSim body of K2 (decompress.cu) and K3
 //   (fused_score.cu), which differ only in where a passage's rows come from.
 //
@@ -35,6 +38,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Bucket index v (0 = most significant) of one packed residual byte.
+__device__ __forceinline__ unsigned unpack_field(unsigned byte, int nbits, int v) {
+  const int vpb = 8 / nbits;
+  return (byte >> ((vpb - 1 - v) * nbits)) & ((1u << nbits) - 1u);
+}
+
 // One packed residual byte -> 8/nbits reconstructed dims:
 // dst[v] = cent[v] + weights[field v], fields taken MSB-first.
 __device__ __forceinline__ void reconstruct_byte(const float* __restrict__ cent,
@@ -42,9 +51,8 @@ __device__ __forceinline__ void reconstruct_byte(const float* __restrict__ cent,
                                                  unsigned byte, int nbits,
                                                  float* __restrict__ dst) {
   const int vpb = 8 / nbits;
-  const unsigned mask = (1u << nbits) - 1u;
   for (int v = 0; v < vpb; ++v) {
-    const unsigned idx = (byte >> ((vpb - 1 - v) * nbits)) & mask;
+    const unsigned idx = unpack_field(byte, nbits, v);
     dst[v] = __fadd_rn(__ldg(cent + v), __ldg(weights + idx));
   }
 }

@@ -4,13 +4,15 @@ PyTorch versions.
 =====================  ==============================  ===================
 wrapper                CUDA source (csrc/)             replaces (repro)
 =====================  ==============================  ===================
-``maxsim``             ``maxsim.cu``                   ``kernels/maxsim.py``
-``decompress``         ``decompress.cu``               ``kernels/decompress.py``
-``fused_score``        ``fused_score.cu``              ``kernels/fused_score.py``
-``flash_attention``    ``flash_attention.cu``          ``kernels/flash_attention.py``
+``maxsim``             ``maxsim.cu`` (K1, K5)          ``kernels/maxsim.py``
+``decompress``         ``decompress.cu`` (K2, K6, K4)  ``kernels/decompress.py``
+``fused_score``        ``fused_score.cu`` (K3)         ``kernels/fused_score.py``
+``flash_attention``    ``flash_attention.cu`` (K7)     ``kernels/flash_attention.py``
 =====================  ==============================  ===================
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 (``ref``) for CPU tensors only; there is no other switch.  Each counts its
-launches in a module-level integer ``launches``.
+launches in a module-level integer (``launches``; K5 and K6, the B=1
+launches of K1 and K2, in ``single_launches``; K4 in
+``residual_launches``); ``ops.launch_counts()`` reads them all.
 """

@@ -115,6 +115,16 @@ def c_function(lib_name: str, fn_name: str, n_pointers: int, n_ints: int):
     return fn
 
 
+def on_card(t: torch.Tensor, name: str) -> bool:
+    """A wrapper's dispatch: True for a CUDA tensor (launch the kernel),
+    False for a CPU tensor (run the plain version); other devices raise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
 def check(t, name: str, dtype, shape: tuple, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (a ``None`` in ``shape`` matches any size)."""

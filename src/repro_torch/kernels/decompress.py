@@ -1,8 +1,19 @@
-"""K2 wrapper: batched residual decompression + exact MaxSim (stage 4).
+"""K2, K6 and K4 wrappers: residual decompression, with and without the
+exact MaxSim of stage 4.
 
-Kernel: ``csrc/decompress.cu``; replaces ``repro/kernels/decompress.py``
-``decompress_and_score_batched_pallas``.  Plain version:
-``ref.decompress_and_score_batched_ref``.
+Kernels: ``csrc/decompress.cu``, replacing ``repro/kernels/decompress.py``:
+
+* K2 ``decompress_and_score_batched`` replaces
+  ``decompress_and_score_batched_pallas``;
+* K6 ``decompress_and_score`` (one query, for the ``_search`` oracle)
+  replaces ``decompress_and_score_pallas``: the K2 kernel launched with
+  B=1, as the reference's single-query kernel is the B=1 case of the
+  batched one;
+* K4 ``decompress_residuals`` replaces ``decompress_residuals_pallas``
+  (vanilla ColBERTv2's decompressions).
+
+Plain versions: ``ref.decompress_and_score_batched_ref``,
+``ref.decompress_and_score_ref``, ``ref.decompress_residuals_ref``.
 """
 from __future__ import annotations
 
@@ -11,33 +22,20 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
 
-#: kernel launches made by this process (CPU calls are not launches)
+#: K2 launches made by this process (CPU calls are not launches)
 launches = 0
+#: K6 launches (the single-query wrapper), counted apart from K2's
+single_launches = 0
+#: K4 launches
+residual_launches = 0
 
-#: queries per lane the kernel holds (8 warps x 8 running maxima)
+#: queries per lane the K2 kernel holds (8 warps x 8 running maxima)
 MAX_NQ = 64
 
 
-def decompress_and_score_batched(
-    q: torch.Tensor,  # (B, nq, d) f32
-    q_mask: torch.Tensor,  # (B, nq) f32
-    codes: torch.Tensor,  # (B, nd, L) i32, -1 pad
-    packed_res: torch.Tensor,  # (B, nd, L, pd) u8
-    tok_valid: torch.Tensor,  # (B, nd, L) bool
-    centroids: torch.Tensor,  # (K, d) f32
-    weights: torch.Tensor,  # (2^nbits,) f32
-    *,
-    nbits: int,
-) -> torch.Tensor:
-    """(B, nd) f32 exact scores of pre-gathered finalist blocks."""
-    global launches
+def _launch_score(q, q_mask, codes, packed_res, tok_valid, centroids, weights, nbits):
+    """Check the (B, ...) arguments and launch the K2 kernel -> (B, nd)."""
     dev = q.device
-    if dev.type == "cpu":
-        return ref.decompress_and_score_batched_ref(
-            q, q_mask, codes, packed_res, tok_valid, centroids, weights, nbits=nbits
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"decompress_and_score_batched: unsupported device {dev}")
     B, nq, d = q.shape
     nd, L = codes.shape[1:]
     if nbits not in (1, 2, 4) or d % (8 // nbits) or not 0 < nq <= MAX_NQ:
@@ -57,5 +55,76 @@ def decompress_and_score_batched(
         [B, nq, d, nbits, nd, L],
         dev,
     )
+    return out
+
+
+def decompress_and_score_batched(
+    q: torch.Tensor,  # (B, nq, d) f32
+    q_mask: torch.Tensor,  # (B, nq) f32
+    codes: torch.Tensor,  # (B, nd, L) i32, -1 pad
+    packed_res: torch.Tensor,  # (B, nd, L, pd) u8
+    tok_valid: torch.Tensor,  # (B, nd, L) bool
+    centroids: torch.Tensor,  # (K, d) f32
+    weights: torch.Tensor,  # (2^nbits,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K2 -> (B, nd) f32 exact scores of pre-gathered finalist blocks."""
+    global launches
+    args = (q, q_mask, codes, packed_res, tok_valid, centroids, weights)
+    if not _build.on_card(q, "decompress_and_score_batched"):
+        return ref.decompress_and_score_batched_ref(*args, nbits=nbits)
+    out = _launch_score(*args, nbits)
     launches += 1
+    return out
+
+
+def decompress_and_score(
+    q: torch.Tensor,  # (nq, d) f32
+    q_mask: torch.Tensor,  # (nq,) f32
+    codes: torch.Tensor,  # (nd, L) i32, -1 pad
+    packed_res: torch.Tensor,  # (nd, L, pd) u8
+    tok_valid: torch.Tensor,  # (nd, L) bool
+    centroids: torch.Tensor,  # (K, d) f32
+    weights: torch.Tensor,  # (2^nbits,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K6 -> (nd,) f32: K2 for one query, its arguments viewed as B=1."""
+    global single_launches
+    if not _build.on_card(q, "decompress_and_score"):
+        return ref.decompress_and_score_ref(
+            q, q_mask, codes, packed_res, tok_valid, centroids, weights, nbits=nbits
+        )
+    out = _launch_score(
+        q[None], q_mask[None], codes[None], packed_res[None], tok_valid[None],
+        centroids, weights, nbits,
+    )
+    single_launches += 1
+    return out[0]
+
+
+def decompress_residuals(
+    packed: torch.Tensor,  # (n, pd) u8
+    weights: torch.Tensor,  # (2^nbits,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K4 -> (n, pd * 8 // nbits) f32: ``weights[unpack(packed)]``, fields
+    MSB-first."""
+    global residual_launches
+    if not _build.on_card(packed, "decompress_residuals"):
+        return ref.decompress_residuals_ref(packed, weights, nbits=nbits)
+    dev = packed.device
+    if nbits not in (1, 2, 4):
+        raise ValueError(f"unsupported nbits={nbits}")
+    _build.check(packed, "packed", torch.uint8, (None, None), dev)
+    n, pd = packed.shape
+    if n >= 2**31:
+        raise ValueError(f"packed has {n} rows; the kernel takes fewer than 2**31")
+    _build.check(weights, "weights", torch.float32, (2**nbits,), dev)
+    out = torch.empty((n, pd * 8 // nbits), dtype=torch.float32, device=dev)
+    fn = _build.c_function("decompress", "plaid_decompress_residuals", 3, 3)
+    _build.launch(fn, [packed, weights, out], [n, pd, nbits], dev)
+    residual_launches += 1
     return out

@@ -27,11 +27,9 @@ def flash_attention(
     query head ``h`` reading KV head ``h // (H // Hkv)``; ``causal`` masks
     keys after the query.  bf16 or f32; dh a multiple of 8 up to 128."""
     global launches
-    dev = q.device
-    if dev.type == "cpu":
+    if not _build.on_card(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
+    dev = q.device
     B, S, H, dh = q.shape
     Hkv = k.shape[2]
     if q.dtype not in _C_NAMES:

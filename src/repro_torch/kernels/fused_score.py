@@ -33,14 +33,12 @@ def gather_decompress_maxsim(
     """(B, n3) f32 exact scores of the finalists, read straight from the
     CSR token arrays (``doc_maxlen`` sizes only the plain version's block)."""
     global launches
-    dev = qs.device
-    if dev.type == "cpu":
+    if not _build.on_card(qs, "gather_decompress_maxsim"):
         return ref.gather_decompress_maxsim_ref(
             qs, q_masks, final_pids, codes_tok, residuals_tok, doc_offsets,
             doc_lens, centroids, weights, nbits=nbits, doc_maxlen=doc_maxlen,
         )
-    if dev.type != "cuda":
-        raise ValueError(f"gather_decompress_maxsim: unsupported device {dev}")
+    dev = qs.device
     B, nq, d = qs.shape
     n3 = final_pids.shape[1]
     nt = codes_tok.shape[0]

@@ -1,6 +1,7 @@
 """Public kernel entry points with the engine's signatures (the counterpart
-of ``repro.kernels.ops``), called by ``core.pipeline`` when
-``SearchParams.impl == "cuda"``.
+of ``repro.kernels.ops``), called by ``core.pipeline`` and ``core.plaid``
+(``_search``) when ``SearchParams.impl == "cuda"`` and by ``core.vanilla``
+when ``VanillaParams.impl == "cuda"``.
 
 Each adapts the engine's arguments (defaults, dtypes, contiguity) and calls
 its kernel wrapper, which dispatches by the tensors' device: the Hopper
@@ -18,30 +19,59 @@ from repro_torch.kernels import fused_score as _fs
 from repro_torch.kernels import maxsim as _ms
 
 __all__ = [
+    "centroid_interaction",
     "centroid_interaction_batched",
+    "decompress_residuals",
+    "decompress_and_score",
     "decompress_and_score_batched",
     "gather_decompress_maxsim",
     "launch_counts",
     "reset_launch_counts",
 ]
 
-_WRAPPERS = {
-    "centroid_interaction_batched": _ms,
-    "decompress_and_score_batched": _dec,
-    "gather_decompress_maxsim": _fs,
-    "flash_attention": _fa,
+#: kernel name -> (wrapper module, its launch counter)
+_COUNTERS = {
+    "centroid_interaction_batched": (_ms, "launches"),
+    "decompress_and_score_batched": (_dec, "launches"),
+    "gather_decompress_maxsim": (_fs, "launches"),
+    "flash_attention": (_fa, "launches"),
+    "decompress_residuals": (_dec, "residual_launches"),
+    "centroid_interaction": (_ms, "single_launches"),
+    "decompress_and_score": (_dec, "single_launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches so far, by kernel (the search kernels above and the
-    encoder's attention, ``kernels.flash_attention``)."""
-    return {name: mod.launches for name, mod in _WRAPPERS.items()}
+    """Kernel launches so far, by kernel (the search kernels above, their
+    single-query forms, K4 and the encoder's attention,
+    ``kernels.flash_attention``)."""
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def centroid_interaction(
+    s_cq: torch.Tensor,  # (K, nq)
+    codes: torch.Tensor,  # (nd, L) i32, -1 pad
+    q_mask: torch.Tensor | None = None,  # (nq,)
+    keep_centroid: torch.Tensor | None = None,  # (K,) bool
+) -> torch.Tensor:
+    """Single-query stages 2/3 (K5); signature of ``scoring.centroid_interaction``."""
+    K, nq = s_cq.shape
+    dev = s_cq.device
+    if q_mask is None:
+        q_mask = torch.ones(nq, dtype=torch.float32, device=dev)
+    if keep_centroid is None:
+        keep_centroid = torch.ones(K, dtype=torch.bool, device=dev)
+    return _ms.centroid_interaction(
+        s_cq.float().contiguous(),
+        codes.to(torch.int32).contiguous(),
+        keep_centroid.contiguous(),
+        q_mask.float().contiguous(),
+    )
 
 
 def centroid_interaction_batched(
@@ -62,6 +92,33 @@ def centroid_interaction_batched(
         codes.to(torch.int32).contiguous(),
         keep_centroid.contiguous(),
         q_mask.float().contiguous(),
+    )
+
+
+def decompress_residuals(
+    packed: torch.Tensor, weights: torch.Tensor, *, nbits: int
+) -> torch.Tensor:
+    """K4: (..., pd) u8 -> (..., pd * 8 // nbits) f32 residuals; any leading
+    dims, flattened into one launch."""
+    lead = packed.shape[:-1]
+    flat = packed.reshape(-1, packed.shape[-1]).contiguous()
+    out = _dec.decompress_residuals(flat, weights.float().contiguous(), nbits=nbits)
+    return out.reshape(*lead, out.shape[-1])
+
+
+def decompress_and_score(
+    q, q_mask, codes, packed_res, tok_valid, centroids, weights, *, nbits: int
+) -> torch.Tensor:
+    """Single-query stage-4 exact scores (K6) of a pre-gathered (nd, L) block."""
+    return _dec.decompress_and_score(
+        q.float().contiguous(),
+        q_mask.float().contiguous(),
+        codes.to(torch.int32).contiguous(),
+        packed_res.contiguous(),
+        tok_valid.contiguous(),
+        centroids.float().contiguous(),
+        weights.float().contiguous(),
+        nbits=nbits,
     )
 
 

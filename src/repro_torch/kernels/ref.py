@@ -1,9 +1,10 @@
 """Plain PyTorch versions of every ported kernel, for any device.
 
-Each search kernel's function (K1-K3) computes what its CUDA kernel
-computes, in the kernel's order of float32 arithmetic
-(``scoring.lane_tree_sum``, ``scoring.dot_in_order``), so that on the card
-a kernel and its plain version agree bit for bit.  K7's
+Each search kernel's function (K1-K3, and K5/K6, their single-query B=1
+forms) computes what its CUDA kernel computes, in the kernel's order of
+float32 arithmetic (``scoring.lane_tree_sum``, ``scoring.dot_in_order``),
+so that on the card a kernel and its plain version agree bit for bit.  K4
+(``decompress_residuals_ref``) is a table lookup and agrees exactly.  K7's
 (``flash_attention_ref``) repeats the reference's math on one whole-S tile
 and agrees with its kernel to a stated tolerance.  The
 wrappers run these for CPU tensors; ``chip_smoke.py`` and the GPU tests call
@@ -64,6 +65,30 @@ def centroid_interaction_batched_ref(
     return out
 
 
+def centroid_interaction_ref(
+    s_cq: torch.Tensor,  # (K, nq)
+    codes: torch.Tensor,  # (nd, L) i32, -1 pad
+    keep: torch.Tensor | None,  # (K,) bool
+    q_mask: torch.Tensor | None,  # (nq,) f32
+) -> torch.Tensor:
+    """K5: K1 for one query -> (nd,) f32."""
+    return centroid_interaction_batched_ref(
+        s_cq[None], codes[None],
+        None if keep is None else keep[None],
+        None if q_mask is None else q_mask[None],
+    )[0]
+
+
+def decompress_residuals_ref(
+    packed: torch.Tensor,  # (..., pd) u8
+    weights: torch.Tensor,  # (2^b,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K4: ``weights[unpack(packed)]``, fields MSB-first -> (..., pd*8/b) f32."""
+    return weights.float()[rc.unpack_indices(packed, nbits).long()]
+
+
 def decompress_and_score_batched_ref(
     q: torch.Tensor,  # (B, nq, d) f32
     q_mask: torch.Tensor,  # (B, nq) f32
@@ -88,7 +113,7 @@ def decompress_and_score_batched_ref(
     for sl in _lane_chunks(B, nd * L * d):
         c = codes[sl]
         safe = torch.where(c >= 0, c, 0).long()
-        resid = w[rc.unpack_indices(packed_res[sl], nbits).long()]  # (nb, nd, L, d)
+        resid = decompress_residuals_ref(packed_res[sl], w, nbits=nbits)  # (nb, nd, L, d)
         emb = cents[safe] + resid
         emb_t = emb.transpose(-1, -2).contiguous()  # (nb, nd, d, L)
         # (nb, 1, nq, d, 1) . (nb, nd, 1, d, L) over d -> (nb, nd, nq, L)
@@ -99,6 +124,24 @@ def decompress_and_score_batched_ref(
         per_q = scores.amax(dim=-1) * q_mask[sl].float()[:, None, :]
         out[sl] = scoring.lane_tree_sum(per_q)
     return out
+
+
+def decompress_and_score_ref(
+    q: torch.Tensor,  # (nq, d) f32
+    q_mask: torch.Tensor,  # (nq,) f32
+    codes: torch.Tensor,  # (nd, L) i32, -1 pad
+    packed_res: torch.Tensor,  # (nd, L, pd) u8
+    tok_valid: torch.Tensor,  # (nd, L) bool
+    centroids: torch.Tensor,  # (K, d) f32
+    weights: torch.Tensor,  # (2^b,) f32
+    *,
+    nbits: int,
+) -> torch.Tensor:
+    """K6: K2 for one query -> (nd,) f32."""
+    return decompress_and_score_batched_ref(
+        q[None], q_mask[None], codes[None], packed_res[None], tok_valid[None],
+        centroids, weights, nbits=nbits,
+    )[0]
 
 
 def gather_decompress_maxsim_ref(

@@ -7,8 +7,9 @@
     res2 = r.search_batch(qs, t_cs=0.4)
     r.save("/idx");  r2 = retrieval.load("/idx")
 
-Backends: ``"plaid"`` (plain PyTorch) and ``"plaid-cuda"`` (Hopper
-kernels); see ``retrieval.list_backends()``.
+Backends: ``"plaid"`` (plain PyTorch), ``"plaid-cuda"`` (Hopper kernels)
+and ``"vanilla"`` (the ColBERTv2 baseline, K4 on the card); see
+``retrieval.list_backends()``.
 """
 from repro_torch.retrieval.registry import (
     build,

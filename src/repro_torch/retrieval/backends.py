@@ -2,11 +2,16 @@
 of the ``plaid`` / ``plaid-pallas`` part of ``repro.retrieval.backends``).
 
 ==============  =========================================================
+``vanilla``     ColBERTv2 baseline (embedding-level IVF, full padded
+                decompression through K4).  No dynamic parameters.
 ``plaid``       PLAID 4-stage pipeline, plain PyTorch ops (any device).
 ``plaid-cuda``  The same pipeline through the Hopper kernels
                 (``repro_torch.kernels``); on CPU tensors the kernels'
                 plain versions run, so it also answers on ``device="cpu"``.
 ==============  =========================================================
+
+``SearchParams.candidate_cap`` is the stage-1 bound in each engine's own
+unit: candidate *passages* for PLAID, candidate *embeddings* for vanilla.
 
 Funnel telemetry (``with_funnel=True``) and the tiered storage mode are not
 ported; both are refused with a ``ValueError`` / ``NotImplementedError``.
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.core import indexer
 from repro_torch.core import plaid as plaid_mod
+from repro_torch.core import vanilla as vanilla_mod
 from repro_torch.retrieval import registry
 from repro_torch.retrieval.types import (
     DYNAMIC_FIELDS,
@@ -70,7 +76,26 @@ def _reject_funnel(req: SearchRequest, backend: str) -> None:
         )
 
 
-def _finish(out, *, backend, k, t_cs, t0, diag: bool) -> SearchResult:
+def _reject_diagnostics(req: SearchRequest, backend: str) -> None:
+    if req.with_diagnostics:
+        raise ValueError(
+            f"with_diagnostics is not supported by backend {backend!r} "
+            "(per-stage survivor counts exist on 'plaid'/'plaid-cuda')"
+        )
+
+
+def _index_summary(index) -> dict:
+    return dict(
+        num_passages=index.num_passages,
+        num_tokens=index.num_tokens,
+        num_centroids=index.num_centroids,
+        dim=index.dim,
+        nbits=index.nbits,
+        doc_maxlen=index.doc_maxlen,
+    )
+
+
+def _finish(out, *, backend, k, t_cs, t0, diag: bool = False) -> SearchResult:
     """Wait for the device and wrap the result with serving metadata:
     ``latency_ms`` measures a completed search."""
     scores, pids, *extras = out
@@ -151,14 +176,7 @@ class PlaidRetriever:
             dynamic=self.params.dynamic_dict(),
             static_fields=STATIC_FIELDS,
             dynamic_fields=DYNAMIC_FIELDS,
-            index=dict(
-                num_passages=self.index.num_passages,
-                num_tokens=self.index.num_tokens,
-                num_centroids=self.index.num_centroids,
-                dim=self.index.dim,
-                nbits=self.index.nbits,
-                doc_maxlen=self.index.doc_maxlen,
-            ),
+            index=_index_summary(self.index),
         )
 
 
@@ -167,3 +185,73 @@ class PlaidCudaRetriever(PlaidRetriever):
     """PLAID through the Hopper kernels (the counterpart of ``plaid-pallas``)."""
 
     impl = "cuda"
+
+
+# --------------------------------------------------------------------------
+# Vanilla ColBERTv2 baseline
+# --------------------------------------------------------------------------
+@registry.register("vanilla")
+class VanillaRetriever:
+    """ColBERTv2 baseline behind the facade.  No dynamic parameters
+    (``t_cs`` overrides are accepted and ignored: the pipeline has no
+    pruning stage).  It always runs ``impl="cuda"``: K4 decompresses for an
+    index on the card, its plain version for an index on the CPU."""
+
+    impl = "cuda"
+
+    def __init__(self, index, params: SearchParams | None = None):
+        self.index = index
+        self.params = params or SearchParams()
+        p = self.params
+        self._engine = vanilla_mod.VanillaEngine(
+            index,
+            vanilla_mod.VanillaParams(
+                k=p.k, nprobe=p.nprobe, ncandidates=p.candidate_cap,
+                ndocs_cap=p.ndocs, impl=self.impl,
+            ),
+        )
+
+    @classmethod
+    def from_index(cls, index, cfg: RetrieverConfig):
+        return cls(index, cfg.params)
+
+    @classmethod
+    def load(cls, path: str, params: SearchParams | None = None, *, device="cuda"):
+        return cls(indexer.load_index(path, device), params)
+
+    def save(self, path: str) -> None:
+        indexer.save_index(path, self.index)
+        registry.write_meta(path, self)
+
+    def _search(self, fn, q, q_mask, t_cs, with_diagnostics, with_funnel):
+        req = _as_request(q, q_mask, t_cs, with_diagnostics, with_funnel)
+        _reject_diagnostics(req, self.backend_name)
+        _reject_funnel(req, self.backend_name)
+        t0 = time.perf_counter()
+        out = fn(req.q, req.q_mask)
+        return _finish(out, backend=self.backend_name, k=self.params.k, t_cs=None, t0=t0)
+
+    def search(self, q, q_mask=None, *, t_cs=None, with_diagnostics=False,
+               with_funnel=False):
+        """One query matrix (nq, dim) -> top-k SearchResult."""
+        return self._search(self._engine.search, q, q_mask, t_cs,
+                            with_diagnostics, with_funnel)
+
+    def search_batch(self, qs, q_masks=None, *, t_cs=None,
+                     with_diagnostics=False, with_funnel=False):
+        """Query batch (B, nq, dim) -> batched top-k SearchResult."""
+        return self._search(self._engine.search_batch, qs, q_masks, t_cs,
+                            with_diagnostics, with_funnel)
+
+    def describe(self) -> dict:
+        return dict(
+            backend=self.backend_name,
+            impl=self.impl,
+            device=str(self.index.device),
+            static=self.params.static_dict(),
+            static_effective=self._engine._kwargs(),
+            dynamic={},
+            static_fields=STATIC_FIELDS,
+            dynamic_fields=(),  # vanilla has no per-call knobs
+            index=_index_summary(self.index),
+        )

@@ -5,7 +5,7 @@
     r.save(path)
     r = retrieval.load(path)              # backend recorded on disk
 
-``retriever.json`` has the reference's format, so a ``"plaid"`` directory
+``retriever.json`` has the reference's format, so a ``"plaid"`` or ``"vanilla"`` directory
 moves between the packages with its backend and params.
 """
 from __future__ import annotations

@@ -43,8 +43,8 @@ def test_pack_rejects_ragged_dim():
 def test_fit_bucketize_compress_decompress_match_reference(nbits):
     rng = np.random.default_rng(10 + nbits)
     ref_codec, codec = _codec_pair(nbits, rng)
-    np.testing.assert_allclose(codec.cutoffs.numpy(), np.asarray(ref_codec.cutoffs), rtol=1e-6, atol=0)
-    np.testing.assert_allclose(codec.weights.numpy(), np.asarray(ref_codec.weights), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(codec.cutoffs.numpy(), np.asarray(ref_codec.cutoffs))
+    np.testing.assert_array_equal(codec.weights.numpy(), np.asarray(ref_codec.weights))
     # from here on both sides use the SAME tables, so results are exact
     codec = trc.ResidualCodec(_t(np.asarray(ref_codec.cutoffs)), _t(np.asarray(ref_codec.weights)), nbits)
     x = rng.standard_normal((50, 32)).astype(np.float32) * 0.05
@@ -87,8 +87,40 @@ def test_fit_codec_above_2_pow_24_elements():
     resid = (rng.standard_normal(2**24 + 3) * 0.03).astype(np.float32)
     codec = trc.fit_codec(_t(resid), 2)
     ref_codec = rc.fit_codec(jnp.asarray(resid), 2)
-    np.testing.assert_allclose(codec.cutoffs.numpy(), np.asarray(ref_codec.cutoffs), rtol=1e-6, atol=0)
-    np.testing.assert_allclose(codec.weights.numpy(), np.asarray(ref_codec.weights), rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(codec.cutoffs.numpy(), np.asarray(ref_codec.cutoffs))
+    np.testing.assert_array_equal(codec.weights.numpy(), np.asarray(ref_codec.weights))
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("n", [7, 50, 1001, 4099, 20000])
+def test_fit_codec_is_bit_identical_to_reference(nbits, n):
+    """Cutoffs and weights equal ``jnp.quantile``'s in every bit.  The sizes
+    put most quantile positions between two samples, where XLA rounds the
+    interpolation as ``fma(high, w_high, f32(low * w_low))``."""
+    rng = np.random.default_rng(100 * nbits + n)
+    for scale in (0.03, 1.0):
+        resid = (rng.standard_normal(n) * scale).astype(np.float32)
+        codec = trc.fit_codec(_t(resid), nbits)
+        ref_codec = rc.fit_codec(jnp.asarray(resid), nbits)
+        np.testing.assert_array_equal(codec.cutoffs.numpy(), np.asarray(ref_codec.cutoffs))
+        np.testing.assert_array_equal(codec.weights.numpy(), np.asarray(ref_codec.weights))
+
+
+def test_frozen_centroid_build_with_fitted_codec_is_array_identical():
+    """With the reference's trained centroids frozen, both packages fit the
+    codec on the same residuals; the fit is bit-identical, so every array
+    of the two indexes is too."""
+    from repro.core import index as ri
+    from repro.data import synthetic as syn
+    from repro_torch.core import index as ti
+
+    docs, _ = syn.embedding_corpus(150, dim=32, seed=3)
+    docs = [np.asarray(d, np.float32) for d in docs]
+    cents = np.asarray(ri.build_index(docs, num_centroids=32, nbits=2, kmeans_iters=3).centroids)
+    want = ri.build_index(docs, centroids=cents, nbits=2)
+    got = ti.build_index(docs, centroids=cents, nbits=2, device="cpu")
+    for f in ti.ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
 
 
 def test_fit_codec_rejects_unsupported_nbits():

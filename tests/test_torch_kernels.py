@@ -1,12 +1,12 @@
-"""The kernels' plain PyTorch versions against the reference (K1 and K2:
-the Pallas kernels of ``repro.kernels.ops`` in interpret mode on the CPU;
-K3: the reference's plain version), and the CUDA kernels against their
-plain versions (``gpu`` marker: needs a card, skips here).
+"""The kernels' plain PyTorch versions against the reference (K1, K2, K4,
+K5 and K6: the Pallas kernels of ``repro.kernels.ops`` in interpret mode on
+the CPU; K3: the reference's plain version), and the CUDA kernels against
+their plain versions (``gpu`` marker: needs a card, skips here).
 
 Tolerance: rtol = atol = 1e-5 on scores.  The port sums in another order
 than XLA (the kernels' 32-lane butterfly), which moves the last bits of a
 float32 sum of 32 terms; on the card, kernel and plain version share one
-order and agree bit for bit.
+order and agree bit for bit.  K4 is a table lookup and is held exactly.
 """
 import numpy as np
 import pytest
@@ -167,19 +167,100 @@ def test_k3_plain_equals_k2_plain_on_gathered_blocks():
     assert torch.equal(fused, unfused)
 
 
+# --------------------------------------------------------------------------
+# K4 (decompress_residuals) and the single-query K5 / K6
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("lead", [(37,), (3, 7, 5)])
+def test_k4_plain_matches_pallas_exactly(reference, nbits, lead):
+    """Any leading dims flatten into one call, as ``repro.kernels.ops``
+    flattens them; ``row_block`` does not divide the row count."""
+    rng = np.random.default_rng(30 + nbits)
+    packed = rng.integers(0, 256, (*lead, 64 * nbits // 8)).astype(np.uint8)
+    weights = np.sort(rng.standard_normal(2**nbits)).astype(np.float32)
+    want = np.asarray(rops.decompress_residuals(
+        jnp.asarray(packed), jnp.asarray(weights), nbits=nbits, interpret=True, row_block=16,
+    ))
+    got = tops.decompress_residuals(_t(packed), _t(weights), nbits=nbits).numpy()
+    assert got.shape == want.shape == (*lead, 64)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tref.decompress_residuals_ref(_t(packed), _t(weights), nbits=nbits).numpy(), want
+    )
+
+
+@pytest.mark.parametrize("seed,nq", [(0, 12), (1, 40)])
+@pytest.mark.parametrize("with_keep", [True, False])
+def test_k5_plain_matches_pallas(reference, seed, nq, with_keep):
+    a = k1_inputs(40 + seed, B=1, nq=nq)
+    s_cq, codes, q_mask = a["s_cq"][0], a["codes"][0], a["q_mask"][0]
+    keep = a["keep"][0] if with_keep else None
+    want = rops.centroid_interaction(
+        jnp.asarray(s_cq), jnp.asarray(codes), jnp.asarray(q_mask),
+        None if keep is None else jnp.asarray(keep), interpret=True, doc_block=8,
+    )
+    got = tops.centroid_interaction(
+        _t(s_cq), _t(codes), _t(q_mask), None if keep is None else _t(keep)
+    )
+    assert got.shape == (codes.shape[0],)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_k6_plain_matches_pallas(reference, nbits):
+    a = k2_inputs(50 + nbits, nbits, B=1)
+    args = ("q", "q_mask", "codes", "packed_res", "tok_valid")
+    want = rops.decompress_and_score(
+        *(jnp.asarray(a[k][0]) for k in args),
+        jnp.asarray(a["centroids"]), jnp.asarray(a["weights"]),
+        nbits=nbits, interpret=True, doc_block=4,
+    )
+    got = tops.decompress_and_score(
+        *(_t(a[k][0]) for k in args), _t(a["centroids"]), _t(a["weights"]), nbits=nbits
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_single_query_plain_versions_are_lanes_of_the_batched_ones():
+    """K5 / K6's plain versions equal one lane of K1 / K2's bit for bit:
+    the kernels they stand for are the batched kernels at B=1."""
+    a = {k: _t(v) for k, v in k1_inputs(6).items()}
+    batched = tref.centroid_interaction_batched_ref(a["s_cq"], a["codes"], a["keep"], a["q_mask"])
+    for b in range(a["s_cq"].shape[0]):
+        one = tref.centroid_interaction_ref(a["s_cq"][b], a["codes"][b], a["keep"][b], a["q_mask"][b])
+        assert torch.equal(one, batched[b])
+    a = {k: _t(v) for k, v in k2_inputs(7, 2).items()}
+    lane = ("q", "q_mask", "codes", "packed_res", "tok_valid")
+    batched = tref.decompress_and_score_batched_ref(
+        *(a[k] for k in lane), a["centroids"], a["weights"], nbits=2
+    )
+    for b in range(a["q"].shape[0]):
+        one = tref.decompress_and_score_ref(
+            *(a[k][b] for k in lane), a["centroids"], a["weights"], nbits=2
+        )
+        assert torch.equal(one, batched[b])
+
+
 def test_cpu_calls_are_not_launches_and_other_devices_are_refused():
     tops.reset_launch_counts()
     a = k1_inputs(3)
     tms.centroid_interaction_batched(_t(a["s_cq"]), _t(a["codes"]), _t(a["keep"]), _t(a["q_mask"]))
+    tms.centroid_interaction(_t(a["s_cq"][0]), _t(a["codes"][0]), _t(a["keep"][0]), _t(a["q_mask"][0]))
+    tdec.decompress_residuals(torch.zeros((4, 8), dtype=torch.uint8), torch.ones(4), nbits=2)
     assert tops.launch_counts() == {
         "centroid_interaction_batched": 0,
         "decompress_and_score_batched": 0,
         "gather_decompress_maxsim": 0,
         "flash_attention": 0,
+        "decompress_residuals": 0,
+        "centroid_interaction": 0,
+        "decompress_and_score": 0,
     }
     meta = torch.empty((1, 4, 2), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tms.centroid_interaction_batched(meta, meta.int(), meta.bool()[..., 0], meta[..., 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdec.decompress_residuals(meta.to(torch.uint8)[0], meta[0, 0], nbits=2)
 
 
 def test_kernel_modules_import_without_building():
@@ -233,6 +314,48 @@ def test_k3_kernel_matches_plain_on_card(cuda, nbits):
     got = tfs.gather_decompress_maxsim(*args, nbits=nbits, doc_maxlen=10)
     want = tref.gather_decompress_maxsim_ref(*args, nbits=nbits, doc_maxlen=10)
     torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_k4_kernel_equals_plain_on_card(cuda, nbits):
+    """Bit for bit, on a ragged row count and on an input that starts at an
+    odd byte offset (a slice of a larger tensor)."""
+    rng = np.random.default_rng(60 + nbits)
+    big = _t(rng.integers(0, 256, (1001, 16 * nbits)).astype(np.uint8), cuda)
+    w = _t(np.sort(rng.standard_normal(2**nbits)).astype(np.float32), cuda)
+    before = tdec.residual_launches
+    for packed in (big, big.reshape(-1)[1:-(16 * nbits - 1)].reshape(1000, 16 * nbits)):
+        got = tdec.decompress_residuals(packed, w, nbits=nbits)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tref.decompress_residuals_ref(packed, w, nbits=nbits))
+    assert tdec.residual_launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq", [12, 40])
+def test_k5_kernel_matches_plain_on_card(cuda, nq):
+    a = {k: _t(v[0], cuda) for k, v in k1_inputs(11, B=1, nq=nq).items()}
+    before = (tms.launches, tms.single_launches)
+    got = tms.centroid_interaction(a["s_cq"], a["codes"], a["keep"], a["q_mask"])
+    want = tref.centroid_interaction_ref(a["s_cq"], a["codes"], a["keep"], a["q_mask"])
+    torch.cuda.synchronize()
+    assert (tms.launches, tms.single_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+def test_k6_kernel_matches_plain_on_card(cuda, nbits):
+    a = k2_inputs(12, nbits, B=1)
+    args = [_t(a[k][0], cuda) for k in ("q", "q_mask", "codes", "packed_res", "tok_valid")]
+    args += [_t(a["centroids"], cuda), _t(a["weights"], cuda)]
+    before = (tdec.launches, tdec.single_launches)
+    got = tdec.decompress_and_score(*args, nbits=nbits)
+    want = tref.decompress_and_score_ref(*args, nbits=nbits)
+    torch.cuda.synchronize()
+    assert (tdec.launches, tdec.single_launches) == (before[0], before[1] + 1)
     torch.testing.assert_close(got, want, **TOL)
 
 
