@@ -17,11 +17,14 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                main path's shapes and at nbits 1/4, ragged nd, nq 20/40;
                K4 at vanilla's stage-3 block (4096 passages x 180 rows)
                and at nbits 1/4, K5/K6 at ``_search``'s k=1000 shapes;
-               median times of CUDA-event-timed launches;
+               median times of launches between CUDA events (``ms``) and
+               of the same behind a device sleep (``device_ms``: device
+               work alone, without the host's submission);
 6. flash       K7 (attention) against its plain version at the encoder's
                two bf16 shapes (B=32 queries of 32 tokens, B=64 passages of
                180; 48 heads over 12 KV heads, dh 64) and the reference's
-               f32 test shapes (causal, MQA); times beside SDPA's;
+               f32 test shapes (causal, MQA); ``ms``, ``device_ms`` and
+               the host's time per call (``host_us``) beside SDPA's;
 7. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
@@ -104,6 +107,7 @@ REPLACES = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:86"),
 }
 ENCODE_PASSAGES, DOC_MAXLEN, ENCODE_BATCH = 8192, 180, 64
+SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
@@ -192,7 +196,8 @@ def synth_queries(index, n, seed):
 # timing and bounds
 # --------------------------------------------------------------------------
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median over ``reps`` calls, each between two CUDA events."""
+    """Median over ``reps`` calls, each between two CUDA events: the call's
+    device time plus whatever part of its host work the device waits for."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -204,6 +209,41 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """As ``time_ms``, with a device sleep of ~1 ms (``SLEEP_CYCLES``)
+    queued before the start event: the device is still asleep while the
+    host submits the call, so the events time the call's device work
+    alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int, warmup: int = 2) -> float:
+    """Median host time of one call on an idle device, from entry to return
+    (argument checks, launch set-up and submission; no synchronize)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -275,7 +315,8 @@ def main(argv=None) -> int:
         libs = _build.build_all()
         info["libraries"] = {k: str(v.relative_to(SRC.parent)) for k, v in libs.items()}
         info["ptxas"] = {
-            k: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+            k: [ln.strip() for ln in log.splitlines()
+                if any(t in ln for t in ("entry function", "registers", "spill"))]
             for k, log in _build.BUILD_LOGS.items()
         }
 
@@ -431,7 +472,8 @@ def main(argv=None) -> int:
                   else torch.allclose(got, want, rtol=1e-5, atol=1e-5))
             kernels[name] = dict(
                 max_abs_err=float(err.max()), max_rel_err=float(rel.max()),
-                ms=time_ms(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
+                ms=time_ms(kern, reps=25), device_ms=device_time_ms(kern, reps=25),
+                plain_ms=time_ms(plain, reps=5, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, shape=shp,
             )
             emit({"kernel_check": name, "ok": ok, **kernels[name]})
@@ -558,7 +600,7 @@ def main(argv=None) -> int:
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
             launches=launches[name], max_abs_err=kv["max_abs_err"], ms=kv["ms"],
-            plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
+            device_ms=kv["device_ms"], plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
             library_ms=kv.get("library_ms"),
         )
         for name, kv in kernels.items()
@@ -632,8 +674,10 @@ def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool) -> dict:
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
         row.update(
-            ms=time_ms(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
-            library_ms=time_ms(sdpa, reps=25),
+            ms=time_ms(kern, reps=25), device_ms=device_time_ms(kern, reps=25),
+            host_us=host_us(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
+            library_ms=time_ms(sdpa, reps=25), library_device_ms=device_time_ms(sdpa, reps=25),
+            library_host_us=host_us(sdpa, reps=25),
             library_max_abs_err=float((lib.float() - want.float()).abs().max()),
             bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
         )

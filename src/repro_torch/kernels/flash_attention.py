@@ -1,7 +1,8 @@
 """K7 wrapper: attention with an online softmax (flash attention) on the card.
 
-Kernel: ``csrc/flash_attention.cu``; replaces ``repro/kernels/flash_attention.py``
-``flash_attention``.  Plain version: ``ref.flash_attention_ref``.
+Kernel: ``csrc/flash_attention.cu`` (bf16: wgmma and TMA; f32: CUDA cores);
+replaces ``repro/kernels/flash_attention.py`` ``flash_attention``.  Plain
+version: ``ref.flash_attention_ref``.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ def flash_attention(
     _build.check(q, "q", q.dtype, (B, S, H, dh), dev)
     _build.check(k, "k", q.dtype, (B, S, Hkv, dh), dev)
     _build.check(v, "v", q.dtype, (B, S, Hkv, dh), dev)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     fn = _build.c_function("flash_attention", _C_NAMES[q.dtype], 4, 6)
     _build.launch(fn, [q, k, v, out], [B, S, H, Hkv, dh, int(causal)], dev)

@@ -12,8 +12,12 @@ Tolerances, with their reasons:
   can round to neighbouring bf16 values.
 * on the card, kernel vs plain version: f32 atol = rtol = 1e-5 (the kernel
   walks 64-key tiles with rescaling, the plain version one whole-S tile);
-  bf16 one bf16 ulp as above.
+  bf16 one bf16 ulp as above.  The bf16 kernel computes both products on
+  the tensor cores, with ``p`` split into three bf16 terms for ``p . v``; the
+  emulation tests below hold that arithmetic to the same one ulp on the CPU.
 """
+import itertools
+
 import numpy as np
 import pytest
 
@@ -25,6 +29,7 @@ try:  # the reference; a host with only the port installed runs the gpu cases
 except ImportError:
     jnp = ref_flash = ref_layers = None
 
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -128,6 +133,91 @@ def test_cpu_calls_are_not_launches():
 
 
 # --------------------------------------------------------------------------
+# The bf16 kernel's arithmetic, emulated on the CPU
+# --------------------------------------------------------------------------
+def emulate_bf16_kernel(q, k, v, *, causal, terms=3):
+    """The bf16 kernel's arithmetic in plain torch: 64-key tiles with the
+    online rescaling; ``q . k^T`` from bf16 inputs summed in f32 (the
+    products are exact); ``p`` in f32, then ``p . v`` as the f32 sum of
+    ``t . v`` over ``p``'s first ``terms`` bf16 terms ``t`` (the kernel's
+    three: ``bf16(p)``, ``bf16(p - bf16(p))``, and one more of the rest)."""
+    B, S, H, dh = q.shape
+    g = H // k.shape[2]
+    qf = q.float().transpose(1, 2)  # (B, H, S, dh)
+    kf = k.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(g, dim=2).transpose(1, 2)
+    m = torch.full((B, H, S, 1), -1e30)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, dh))
+    pos = torch.arange(S)
+    for k0 in range(0, S, 64):
+        kt, vt = kf[:, :, k0 : k0 + 64], vf[:, :, k0 : k0 + 64]
+        s = (qf @ kt.transpose(-1, -2)) * dh**-0.5
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])
+            s = torch.where(keys[None, :] <= pos[:, None], s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        pv, rest = torch.zeros_like(acc), p
+        for _ in range(terms):
+            t = rest.bfloat16().float()
+            pv = pv + t @ vt
+            rest = rest - t  # exact in f32
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + pv
+        m = m_new
+    return (acc / l.clamp(min=1e-20)).transpose(1, 2).bfloat16()
+
+
+#: (seed, B, S, H, Hkv, dh, causal): the encoder's passage shape at reduced
+#: B, and a ragged causal case whose short rows have outputs near zero
+PASSAGES = (6, 2, 180, 48, 12, 64, False)
+CAUSAL_65 = (10, 2, 65, 8, 2, 64, True)
+
+
+def _bf16_case(seed, B, S, H, Hkv, dh, causal):
+    """bf16 inputs made with numpy, and the reference's output on them."""
+    q, k, v = (x.astype(jnp.bfloat16) for x in map(jnp.asarray, qkv(seed, B, S, H, Hkv, dh)))
+    want = ref_flash(q, k, v, causal=causal, interpret=True)
+    return [torch.from_numpy(np.asarray(x, np.float32)).bfloat16() for x in (q, k, v, want)]
+
+
+def _outside_one_ulp(got, want) -> int:
+    tol = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.float().abs()
+    return int(((got.float() - want.float()).abs() > tol).sum())
+
+
+@pytest.mark.parametrize("case", [PASSAGES, CAUSAL_65], ids=["passages", "causal65"])
+def test_split_p_emulation_within_one_bf16_ulp(reference, case):
+    """The tolerance argument of the bf16 kernel: with ``p`` split into
+    three bf16 terms for ``p . v`` its arithmetic stays within one bf16 ulp
+    of the reference (``p`` in f32) everywhere.  Fewer terms do not
+    (``test_fewer_p_terms_miss_one_bf16_ulp``): one bf16 ``p`` misses for
+    about 11% of the outputs at the passage shape, and ``bf16(p) +
+    bf16(p - bf16(p))`` (~2^-18 of ``p``) for about one in a million, near
+    zero in short causal rows, where the 1e-6 atol is all the room there
+    is.  Hence three."""
+    seed, *shape = case
+    q, k, v, want = _bf16_case(seed, *shape)
+    got = emulate_bf16_kernel(q, k, v, causal=shape[-1])
+    np.testing.assert_allclose(_np(got), _np(want), **BF16_TOL)
+
+
+@pytest.mark.parametrize("terms,case,at_least", [(1, PASSAGES, 100_000), (2, CAUSAL_65, 1)],
+                         ids=["one_term", "two_terms"])
+def test_fewer_p_terms_miss_one_bf16_ulp(reference, terms, case, at_least):
+    """The design's other arms, on the same inputs as the three-term test:
+    one bf16 ``p`` (the tensor cores' plain input) misses one bf16 ulp for
+    ~11% of the passage-shape outputs (121,066 of 1,105,920); two terms
+    miss it for one output of the causal case."""
+    seed, *shape = case
+    q, k, v, want = _bf16_case(seed, *shape)
+    got = emulate_bf16_kernel(q, k, v, causal=shape[-1], terms=terms)
+    assert _outside_one_ulp(got, want) >= at_least
+
+
+# --------------------------------------------------------------------------
 # On the card: the kernel against its plain version
 # --------------------------------------------------------------------------
 @pytest.fixture
@@ -135,6 +225,17 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     return torch.device("cuda")
+
+
+#: bf16 (S, dh, causal) over ragged and full tiles and every head-dim
+#: padding, at B=2 and 8 query heads; the KV grouping cycles through MHA,
+#: 4 query heads a group and MQA
+BF16_GRID = [
+    (2, S, 8, (8, 2, 1)[i % 3], dh, causal, "bfloat16")
+    for i, (S, dh, causal) in enumerate(
+        itertools.product((1, 32, 63, 65, 180, 257), (8, 16, 64, 72, 128), (False, True))
+    )
+]
 
 
 @pytest.mark.gpu
@@ -146,7 +247,9 @@ def cuda():
         (4, 180, 48, 12, 64, False, "bfloat16"),  # encoder passages
         (2, 77, 6, 3, 128, True, "bfloat16"),  # dh 128, ragged S
         (1, 129, 4, 1, 24, True, "float32"),  # dh padded to 64, MQA
-    ],
+        (3, 77, 48, 1, 64, True, "bfloat16"),  # MQA: 16 heads stacked in a tile
+    ]
+    + BF16_GRID,
 )
 def test_k7_kernel_matches_plain_on_card(cuda, B, S, H, Hkv, dh, causal, dtype):
     dt = getattr(torch, dtype)
@@ -158,3 +261,17 @@ def test_k7_kernel_matches_plain_on_card(cuda, B, S, H, Hkv, dh, causal, dtype):
     assert tfa.launches == before + 1
     assert got.dtype == dt
     torch.testing.assert_close(got.float(), want.float(), **(F32_TOL if dtype == "float32" else BF16_TOL))
+
+
+@pytest.mark.gpu
+def test_k7_refuses_what_the_kernel_does_not_take_on_card(cuda):
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in qkv(9, 1, 16, 4, 2, 16))
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention(flat[1:].view(q.shape), k, v)
+    # a launch the C function refuses (dh 7) raises; it is not swallowed
+    fn = _build.c_function("flash_attention", "plaid_flash_attention_bf16", 4, 6)
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        _build.launch(fn, [q, k, v, torch.empty_like(q)], [1, 16, 4, 2, 7, 0], q.device)
