@@ -14,17 +14,20 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
 4. reference   a small index searched under lossless caps against a brute-
                force exact MaxSim written here, independent of the engine;
 5. kernels     K1/K2/K3 held against their plain PyTorch versions at the
-               main path's shapes and at nbits 1/4, ragged nd, nq 20/40;
+               main path's shapes and at nbits 1/4, ragged nd, nq 20/40
+               (K2, K3 and K6 bit for bit, K1 and K5 within 1e-5);
                K4 at vanilla's stage-3 block (4096 passages x 180 rows)
                and at nbits 1/4, K5/K6 at ``_search``'s k=1000 shapes;
+               K2/K3's blocks an SM (the occupancy API);
                median times of launches between CUDA events (``ms``) and
                of the same behind a device sleep (``device_ms``: device
                work alone, without the host's submission);
 6. flash       K7 (attention) against its plain version at the encoder's
                two bf16 shapes (B=32 queries of 32 tokens, B=64 passages of
-               180; 48 heads over 12 KV heads, dh 64) and the reference's
-               f32 test shapes (causal, MQA); ``ms``, ``device_ms`` and
-               the host's time per call (``host_us``) beside SDPA's;
+               180; 48 heads over 12 KV heads, dh 64), the reference's f32
+               test shapes (causal, MQA) and bf16 views at an odd offset
+               and transposed; ``ms``, ``device_ms`` and the host's time
+               per call (``host_us``) beside SDPA's;
 7. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
@@ -96,6 +99,9 @@ VANILLA_BATCHES = 3  # one warm-up, two timed
 ORACLE_QUERIES = 8
 #: the reference's vanilla_p4_c8192 (benchmarks/table3_endtoend.py:25-31)
 VANILLA_SETTINGS = dict(nprobe=4, candidate_cap=2**13, ndocs=4096)
+#: kernels held bit for bit against their plain versions
+BIT_EXACT = ("decompress_residuals", "decompress_and_score_batched",
+             "gather_decompress_maxsim", "decompress_and_score")
 #: kernel -> (its CUDA source, the TPU kernel it replaces)
 REPLACES = {
     "centroid_interaction_batched": ("src/repro_torch/csrc/maxsim.cu", "src/repro/kernels/maxsim.py:110"),
@@ -284,6 +290,25 @@ def stage4_bound(n_tokens, codes_valid, nq, d, pd, B, n_out, extra_bytes):
     return bound(nbytes + extra_bytes, 2.0 * n_tokens * nq * d + n_tokens * nq)
 
 
+def contract_bound_ms(n_tokens, nq, d) -> float:
+    """K2/K3/K6 under the shared-order contract: no FMA, so each of the
+    nq*d terms of a token is a rounded multiply and a rounded add, two
+    instructions on the FP32 pipes, each at half the 67 TFLOP/s (which
+    counts an FMA as two operations): twice the operations bound."""
+    return 2.0 * n_tokens * nq * d / (F32_FLOPS / 2) * 1e3
+
+
+def score_occupancy(nq, d, L) -> dict:
+    """Blocks of K2's and K3's nbits-2 body an SM holds at the G the main
+    path picks (the occupancy API, through the kernels' libraries)."""
+    from repro_torch.kernels import decompress as dec
+
+    g2, g3 = dec.passages_per_block(BATCH, 1024, L), dec.passages_per_block(BATCH, 1024)
+    return dict(
+        G_k2=g2, k2=_build.load("decompress").plaid_decompress_score_blocks_per_sm(nq, d, g2, L),
+        G_k3=g3, k3=_build.load("fused_score").plaid_gather_maxsim_blocks_per_sm(nq, d, g3, 0))
+
+
 # --------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -461,14 +486,20 @@ def main(argv=None) -> int:
                          v6.numel()),
             dict(nd=c6.shape[0], L=c6.shape[1], pd=r6.shape[-1], nq=NQ, d=DIM),
         )
+        contract = {  # K2/K3/K6: valid tokens under the no-FMA contract
+            "decompress_and_score_batched": contract_bound_ms(int(valid4.sum()), NQ, DIM),
+            "gather_decompress_maxsim": contract_bound_ms(int(valid3f.sum()), NQ, DIM),
+            "decompress_and_score": contract_bound_ms(int(v6.sum()), NQ, DIM),
+        }
         for name, (kern, plain, (bound_ms, bound_by), shp) in cases.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = (got - want).abs()
             rel = err / want.abs().clamp(min=1e-30)
-            # K4 does no arithmetic: bit for bit; the scoring kernels share
-            # their plain versions' f32 order (stated tolerance 1e-5)
-            ok = (torch.equal(got, want) if name == "decompress_residuals"
+            # K4 does no arithmetic, and K2/K3/K6 keep their plain versions'
+            # f32 order (the shared-order contract): bit for bit; K1/K5 share
+            # the order too (stated tolerance 1e-5)
+            ok = (torch.equal(got, want) if name in BIT_EXACT
                   else torch.allclose(got, want, rtol=1e-5, atol=1e-5))
             kernels[name] = dict(
                 max_abs_err=float(err.max()), max_rel_err=float(rel.max()),
@@ -476,6 +507,8 @@ def main(argv=None) -> int:
                 plain_ms=time_ms(plain, reps=5, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, shape=shp,
             )
+            if name in contract:
+                kernels[name]["contract_bound_ms"] = contract[name]
             emit({"kernel_check": name, "ok": ok, **kernels[name]})
             assert ok, name
         # stage-3 shape of K1 (keep all true), then small ragged cases
@@ -484,6 +517,8 @@ def main(argv=None) -> int:
         b = ref.centroid_interaction_batched_ref(s_cq, codes3, None, qm)
         assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), "K1 stage-3 shape"
         info["extra_cases"] = extra_kernel_cases(dev)
+        info["score_blocks_per_sm"] = score_occupancy(NQ, DIM, index.doc_maxlen)
+        assert min(info["score_blocks_per_sm"]["k2"], info["score_blocks_per_sm"]["k3"]) >= 1
         info["k4_nbits_cases"] = k4_nbits_cases(dev, res_v.shape[0] * res_v.shape[1])
         del s_cq, cands, codes_blk, codes3, res4, res_v
 
@@ -601,7 +636,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
             launches=launches[name], max_abs_err=kv["max_abs_err"], ms=kv["ms"],
             device_ms=kv["device_ms"], plain_ms=kv["plain_ms"], bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
-            library_ms=kv.get("library_ms"),
+            library_ms=kv.get("library_ms"), contract_bound_ms=kv.get("contract_bound_ms"),
         )
         for name, kv in kernels.items()
     ]
@@ -693,7 +728,36 @@ def flash_cases(dev) -> list:
     jax_shapes = [(f"reference_test_{i}", *shape, torch.float32)
                   for i, shape in enumerate(JAX_FLASH_SHAPES)]
     return ([flash_check(*c, g, timed=True) for c in enc]
-            + [flash_check(*c, g, timed=False) for c in jax_shapes])
+            + [flash_check(*c, g, timed=False) for c in jax_shapes]
+            + flash_view_cases(dev, g))
+
+
+def flash_view_cases(dev, g) -> list:
+    """K7 on views it cannot read as they stand, at the query shape: bf16 q
+    at an odd element offset (TMA needs 16-byte alignment) and transposed
+    (not contiguous); the wrapper copies them, and the result is held
+    against the plain version within one bf16 ulp and equals K7 on the
+    contiguous original."""
+    q, k, v = (torch.randn(BATCH, NQ, h, 64, generator=g, device=dev).bfloat16()
+               for h in (48, 12, 12))
+    flat = torch.empty(q.numel() + 1, device=dev, dtype=torch.bfloat16)
+    views = {"offset": flat[1:].view(q.shape).copy_(q),
+             "transposed": q.transpose(1, 2).contiguous().transpose(1, 2)}
+    base = fa.flash_attention(q, k, v, causal=False)
+    rows = []
+    for name, view in views.items():
+        got = fa.flash_attention(view, k, v, causal=False)
+        want = ref.flash_attention_ref(view, k, v, causal=False)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[torch.bfloat16]
+        row = dict(case=f"view_{name}", aligned=view.data_ptr() % 16 == 0,
+                   contiguous=view.is_contiguous(), tol=tol,
+                   max_abs_err=float((got.float() - want.float()).abs().max()),
+                   ok=torch.allclose(got.float(), want.float(), **tol) and torch.equal(got, base))
+        emit({"kernel_check": "flash_attention", **row})
+        assert row["ok"], row
+        rows.append(row)
+    return rows
 
 
 def check_result(res, k) -> None:
@@ -992,8 +1056,9 @@ def extra_kernel_cases(dev) -> list:
         ]
         errs = [float((a - b).abs().max()) for a, b in pairs]
         out.append(dict(nbits=nbits, nq=nq, d=d, nd=nd, max_abs_err=errs))
-        for (a, b), name in zip(pairs, ("K1", "K2", "K3")):
-            assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), (name, nbits, nq)
+        assert torch.allclose(*pairs[0], rtol=1e-5, atol=1e-5), ("K1", nbits, nq)
+        for (a, b), name in zip(pairs[1:], ("K2", "K3")):  # the shared-order contract
+            assert torch.equal(a, b), (name, nbits, nq)
     return out
 
 

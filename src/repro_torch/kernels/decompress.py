@@ -29,8 +29,29 @@ single_launches = 0
 #: K4 launches
 residual_launches = 0
 
-#: queries per lane the K2 kernel holds (8 warps x 8 running maxima)
+#: queries per lane the K2/K3 body holds (8 query lanes x 8 accumulators)
 MAX_NQ = 64
+
+#: the grid K2/K3 aim for: 132 SMs of the H100, 2 blocks of the body an SM
+#: (shared memory), and at least 2 waves of blocks
+SMS, BLOCKS_PER_SM, MIN_WAVES = 132, 2, 2
+#: finalists a K2/K3 block scores at most, and the bytes K2's list of valid
+#: rows may take in shared memory (4 bytes a row of the block's G*L)
+MAX_PASSAGES_PER_BLOCK, ROW_LIST_BYTES = 16, 16 * 1024
+
+
+def passages_per_block(B: int, nd: int, L: int | None = None) -> int:
+    """G, the finalists one K2/K3 block scores as one stream of tokens.
+
+    As many as keep ``MIN_WAVES`` waves of blocks on the card (more per
+    block fills the last 64-token tile better and loads the lane's queries
+    fewer times), at most ``MAX_PASSAGES_PER_BLOCK``; for K2 (``L`` given)
+    also as many as K2's row list holds.  At least 1.
+    """
+    g = B * nd // (SMS * BLOCKS_PER_SM * MIN_WAVES)
+    if L:
+        g = min(g, ROW_LIST_BYTES // (4 * L))
+    return max(1, min(MAX_PASSAGES_PER_BLOCK, g))
 
 
 def _launch_score(q, q_mask, codes, packed_res, tok_valid, centroids, weights, nbits):
@@ -48,11 +69,11 @@ def _launch_score(q, q_mask, codes, packed_res, tok_valid, centroids, weights, n
     _build.check(centroids, "centroids", torch.float32, (None, d), dev)
     _build.check(weights, "weights", torch.float32, (2**nbits,), dev)
     out = torch.empty((B, nd), dtype=torch.float32, device=dev)
-    fn = _build.c_function("decompress", "plaid_decompress_and_score_batched", 8, 6)
+    fn = _build.c_function("decompress", "plaid_decompress_and_score_batched", 8, 7)
     _build.launch(
         fn,
         [q, q_mask, codes, packed_res, tok_valid, centroids, weights, out],
-        [B, nq, d, nbits, nd, L],
+        [B, nq, d, nbits, nd, L, passages_per_block(B, nd, L)],
         dev,
     )
     return out

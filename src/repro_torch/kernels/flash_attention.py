@@ -17,6 +17,18 @@ launches = 0
 _C_NAMES = {torch.float32: "plaid_flash_attention_f32", torch.bfloat16: "plaid_flash_attention_bf16"}
 
 
+def _readable(t, dtype, dev):
+    """``t`` itself if the kernel can read it, else a copy it can: the body
+    reads contiguous rows, and the bf16 body's TMA needs 16-byte-aligned
+    addresses.  A fresh allocation is contiguous and 256-byte aligned.  A
+    tensor of another device or dtype is left for ``_build.check`` to refuse."""
+    if not isinstance(t, torch.Tensor) or t.device != dev or t.dtype != dtype:
+        return t
+    if t.is_contiguous() and not (dtype == torch.bfloat16 and t.data_ptr() % 16):
+        return t
+    return torch.empty_like(t, memory_format=torch.contiguous_format).copy_(t)
+
+
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, dh)
     k: torch.Tensor,  # (B, S, Hkv, dh)
@@ -26,7 +38,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """(B, S, H, dh) in ``q``'s dtype: ``softmax(q k^T dh^-0.5) v`` per head,
     query head ``h`` reading KV head ``h // (H // Hkv)``; ``causal`` masks
-    keys after the query.  bf16 or f32; dh a multiple of 8 up to 128."""
+    keys after the query.  bf16 or f32; dh a multiple of 8 up to 128.  Any
+    strides and offsets: a view the kernel cannot read is copied first."""
     global launches
     if not _build.on_card(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal)
@@ -39,11 +52,10 @@ def flash_attention(
         raise ValueError(f"flash_attention: head dim {dh} is not a multiple of 8 in [8, 128]")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: {H} query heads do not group over {Hkv} KV heads")
+    q, k, v = (_readable(t, q.dtype, dev) for t in (q, k, v))
     _build.check(q, "q", q.dtype, (B, S, H, dh), dev)
     _build.check(k, "k", q.dtype, (B, S, Hkv, dh), dev)
     _build.check(v, "v", q.dtype, (B, S, Hkv, dh), dev)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: bf16 q, k, v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     fn = _build.c_function("flash_attention", _C_NAMES[q.dtype], 4, 6)
     _build.launch(fn, [q, k, v, out], [B, S, H, Hkv, dh, int(causal)], dev)

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.decompress import MAX_NQ
+from repro_torch.kernels.decompress import MAX_NQ, passages_per_block
 
 #: kernel launches made by this process (CPU calls are not launches)
 launches = 0
@@ -55,12 +55,12 @@ def gather_decompress_maxsim(
     _build.check(centroids, "centroids", torch.float32, (None, d), dev)
     _build.check(weights, "weights", torch.float32, (2**nbits,), dev)
     out = torch.empty((B, n3), dtype=torch.float32, device=dev)
-    fn = _build.c_function("fused_score", "plaid_gather_decompress_maxsim", 10, 5)
+    fn = _build.c_function("fused_score", "plaid_gather_decompress_maxsim", 10, 6)
     _build.launch(
         fn,
         [qs, q_masks, final_pids, codes_tok, residuals_tok, doc_offsets,
          doc_lens, centroids, weights, out],
-        [B, nq, d, nbits, n3],
+        [B, nq, d, nbits, n3, passages_per_block(B, n3)],
         dev,
     )
     launches += 1

@@ -2,7 +2,9 @@
 counterpart of ``examples/serve_retrieval.py``:
 
   ColBERT encoder -> offline corpus encoding -> PLAID index build ->
-  batched online retrieval through ``plaid-cuda`` with latency percentiles.
+  batched online retrieval through ``plaid-cuda`` (``plaid`` on the CPU)
+  with latency percentiles, then the vanilla ColBERTv2 baseline on the
+  same index: its ms per query, PLAID's speedup and top-1 agreement.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_retrieval [--full] [--docs 3000]
 
@@ -76,21 +78,41 @@ def main(argv=None) -> int:
     q_len = 8
     gold = rng.integers(0, args.docs, args.queries)
     q_embs = colbert.encode(model, corpus_tokens[gold][:, :q_len])
-    searcher = retrieval.from_index(
-        index, backend="plaid-cuda", params=retrieval.params_for_k(args.k)
-    )
+    backend = "plaid-cuda" if dev.type == "cuda" else "plaid"
+    searcher = retrieval.from_index(index, backend=backend, params=retrieval.params_for_k(args.k))
     searcher.search_batch(q_embs[:QUERY_BATCH])  # warm-up
-    lat, hits = [], 0
+    lat, hits, pids = [], 0, []
     for i in range(0, args.queries, QUERY_BATCH):
         res = searcher.search_batch(q_embs[i : i + QUERY_BATCH])
         lat.append(res.latency_ms)
-        hits += int((res.pids.cpu().numpy() == gold[i : i + QUERY_BATCH, None]).any(1).sum())
+        pids.append(res.pids.cpu().numpy())
+        hits += int((pids[-1] == gold[i : i + QUERY_BATCH, None]).any(1).sum())
+    pids = np.concatenate(pids)
+    plaid_ms_q = sum(lat) / args.queries
     print(
-        f"plaid-cuda k={args.k} B<={QUERY_BATCH}: p50 {np.percentile(lat, 50):.2f} ms/batch, "
-        f"p99 {np.percentile(lat, 99):.2f} ms/batch, success@{args.k} {hits / args.queries:.0%} "
-        f"on {dev}"
+        f"{backend} k={args.k} B<={QUERY_BATCH}: p50 {np.percentile(lat, 50):.2f} ms/batch, "
+        f"p99 {np.percentile(lat, 99):.2f} ms/batch, {plaid_ms_q:.2f} ms/q, "
+        f"success@{args.k} {hits / args.queries:.0%} on {dev}"
     )
-    print("vanilla: not ported yet (ROADMAP Queue 1 item 6); no speedup to report")
+
+    # --- the vanilla ColBERTv2 baseline on the same index and queries
+    vs = retrieval.from_index(
+        index, backend="vanilla",
+        params=retrieval.SearchParams(k=args.k, nprobe=4, candidate_cap=4096, ndocs=4096),
+    )
+    vs.search_batch(q_embs[:QUERY_BATCH])  # warm-up
+    _sync(dev)
+    t0 = time.perf_counter()
+    v_pids = vs.search_batch(q_embs).pids.cpu().numpy()
+    v_ms_q = (time.perf_counter() - t0) / args.queries * 1e3
+    # engine fidelity: agreement of PLAID's top-1 with the vanilla baseline
+    # (random weights give no retrieval quality, but the engine must agree
+    # with the exhaustive-ish baseline on whatever geometry they produce)
+    agree = float((pids[:, 0] == v_pids[:, 0]).mean())
+    print(
+        f"vanilla: {v_ms_q:.2f} ms/q -> PLAID speedup {v_ms_q / plaid_ms_q:.1f}x, "
+        f"top-1 agreement {agree:.0%}"
+    )
     return 0
 
 

@@ -264,13 +264,30 @@ def test_k7_kernel_matches_plain_on_card(cuda, B, S, H, Hkv, dh, causal, dtype):
 
 
 @pytest.mark.gpu
-def test_k7_refuses_what_the_kernel_does_not_take_on_card(cuda):
+def test_k7_takes_offset_and_transposed_views_on_card(cuda):
+    """A view the kernel cannot read as it stands (bf16 at an odd offset:
+    TMA needs 16-byte alignment; transposed: not contiguous) is copied
+    first, so K7 takes any strides, as the reference does, and equals its
+    plain version within the bf16 tolerance.  Wrong dtype and shape still
+    raise, as does a launch the C function refuses."""
     q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in qkv(9, 1, 16, 4, 2, 16))
-    with pytest.raises(ValueError, match="contiguous"):
-        tfa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     flat = torch.zeros(q.numel() + 1, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        tfa.flash_attention(flat[1:].view(q.shape), k, v)
+    offset = flat[1:].view(q.shape)
+    offset.copy_(q)
+    transposed = q.transpose(1, 2).contiguous().transpose(1, 2)
+    before = tfa.launches
+    for view in (offset, transposed):
+        assert view.data_ptr() % 16 or not view.is_contiguous()
+        got = tfa.flash_attention(view, k, v)
+        torch.cuda.synchronize()
+        want = tref.flash_attention_ref(view, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        torch.testing.assert_close(got, tfa.flash_attention(q, k, v), rtol=0, atol=0)
+    assert tfa.launches == before + 4
+    with pytest.raises(TypeError, match="dtype"):
+        tfa.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="shape"):
+        tfa.flash_attention(q, k[:, :8], v)
     # a launch the C function refuses (dh 7) raises; it is not swallowed
     fn = _build.c_function("flash_attention", "plaid_flash_attention_bf16", 4, 6)
     with pytest.raises(RuntimeError, match="cudaError_t"):

@@ -6,7 +6,9 @@ their plain versions (``gpu`` marker: needs a card, skips here).
 Tolerance: rtol = atol = 1e-5 on scores.  The port sums in another order
 than XLA (the kernels' 32-lane butterfly), which moves the last bits of a
 float32 sum of 32 terms; on the card, kernel and plain version share one
-order and agree bit for bit.  K4 is a table lookup and is held exactly.
+order and agree bit for bit: K2, K3 and K6 are held with ``torch.equal``
+(K1 and K5 at the stated tolerance).  K4 is a table lookup and is held
+exactly.
 """
 import numpy as np
 import pytest
@@ -273,6 +275,28 @@ def test_kernel_modules_import_without_building():
     }
 
 
+@pytest.mark.parametrize(
+    "B,nd,L,want",
+    [
+        (32, 1024, 180, 16),  # k=1000's stage 4: capped, 2048 blocks
+        (32, 256, 180, 15),  # k=100
+        (32, 64, 180, 3),  # k=10: 683 blocks, still >= 2 waves of 264
+        (1, 1024, 180, 1),  # K6 (the _search oracle): 1024 blocks
+        (1, 7, 180, 1),  # fewer finalists than one wave: never below 1
+        (32, 1024, 2048, 2),  # K2's row list holds 16 KB: G * L * 4 bytes
+        (32, 1024, None, 16),  # K3 keeps no row list
+    ],
+)
+def test_passages_per_block_keeps_two_waves(B, nd, L, want):
+    g = tdec.passages_per_block(B, nd, L)
+    assert g == want
+    blocks = B * nd // g
+    wave = tdec.SMS * tdec.BLOCKS_PER_SM
+    assert g == 1 or blocks >= tdec.MIN_WAVES * wave
+    if L:
+        assert g * L * 4 <= tdec.ROW_LIST_BYTES or g == 1
+
+
 # --------------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # --------------------------------------------------------------------------
@@ -303,7 +327,7 @@ def test_k2_kernel_matches_plain_on_card(cuda, nbits):
     got = tdec.decompress_and_score_batched(*args, nbits=nbits)
     want = tref.decompress_and_score_batched_ref(*args, nbits=nbits)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)  # the shared-order contract: bit for bit
 
 
 @pytest.mark.gpu
@@ -314,7 +338,7 @@ def test_k3_kernel_matches_plain_on_card(cuda, nbits):
     got = tfs.gather_decompress_maxsim(*args, nbits=nbits, doc_maxlen=10)
     want = tref.gather_decompress_maxsim_ref(*args, nbits=nbits, doc_maxlen=10)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)  # the shared-order contract: bit for bit
 
 
 @pytest.mark.gpu
@@ -356,7 +380,7 @@ def test_k6_kernel_matches_plain_on_card(cuda, nbits):
     want = tref.decompress_and_score_ref(*args, nbits=nbits)
     torch.cuda.synchronize()
     assert (tdec.launches, tdec.single_launches) == (before[0], before[1] + 1)
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)  # the shared-order contract: bit for bit
 
 
 @pytest.mark.gpu
@@ -368,3 +392,103 @@ def test_wrappers_check_their_arguments_on_card(cuda):
         tms.centroid_interaction_batched(
             a["s_cq"].transpose(1, 2).contiguous().transpose(1, 2), a["codes"], a["keep"], a["q_mask"]
         )
+
+
+def _full_width_case(dev, seed, B, nd, nq, d=128, nbits=2, maxlen=180, n_docs=20000, K=4096):
+    """K3's CSR arrays at the main path's widths (lens 8..180, a few empty
+    passages, pid == -1 slots), and K2's (B, nd, L) blocks gathered from
+    them with scattered invalid rows and all-invalid passages added."""
+    from repro_torch.core import scoring
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(8, maxlen + 1, (n_docs,), generator=g, device=dev, dtype=torch.int32)
+    lens[:: 97] = 0  # passages without tokens
+    lens[1] = maxlen
+    offs = torch.zeros(n_docs + 1, dtype=torch.int32, device=dev)
+    offs[1:] = torch.cumsum(lens, 0)
+    nt = int(offs[-1])
+    pd = d * nbits // 8
+    pids = torch.randint(0, n_docs, (B, nd), generator=g, device=dev, dtype=torch.int32)
+    pids[:, ::13] = -1
+    pids[0, 0] = 1  # a passage of maxlen tokens
+    pids[0, -1] = n_docs - 1  # the passage at the very end of the token arrays
+    k3 = dict(
+        qs=torch.randn(B, nq, d, generator=g, device=dev),
+        q_masks=(torch.rand(B, nq, generator=g, device=dev) > 0.1).float(),
+        final_pids=pids,
+        codes_tok=torch.randint(0, K, (nt,), generator=g, device=dev, dtype=torch.int32),
+        residuals_tok=torch.randint(0, 256, (nt, pd), generator=g, device=dev, dtype=torch.uint8),
+        doc_offsets=offs,
+        doc_lens=lens,
+        centroids=torch.randn(K, d, generator=g, device=dev),
+        weights=torch.sort(torch.randn(2**nbits, generator=g, device=dev)).values,
+    )
+    flat = pids.reshape(-1)
+    codes, valid = scoring.gather_doc_tokens(k3["codes_tok"], offs, lens, flat, maxlen, -1)
+    res, _ = scoring.gather_doc_tokens(k3["residuals_tok"], offs, lens, flat, maxlen, 0)
+    valid = valid & (torch.rand(valid.shape, generator=g, device=dev) > 0.1)
+    valid[::17] = False  # whole passages invalid
+    k2 = dict(
+        q=k3["qs"], q_mask=k3["q_masks"], codes=codes.reshape(B, nd, maxlen),
+        packed_res=res.reshape(B, nd, maxlen, pd), tok_valid=valid.reshape(B, nd, maxlen),
+        centroids=k3["centroids"], weights=k3["weights"],
+    )
+    return k2, k3
+
+
+_K2_ARGS = ("q", "q_mask", "codes", "packed_res", "tok_valid", "centroids", "weights")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,nd,nq",
+    [
+        (1, 1024, 32),  # K6's shape: one lane, G = 1, 1024 blocks
+        (32, 64, 32),  # k=10's stage 4: G = 3
+        (8, 1024, 32),  # G = 15, many tiles a block
+        (4, 256, 64),  # nqp 64: 8 accumulators a query lane
+        (4, 256, 20),  # nq not a multiple of the query lanes
+    ],
+)
+def test_k2_k3_k6_equal_plain_at_full_width_on_card(cuda, B, nd, nq):
+    """nq up to 64, d 128, L 180, ragged lengths 8..180, scattered invalid
+    rows, all-invalid passages and pid == -1 slots, grids below and above
+    one wave: bit for bit."""
+    k2, k3 = _full_width_case(cuda, 40 + nq + B, B, nd, nq)
+    args2 = [k2[k] for k in _K2_ARGS]
+    got = tdec.decompress_and_score_batched(*args2, nbits=2)
+    want = tref.decompress_and_score_batched_ref(*args2, nbits=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    args3 = [k3[k] for k in _K3_ARGS]
+    got = tfs.gather_decompress_maxsim(*args3, nbits=2, doc_maxlen=180)
+    want = tref.gather_decompress_maxsim_ref(*args3, nbits=2, doc_maxlen=180)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if B == 1:
+        args6 = [k2[k][0] for k in _K2_ARGS[:5]] + [k2["centroids"], k2["weights"]]
+        before = tdec.single_launches
+        got = tdec.decompress_and_score(*args6, nbits=2)
+        want = tref.decompress_and_score_ref(*args6, nbits=2)
+        torch.cuda.synchronize()
+        assert tdec.single_launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbits,d", [(1, 64), (4, 6), (2, 12), (1, 8)])
+def test_k2_k3_narrow_copies_equal_plain_on_card(cuda, nbits, d):
+    """Byte rows of 8, 3, 3 and 1 bytes (cp.async narrowed to 8 bytes, or a
+    plain copy) and d % 4 != 0 (4-byte centroid copies, the dims' tail)."""
+    a = {k: _t(v, cuda) for k, v in k2_inputs(70 + d, nbits, d=d, nd=40, L=30).items()}
+    args = [a[k] for k in _K2_ARGS]
+    got = tdec.decompress_and_score_batched(*args, nbits=nbits)
+    want = tref.decompress_and_score_batched_ref(*args, nbits=nbits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    a = {k: _t(v, cuda) for k, v in k3_inputs(80 + d, nbits, d=d, n3=40).items()}
+    args = [a[k] for k in _K3_ARGS]
+    got = tfs.gather_decompress_maxsim(*args, nbits=nbits, doc_maxlen=10)
+    want = tref.gather_decompress_maxsim_ref(*args, nbits=nbits, doc_maxlen=10)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
