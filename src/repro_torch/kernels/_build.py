@@ -29,6 +29,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: declared C launchers by (library, function name)
+_FUNCS: dict[tuple, ctypes._CFuncPtr] = {}
 #: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) of the
 #: builds this process ran, by source name.
 BUILD_LOGS: dict[str, str] = {}
@@ -106,12 +108,17 @@ def load(name: str) -> ctypes.CDLL:
 def c_function(lib_name: str, fn_name: str, n_pointers: int, n_ints: int):
     """A C launcher ``int fn(void* x n_pointers, int x n_ints, void* stream)``
     with its ``argtypes``/``restype`` declared (a pointer passed without
-    ``c_void_p`` would be cut to 32 bits)."""
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = (
-        [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
+    ``c_void_p`` would be cut to 32 bits).  Declared once per (library,
+    function) and memoized: a launch looks it up and declares nothing."""
+    lib = load(lib_name)
+    fn = _FUNCS.get((lib, fn_name))
+    if fn is None:
+        fn = getattr(lib, fn_name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _FUNCS[(lib, fn_name)] = fn
     return fn
 
 
@@ -134,20 +141,26 @@ def check(t, name: str, dtype, shape: tuple, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if len(t.shape) != len(shape) or any(
-        want is not None and got != want for got, want in zip(t.shape, shape)
-    ):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    size = t.shape
+    if size != shape and (len(size) != len(shape) or any(
+        want is not None and got != want for got, want in zip(size, shape)
+    )):
+        raise ValueError(f"{name}: shape {tuple(size)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 
 def launch(fn, tensors, ints, device) -> None:
-    """Call a C launcher on ``device``'s current stream; raise on a non-zero
-    ``cudaError_t`` (a refused launch never runs, and a later synchronize
-    would not report it)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*[t.data_ptr() for t in tensors], *[int(i) for i in ints], stream)
+    """Call a C launcher on ``device``'s current stream; a ``None`` in
+    ``tensors`` is a null pointer.  Raise on a non-zero ``cudaError_t`` (a
+    refused launch never runs, and a later synchronize would not report
+    it).  The device is switched only when it is not the current one."""
+    idx = device.index
+    args = [None if t is None else t.data_ptr() for t in tensors]
+    if torch.cuda.current_device() == idx:
+        err = fn(*args, *ints, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, *ints, torch._C._cuda_getCurrentRawStream(idx))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} returned cudaError_t {err}")

@@ -53,24 +53,27 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def _as(t: torch.Tensor | None, dtype=None) -> torch.Tensor | None:
+    """``t`` as a contiguous tensor of ``dtype`` (its own when ``None``):
+    ``t`` itself when it already is one, so a call that needs no copy makes
+    no call into torch."""
+    if t is None or ((dtype is None or t.dtype == dtype) and t.is_contiguous()):
+        return t
+    return t.to(dtype or t.dtype).contiguous()
+
+
 def centroid_interaction(
     s_cq: torch.Tensor,  # (K, nq)
     codes: torch.Tensor,  # (nd, L) i32, -1 pad
     q_mask: torch.Tensor | None = None,  # (nq,)
     keep_centroid: torch.Tensor | None = None,  # (K,) bool
 ) -> torch.Tensor:
-    """Single-query stages 2/3 (K5); signature of ``scoring.centroid_interaction``."""
-    K, nq = s_cq.shape
-    dev = s_cq.device
-    if q_mask is None:
-        q_mask = torch.ones(nq, dtype=torch.float32, device=dev)
-    if keep_centroid is None:
-        keep_centroid = torch.ones(K, dtype=torch.bool, device=dev)
+    """Single-query stages 2/3 (K5); signature of ``scoring.centroid_interaction``.
+    ``None`` for ``q_mask`` / ``keep_centroid`` reaches the kernel as a null
+    pointer (all ones / keep all): nothing is allocated or filled."""
     return _ms.centroid_interaction(
-        s_cq.float().contiguous(),
-        codes.to(torch.int32).contiguous(),
-        keep_centroid.contiguous(),
-        q_mask.float().contiguous(),
+        _as(s_cq, torch.float32), _as(codes, torch.int32), _as(keep_centroid),
+        _as(q_mask, torch.float32),
     )
 
 
@@ -80,18 +83,12 @@ def centroid_interaction_batched(
     q_mask: torch.Tensor | None = None,  # (B, nq)
     keep_centroid: torch.Tensor | None = None,  # (B, K) bool
 ) -> torch.Tensor:
-    """Stages 2/3 interaction; signature of ``pipeline.centroid_interaction_batched``."""
-    B, K, nq = s_cq.shape
-    dev = s_cq.device
-    if q_mask is None:
-        q_mask = torch.ones((B, nq), dtype=torch.float32, device=dev)
-    if keep_centroid is None:
-        keep_centroid = torch.ones((B, K), dtype=torch.bool, device=dev)
+    """Stages 2/3 interaction; signature of ``pipeline.centroid_interaction_batched``.
+    ``None`` for ``q_mask`` / ``keep_centroid`` (stage 3 keeps every
+    centroid) reaches the kernel as a null pointer."""
     return _ms.centroid_interaction_batched(
-        s_cq.float().contiguous(),
-        codes.to(torch.int32).contiguous(),
-        keep_centroid.contiguous(),
-        q_mask.float().contiguous(),
+        _as(s_cq, torch.float32), _as(codes, torch.int32), _as(keep_centroid),
+        _as(q_mask, torch.float32),
     )
 
 

@@ -1,4 +1,4 @@
-"""Alternating A/B of the exact-MaxSim kernels (K2, K3, K6) and the
+"""Alternating A/B of the search kernels (K1, K2, K3, K5, K6) and the
 ``plaid-cuda`` search between two checkouts.
 
     python3 src/repro_torch/launch/maxsim_ab.py --parent DIR [--change DIR]
@@ -11,10 +11,12 @@ checkout's ``src`` (building that checkout's kernels there) and draws the
 synthetic index and query batches of ``chip_smoke.py`` (taken from the
 change's checkout) from ``--seed``.  On them it
 
-* runs K2, K3 and K6 at the k=1000 shapes of ``chip_smoke.py``'s
-  ``kernels`` phase, checks each bit for bit against its plain version, and
-  times it between CUDA events (``ms``) and behind a ~1 ms device sleep
-  (``device_ms``), 25 launches each;
+* runs K1 at stage 2's and stage 3's shapes (B=32, nd 8192 with keep and
+  4096 without), K5 at lane 0's stage-2 block, and K2, K3 and K6 at the
+  k=1000 shapes of ``chip_smoke.py``'s ``kernels`` phase, checks each bit
+  for bit against its plain version, and times it between CUDA events
+  (``ms``), behind a ~1 ms device sleep (``device_ms``) and on the host
+  (``host_us``), 25 launches each;
 * searches ``--batches`` B=32 batches with ``plaid-cuda`` for k in {10,
   100, 1000} x fused off/on after one warm-up batch (p50 of the batch
   latency, and a digest of the pids, which must agree between sides);
@@ -40,8 +42,8 @@ KS = (10, 100, 1000)
 
 
 def worker(src: str, root: str, passages: int, batches: int, seed: int) -> dict:
-    """Time K2/K3/K6 and the search with ``src``'s ``repro_torch``; the
-    index, queries and timers come from ``root``'s ``chip_smoke.py``."""
+    """Time K1/K2/K3/K5/K6 and the search with ``src``'s ``repro_torch``;
+    the index, queries and timers come from ``root``'s ``chip_smoke.py``."""
     sys.path.insert(0, src)
     import torch
 
@@ -60,6 +62,12 @@ def worker(src: str, root: str, passages: int, batches: int, seed: int) -> dict:
     qm = torch.ones(cs.BATCH, cs.NQ, device=qs.device)
     qb = qs[: cs.BATCH].contiguous()
     p1000 = plaid.clamp_params(plaid.params_for_k(1000), index.num_passages)
+    s_cq = pipeline.stage1_scores_batched(index, qb)
+    cands = pipeline.candidate_generation_batched(index, s_cq, p1000.nprobe, p1000.candidate_cap)
+    keep = scoring.prune_mask(s_cq, p1000.t_cs)
+    codes2, _ = pipeline.gather_candidate_tokens_shared(index, cands)
+    codes3 = codes2[:, : p1000.ndocs].contiguous()
+    k5_args = (s_cq[0], codes2[0], qm[0], keep[0])
     final_pids, codes4, valid4, _ = pipeline.select_finalists_impl(
         index, qb, qm, p1000.t_cs, params=p1000
     )
@@ -73,6 +81,15 @@ def worker(src: str, root: str, passages: int, batches: int, seed: int) -> dict:
                index.doc_lens, *cw)
     k6_args = (qb[0], qm[0], codes4[0], res4[0], valid4[0], *cw)
     cases = {
+        "centroid_interaction_batched": (
+            lambda: ops.centroid_interaction_batched(s_cq, codes2, qm, keep),
+            lambda: ref.centroid_interaction_batched_ref(s_cq, codes2, keep, qm)),
+        "centroid_interaction_batched_stage3": (
+            lambda: ops.centroid_interaction_batched(s_cq, codes3, qm, None),
+            lambda: ref.centroid_interaction_batched_ref(s_cq, codes3, None, qm)),
+        "centroid_interaction": (
+            lambda: ops.centroid_interaction(*k5_args),
+            lambda: ref.centroid_interaction_ref(s_cq[0], codes2[0], keep[0], qm[0])),
         "decompress_and_score_batched": (
             lambda: ops.decompress_and_score_batched(qb, qm, codes4, res4, valid4, *cw,
                                                      nbits=index.nbits),
@@ -93,6 +110,7 @@ def worker(src: str, root: str, passages: int, batches: int, seed: int) -> dict:
         kernels[name] = dict(
             equal=bool(torch.equal(got, plain())), sum=float(got.double().sum()),
             ms=cs.time_ms(kern, reps=25), device_ms=cs.device_time_ms(kern, reps=25),
+            host_us=cs.host_us(kern, reps=25),
         )
     kernels["valid_tokens"] = int(valid4.sum())
 
@@ -115,7 +133,8 @@ def worker(src: str, root: str, passages: int, batches: int, seed: int) -> dict:
                                  params=retrieval.params_for_k(1000).replace(fused=fused))
         prof = cs.profile_batch(r, qs[cs.BATCH : 2 * cs.BATCH])
         profile["fused" if fused else "unfused"] = {
-            key: prof[key] for key in ("wall_ms", "device_ms", "busy_share", "launches", "top")}
+            key: prof[key] for key in ("wall_ms", "device_ms", "busy_share", "launches", "top",
+                                       "port")}
     return dict(src=src, kernels=kernels, search=search, profile=profile)
 
 
@@ -126,6 +145,7 @@ def _numbers(res: dict) -> dict:
         if isinstance(kv, dict):
             out[f"{name}.ms"] = kv["ms"]
             out[f"{name}.device_ms"] = kv["device_ms"]
+            out[f"{name}.host_us"] = kv["host_us"]
     for name, kv in res["search"].items():
         out[f"search.{name}.p50_ms"] = kv["p50_ms"]
     for name, kv in res["profile"].items():

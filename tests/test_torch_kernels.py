@@ -6,9 +6,8 @@ their plain versions (``gpu`` marker: needs a card, skips here).
 Tolerance: rtol = atol = 1e-5 on scores.  The port sums in another order
 than XLA (the kernels' 32-lane butterfly), which moves the last bits of a
 float32 sum of 32 terms; on the card, kernel and plain version share one
-order and agree bit for bit: K2, K3 and K6 are held with ``torch.equal``
-(K1 and K5 at the stated tolerance).  K4 is a table lookup and is held
-exactly.
+order and agree bit for bit: K1, K2, K3, K5 and K6 are held with
+``torch.equal``.  K4 is a table lookup and is held exactly.
 """
 import numpy as np
 import pytest
@@ -243,6 +242,36 @@ def test_single_query_plain_versions_are_lanes_of_the_batched_ones():
         assert torch.equal(one, batched[b])
 
 
+@pytest.mark.parametrize("batched", [True, False])
+def test_k1_k5_without_keep_or_mask_equal_all_true_calls(batched):
+    """``keep_centroid=None`` / ``q_mask=None`` (the kernels' null pointers:
+    stage 3 keeps every centroid) equal the calls with all-true keep and
+    all-ones q_mask bit for bit, through ``ops``."""
+    a = {k: _t(v) for k, v in k1_inputs(5, nq=32).items()}
+    B, K, nq = a["s_cq"].shape
+    keep1, mask1 = torch.ones(B, K, dtype=torch.bool), torch.ones(B, nq)
+    if batched:
+        fn, s, c, m = tops.centroid_interaction_batched, a["s_cq"], a["codes"], a["q_mask"]
+    else:
+        fn, s, c, m = tops.centroid_interaction, a["s_cq"][0], a["codes"][0], a["q_mask"][0]
+        keep1, mask1 = keep1[0], mask1[0]
+    assert torch.equal(fn(s, c, m, None), fn(s, c, m, keep1))
+    assert torch.equal(fn(s, c, None, None), fn(s, c, mask1, keep1))
+    # a non-contiguous, non-f32 s_cq is copied by the adapter, not refused
+    assert torch.equal(fn(s.double().transpose(-1, -2).contiguous().transpose(-1, -2), c, m),
+                       fn(s, c, m))
+
+
+def test_k1_warps_take_more_candidates_only_in_large_launches():
+    """K5's launch (B=1 x 8192 candidates) takes 2 a warp, fewer than one
+    wave of warps; stage 2 (B=32 x 8192) and stage 3 (B=32 x 4096) take
+    MAX_PER_WARP; a launch of fewer than WARP_CANDIDATES takes 1."""
+    assert tms.per_warp(1, 8192) == 2
+    assert tms.per_warp(2, 1001) == 1
+    assert tms.per_warp(32, 4096) == tms.MAX_PER_WARP
+    assert tms.per_warp(32, 8192) == tms.MAX_PER_WARP
+
+
 def test_cpu_calls_are_not_launches_and_other_devices_are_refused():
     tops.reset_launch_counts()
     a = k1_inputs(3)
@@ -316,7 +345,7 @@ def test_k1_kernel_matches_plain_on_card(cuda, nq):
     want = tref.centroid_interaction_batched_ref(a["s_cq"], a["codes"], a["keep"], a["q_mask"])
     torch.cuda.synchronize()
     assert tms.launches == before + 1
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)  # exact max, the plain version's tree sum
 
 
 @pytest.mark.gpu
@@ -366,7 +395,85 @@ def test_k5_kernel_matches_plain_on_card(cuda, nq):
     want = tref.centroid_interaction_ref(a["s_cq"], a["codes"], a["keep"], a["q_mask"])
     torch.cuda.synchronize()
     assert (tms.launches, tms.single_launches) == (before[0], before[1] + 1)
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)  # exact max, the plain version's tree sum
+
+
+def _k1_corner_case(dev, seed, B, nd, L, K, nq):
+    """Codes with -1 pads scattered through each row and at its tail, some
+    all-pad and all-pruned candidates, a lane whose keep is all false, and
+    a masked query or two."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    s_cq = torch.randn(B, K, nq, generator=g, device=dev)
+    codes = torch.randint(0, K, (B, nd, L), generator=g, device=dev, dtype=torch.int32)
+    codes[torch.rand(B, nd, L, generator=g, device=dev) < 0.3] = -1  # pads in the middle
+    lens = torch.randint(0, L + 1, (B, nd, 1), generator=g, device=dev)
+    codes[torch.arange(L, device=dev) >= lens] = -1  # and at the tail
+    codes[:, ::7] = -1  # all-pad candidates
+    keep = torch.rand(B, K, generator=g, device=dev) > 0.4
+    codes[:, 3::11] = codes[:, 3::11].clamp(max=0)  # only centroid 0 and pads ...
+    keep[:, 0] = False  # ... and centroid 0 pruned: all-pruned candidates
+    if B > 1:
+        keep[1] = False  # a lane that prunes every centroid
+    q_mask = (torch.rand(B, nq, generator=g, device=dev) > 0.1).float()
+    return s_cq, codes, keep, q_mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,nd,L,K,nq",
+    [
+        (2, 1001, 180, 2**18, 32),  # ColBERTv2's widths, B=2 at K=2^18; nd % 8 != 0
+        (3, 300, 180, 4096, 12),  # nq % 32 != 0: one query a lane
+        (3, 300, 180, 4096, 40),  # two groups of 32 queries
+        (3, 300, 33, 4096, 32),  # one token past a 32-token chunk; rows not 16-byte
+        (16, 8192, 180, 4096, 32),  # MAX_PER_WARP candidates a warp at the default plan
+        (3, 300, 1, 4096, 32),  # one-token passages
+        (3, 300, 300, 4096, 32),  # two windows of the codes
+        (3, 300, 300, 4096, 40),
+        (3, 77, 180, 4096, 16),  # the float4 path at 2 and 1 lanes a row
+        (3, 77, 180, 4096, 4),
+    ],
+)
+def test_k1_k5_equal_plain_at_full_width_and_corners_on_card(cuda, monkeypatch, B, nd, L, K, nq):
+    """K1 and K5 bit for bit: with keep, with a null keep against an
+    all-true one, with a null q_mask, at 1, 3 and 8 candidates a warp (the
+    last warp's run cut short by nd), and K5 on each lane."""
+    s_cq, codes, keep, q_mask = _k1_corner_case(cuda, B * nd + L + nq, B, nd, L, K, nq)
+    ones = torch.ones_like(keep)
+    for kp, qm in ((keep, q_mask), (None, q_mask), (ones, q_mask), (keep, None)):
+        want = tref.centroid_interaction_batched_ref(s_cq, codes, kp, qm)
+        for pw in (1, 3, 8):  # candidates a warp
+            monkeypatch.setattr(tms, "MAX_PER_WARP", pw)
+            monkeypatch.setattr(tms, "WARP_CANDIDATES", 1)
+            got = tms.centroid_interaction_batched(s_cq, codes, kp, qm)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pw, kp is None, qm is None,
+                                            float((got - want).abs().max()))
+    monkeypatch.undo()
+    assert torch.equal(tms.centroid_interaction_batched(s_cq, codes, None, q_mask),
+                       tms.centroid_interaction_batched(s_cq, codes, ones, q_mask))
+    if B > 1:  # the lane whose keep is all false scores 0 everywhere
+        assert not bool(tms.centroid_interaction_batched(s_cq, codes, keep, q_mask)[1].any())
+    before = tms.single_launches
+    for b in range(B):
+        got = tms.centroid_interaction(s_cq[b], codes[b], keep[b], q_mask[b])
+        want = tref.centroid_interaction_ref(s_cq[b], codes[b], keep[b], q_mask[b])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), b
+    assert tms.single_launches == before + B
+
+
+@pytest.mark.gpu
+def test_k1_unaligned_scores_take_the_lane_path_on_card(cuda):
+    """An s_cq that starts off a 16-byte boundary cannot take float4 loads:
+    the kernel reads it one query a lane, bit for bit all the same."""
+    s_cq, codes, keep, q_mask = _k1_corner_case(cuda, 5, 2, 100, 180, 4096, 32)
+    flat = torch.empty(s_cq.numel() + 1, device=cuda)
+    odd = flat[1:].view(s_cq.shape).copy_(s_cq)
+    assert odd.data_ptr() % 16 != 0
+    got = tms.centroid_interaction_batched(odd, codes, keep, q_mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.centroid_interaction_batched_ref(s_cq, codes, keep, q_mask))
 
 
 @pytest.mark.gpu
