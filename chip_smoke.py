@@ -51,9 +51,24 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                searched with ``plaid-cuda`` and ``plaid`` (identical pids)
                and in the main index: encode and tokens -> pids latencies,
                K7 launch counts, one encode held against the CPU;
-11. persist    the main index saved and loaded through the facade: every
+11. stream_build  the streaming build (``repro_torch.build``): (i) a
+               trained build at ColBERTv2's widths (d=128, nbits=2, K=2^17,
+               a 2^18 sample, 8 Lloyd iterations) of 250,000 passages of
+               8..180 tokens (~23.5M tokens) made chunk by chunk on the
+               card: pass 1/pass 2/k-means seconds, tokens/s, peak device
+               memory beside the corpus's f32 size, BuildStats, pass 2's
+               device time by kernel, and a B=32 batch with identical pids
+               through plaid-cuda and plaid; (ii) frozen-table streaming
+               builds of the encode phase's corpus at two chunk sizes,
+               pruned (0.25) and not, array-identical to ``build_index``;
+               (iii) two trained builds of ~1M tokens at chunk_docs 256 and
+               4,096, bit-identical; (iv) ``indexer.build_from_encoder``
+               over 2,048 passages through the encoder (K7) identical to
+               ``build_index`` over the same output, and ``retrieval.build``
+               identical to ``build_index_streaming``;
+12. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
-12. profile    device time of one plaid-cuda batch, one vanilla batch and
+13. profile    device time of one plaid-cuda batch, one vanilla batch and
                one B=32 query encode by kernel (torch.profiler) and the
                device's busy share of each.
 
@@ -73,15 +88,17 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
-from repro_torch import retrieval  # noqa: E402
+from repro_torch import build, retrieval  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
+from repro_torch.core import indexer  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
@@ -117,6 +134,11 @@ REPLACES = {
 #: substrings of the port's kernel names in a profile (profile_batch's "port")
 PORT_KERNEL_KEYS = ("interaction", "score_kernel", "decompress_residuals", "flash_attention")
 ENCODE_PASSAGES, DOC_MAXLEN, ENCODE_BATCH = 8192, 180, 64
+#: the streaming build: one LoTTE topic's corpus (250k passages, ~23.5M
+#: tokens) in chunks of 16,384 passages; ~1M tokens for the determinism
+#: check; 2,048 encoded passages for build_from_encoder
+STREAM_PASSAGES, STREAM_CHUNK_DOCS = 250_000, 16_384
+DETERMINISM_PASSAGES, ENCODER_BUILD_PASSAGES = 10_640, 2048
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -609,9 +631,18 @@ def main(argv=None) -> int:
 
     # ---- 10. the encoder path: tokens -> vectors -> index -> pids ---------
     with Phase("encode") as info:
-        model, encode_counts, q_toks = encode_phase(index, args.seed, dev, info)
+        model, encode_counts, q_toks, enc_corpus = encode_phase(index, args.seed, dev, info)
 
-    # ---- 11. persistence of the main index --------------------------------
+    # ---- 11. the streaming build --------------------------------------------
+    ops.reset_launch_counts()
+    with Phase("stream_build") as info:
+        stream_build_phase(model, enc_corpus, args.seed, dev, info)
+        stream_counts = ops.launch_counts()
+        info["launches"] = stream_counts
+        assert stream_counts["flash_attention"] > 0, stream_counts
+    del enc_corpus
+
+    # ---- 12. persistence of the main index --------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
         qb = batches[1][0]
@@ -637,7 +668,7 @@ def main(argv=None) -> int:
         assert torch.equal(before.scores, after.scores)
         del r, r2, loaded
 
-    # ---- 12. where a plaid-cuda batch and a query encode spend device time -
+    # ---- 13. where a plaid-cuda batch and a query encode spend device time -
     with Phase("profile") as info:
         info["configs"] = [
             dict(k=k, fused=False, **profile_batch(
@@ -654,12 +685,13 @@ def main(argv=None) -> int:
 
     # launches: each kernel's from the path that runs it, its counts zeroed
     # just before that path: K1-K3 in search, K4 in vanilla, K5/K6 in
-    # oracle, K7 in encode
+    # oracle, K7 in encode and stream_build
     launches = {name: search_counts[name] for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
-    launches["flash_attention"] = encode_counts["flash_attention"]
+    launches["flash_attention"] = (encode_counts["flash_attention"]
+                                   + stream_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -919,8 +951,195 @@ def encode_phase(index, seed, dev, info: dict):
         cpu_check=dict(min_cosine=float(cos.min()), max_abs_err=float((a - b).abs().max())),
     )
     assert info["cpu_check"]["min_cosine"] >= 0.99 and info["cpu_check"]["max_abs_err"] <= 0.1
-    del cpu_model, enc_index, doc_embs, chunks
-    return model, counts, q_toks
+    del cpu_model, chunks
+    corpus = dict(toks=toks, lens=lens, doc_embs=doc_embs, index=enc_index)
+    return model, counts, q_toks, corpus
+
+
+def stream_corpus(passages, seed, chunk_docs):
+    """A chunk factory for a topic-structured corpus made on the card from
+    the seed, chunk by chunk (never one array): passages of 8..180 tokens,
+    each token a term of its passage's topic plus noise, unit norm.
+    Returns ``(factory, n_tokens)``."""
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    n_terms, n_topics, pool = 1 << 16, 1 << 12, 32
+    terms = F.normalize(torch.randn(n_terms, DIM, generator=g, device=dev), dim=1)
+    pools = torch.randint(0, n_terms, (n_topics, pool), generator=g, device=dev)
+    lens = torch.randint(8, DOC_MAXLEN + 1, (passages,), generator=g, device=dev,
+                         dtype=torch.int32).cpu().numpy()
+
+    def chunk(i):
+        gc = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + i)
+        cl = lens[i * chunk_docs : (i + 1) * chunk_docs]
+        nt = int(cl.sum())
+        topic = torch.randint(0, n_topics, (len(cl),), generator=gc, device=dev)
+        tok_topic = torch.repeat_interleave(topic, torch.from_numpy(cl).to(dev).long())
+        pick = torch.randint(0, pool, (nt,), generator=gc, device=dev)
+        x = terms[pools[tok_topic, pick]]
+        x += (0.3 / math.sqrt(DIM)) * torch.randn(nt, DIM, generator=gc, device=dev)
+        return F.normalize(x, dim=1), cl
+
+    def factory():
+        for i in range(-(-passages // chunk_docs)):
+            yield chunk(i)
+
+    return factory, int(lens.sum())
+
+
+def profile_quantize(index, factory) -> dict:
+    """Device time of pass 2's per-chunk work (``quantize_rows``: assign,
+    residual, compress) over four 16,384-row windows of the first chunk
+    against the built tables, by kernel (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.build.streaming import quantize_rows
+
+    x = next(factory())[0][: 4 * 16384]
+    quantize_rows(x, index.centroids, index.codec)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        quantize_rows(x, index.centroids, index.codec)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    flops = 2.0 * x.shape[0] * index.num_centroids * DIM
+    return dict(rows=x.shape[0], wall_ms=wall_ms, device_ms=device_ms,
+                busy_share=device_ms / wall_ms if device_ms else None,
+                gemm_bound_ms=flops / F32_FLOPS * 1e3,
+                distance_bytes_bound_ms=2 * 4 * x.shape[0] * index.num_centroids
+                / HBM_BYTES_PER_S * 1e3,
+                top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3, calls=e.count)
+                     for e in kern[:8]])
+
+
+def same_index(a, b) -> dict:
+    """Every array field and static field of two indexes, compared bit for
+    bit; returns the fields that differ."""
+    diff = [f for f in index_mod.ARRAY_FIELDS
+            if getattr(a, f).dtype != getattr(b, f).dtype
+            or not torch.equal(getattr(a, f), getattr(b, f))]
+    diff += [f for f in index_mod.STATIC_FIELDS if getattr(a, f) != getattr(b, f)]
+    return diff
+
+
+def stream_build_phase(model, enc, seed, dev, info: dict):
+    """The streaming build on the card: (i) a trained build at ColBERTv2's
+    widths from a corpus made chunk by chunk, searched with plaid-cuda and
+    plaid (identical pids); (ii) frozen-table builds of the encode phase's
+    corpus at two chunk sizes, pruned and not, array-identical to
+    ``build_index``; (iii) two trained builds of a ~1M-token corpus at two
+    chunk sizes, bit-identical; (iv) ``build_from_encoder`` through the
+    encoder (K7) against ``build_index`` over the same encoder output, and
+    ``retrieval.build`` against ``build_index_streaming``."""
+    # (i) trained, at scale
+    factory, nt = stream_corpus(STREAM_PASSAGES, seed, STREAM_CHUNK_DOCS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    big, st = build.build_index_streaming(
+        build.iterator_stream(factory), seed=seed, return_stats=True, device=dev
+    )
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    assert big.num_tokens == nt == st.n_tokens and big.num_passages == STREAM_PASSAGES
+    assert big.num_centroids == kmeans.num_centroids_for(nt) and st.trained
+    assert torch.isfinite(big.centroids).all()
+    info["trained"] = dict(
+        passages=STREAM_PASSAGES, tokens=nt, chunk_docs=STREAM_CHUNK_DOCS, dim=DIM,
+        nbits=big.nbits, centroids=big.num_centroids, sample=build.DEFAULT_SAMPLE_SIZE,
+        kmeans_iters=8, build_s=build_s, pass1_s=st.pass1_s, pass2_s=st.pass2_s,
+        kmeans_s=st.kmeans_s, tokens_per_s=nt / build_s, pass2_tokens_per_s=nt / st.pass2_s,
+        peak_device_bytes=peak, monolithic_corpus_bytes=nt * DIM * 4,
+        index_bytes=sum(big.nbytes().values()), stats=dataclasses.asdict(st),
+    )
+    emit({"stream_build": info["trained"]})
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    emb0, lens0 = next(factory())
+    offs0 = torch.from_numpy(lens0).to(dev).long().cumsum(0) - torch.from_numpy(lens0).to(dev).long()
+    src = torch.randint(0, len(lens0), (BATCH,), generator=g, device=dev)
+    pos = (torch.rand(BATCH, NQ, generator=g, device=dev)
+           * torch.from_numpy(lens0).to(dev)[src, None]).long()
+    qb = emb0[offs0[src, None] + pos]
+    qb = F.normalize(qb + 0.02 * torch.randn(qb.shape, generator=g, device=dev), dim=-1)
+    del emb0
+    p = retrieval.params_for_k(10)
+    got = retrieval.from_index(big, backend="plaid-cuda", params=p).search_batch(qb)
+    want = retrieval.from_index(big, backend="plaid", params=p).search_batch(qb)
+    check_result(got, 10)
+    assert torch.equal(got.pids, want.pids), "streamed index: plaid-cuda pids differ from plaid"
+    assert torch.allclose(got.scores, want.scores, rtol=1e-5, atol=1e-5)
+    info["trained"]["search"] = dict(
+        k=10, batch=BATCH, pids_identical=True,
+        success_at_10=float((got.pids == src[:, None]).any(1).float().mean()))
+    info["trained"]["pass2_profile"] = profile_quantize(big, factory)
+    del big, got, want
+
+    # (ii) frozen tables: streaming == monolithic, pruned and not
+    emb, lens, tables = enc["doc_embs"], enc["lens"], enc["index"]
+    frozen = dict(centroids=tables.centroids, codec=tables.codec)
+    rows = []
+    for frac in (0.0, 0.25):
+        mono = index_mod.build_index(emb, lens, prune_fraction=frac, device=dev, **frozen)
+        for cd in (256, 4096):
+            t0 = time.perf_counter()
+            streamed = build.build_index_streaming(emb, lens, chunk_docs=cd, prune_fraction=frac,
+                                                   device=dev, **frozen)
+            torch.cuda.synchronize()
+            diff = same_index(streamed, mono)
+            rows.append(dict(prune_fraction=frac, chunk_docs=cd, tokens=streamed.num_tokens,
+                             seconds=time.perf_counter() - t0, differing_fields=diff))
+            assert not diff, rows[-1]
+    info["frozen_identity"] = rows
+
+    # (iii) trained builds at two chunkings: bit for bit
+    f3, nt3 = stream_corpus(DETERMINISM_PASSAGES, seed + 1, 4096)
+    parts = list(f3())
+    packed = torch.cat([e for e, _ in parts])
+    lens3 = np.concatenate([cl for _, cl in parts])
+    del parts
+    a = build.build_index_streaming(packed, lens3, chunk_docs=256, seed=seed, device=dev)
+    b = build.build_index_streaming(packed, lens3, chunk_docs=4096, seed=seed, device=dev)
+    diff = same_index(a, b)
+    info["determinism"] = dict(tokens=nt3, passages=DETERMINISM_PASSAGES, chunk_docs=[256, 4096],
+                               centroids=a.num_centroids, differing_fields=diff)
+    assert not diff, info["determinism"]
+    del packed, a, b
+
+    # (iv) the encoder path (K7) under frozen tables, then retrieval.build
+    toks = enc["toks"][:ENCODER_BUILD_PASSAGES]
+    n, L = toks.shape
+    t0 = time.perf_counter()
+    streamed, st4 = indexer.build_from_encoder(
+        lambda t: colbert.encode(model, t), toks, chunk=ENCODE_BATCH, return_stats=True,
+        device=dev, **frozen)
+    torch.cuda.synchronize()
+    enc_build_s = time.perf_counter() - t0
+    out = torch.cat([colbert.encode(model, toks[i : i + ENCODE_BATCH]).reshape(-1, DIM)
+                     for i in range(0, n, ENCODE_BATCH)])
+    full_lens = torch.full((n,), L, dtype=torch.int32)
+    mono = index_mod.build_index(out, full_lens, device=dev, **frozen)
+    diff = same_index(streamed, mono)
+    assert st4.peak_host_f32_bytes == 0 and not st4.trained, st4
+    cfg_index = dict(num_centroids=4096, kmeans_iters=4, chunk_docs=512, seed=seed)
+    r = retrieval.build(out, doc_lens=full_lens, backend="plaid-cuda", index=cfg_index,
+                        device=dev)
+    direct = build.build_index_streaming(out, full_lens, device=dev, **cfg_index)
+    diff_facade = same_index(r.index, direct)
+    check_result(r.search_batch(out.reshape(n, L, DIM)[:BATCH, :NQ]), 10)
+    info["encoder"] = dict(
+        passages=n, rows_per_passage=L, tokens=streamed.num_tokens, chunk=ENCODE_BATCH,
+        build_s=enc_build_s, tokens_per_s=streamed.num_tokens / enc_build_s,
+        stats=dataclasses.asdict(st4), differing_fields=diff,
+        facade=dict(backend=r.backend_name, index=cfg_index, differing_fields=diff_facade))
+    assert not diff, info["encoder"]
+    assert not diff_facade, info["encoder"]
 
 
 def profile_encode(model, toks, reps: int = 3) -> dict:

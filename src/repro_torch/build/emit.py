@@ -1,0 +1,58 @@
+"""Emit a built index into a serving layout (the counterpart of
+``repro.build.emit``).
+
+==============  ==========================================================
+``"v2"``        single-base-segment v2 segment-manifest directory — loads
+                via ``core.indexer.load_index`` / the ``"plaid"`` backends
+                of either package
+``"sharded"``   per-shard directory layout: needs the document-sharded
+                engine (``repro_torch.core.engine_sharded``), not ported
+``"live"``      v2 directory stamped with a live-index lineage: needs the
+                live index (``repro_torch.live.index``), not ported
+==============  ==========================================================
+"""
+from __future__ import annotations
+
+from repro_torch.core.index import PlaidIndex
+
+LAYOUTS = ("v2", "sharded", "live")
+
+
+def save_v2(path: str, index: PlaidIndex) -> None:
+    """Single-base-segment v2 segment-manifest directory."""
+    from repro_torch.core import indexer
+
+    indexer.save_index(path, index)
+
+
+def save_sharded(path: str, index: PlaidIndex, n_shards: int) -> None:
+    """Per-shard deploy layout: not ported."""
+    raise NotImplementedError(
+        "layout='sharded': the document-sharded engine "
+        "(repro_torch.core.engine_sharded) and its multi-GPU build are not ported"
+    )
+
+
+def to_live_index(index: PlaidIndex):
+    """The built index as a live-index base segment: not ported."""
+    raise NotImplementedError(
+        "layout='live': the live index (repro_torch.live.index) is not ported"
+    )
+
+
+def save_live(path: str, index: PlaidIndex):
+    """v2 directory with a live lineage stamp: not ported."""
+    return to_live_index(index)
+
+
+def emit(index: PlaidIndex, path: str, *, layout: str = "v2", n_shards: int | None = None):
+    """Dispatch on ``layout`` (see module docstring)."""
+    if layout == "v2":
+        return save_v2(path, index)
+    if layout == "sharded":
+        if not n_shards:
+            raise ValueError("layout='sharded' requires n_shards")
+        return save_sharded(path, index, n_shards)
+    if layout == "live":
+        return save_live(path, index)
+    raise ValueError(f"unknown layout {layout!r}; expected one of {LAYOUTS}")

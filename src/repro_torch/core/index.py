@@ -203,6 +203,16 @@ def _as_tensor(x, dtype, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
+def codec_to(codec: rc.ResidualCodec, device) -> rc.ResidualCodec:
+    """``codec``'s tables as f32 tensors on ``device`` (from tensors or
+    arrays on anything)."""
+    return rc.ResidualCodec(
+        _as_tensor(codec.cutoffs, torch.float32, device),
+        _as_tensor(codec.weights, torch.float32, device),
+        codec.nbits,
+    )
+
+
 def _csr_offsets(lens: torch.Tensor) -> torch.Tensor:
     off = torch.zeros(lens.shape[0] + 1, dtype=torch.int64, device=lens.device)
     torch.cumsum(lens.long(), dim=0, out=off[1:])
@@ -418,19 +428,17 @@ def build_index(
 
     ``doc_embeddings`` is a list of (len_i, d) arrays or tensors, or a
     packed (Nt, d) array or tensor with ``doc_lens``.  The steps are the
-    reference's: k-means centroids (``16 sqrt(Nt)`` unless
-    ``num_centroids``) unless ``centroids=`` is given, nearest-centroid
-    assignment, the residual codec fitted unless ``codec=`` is given, b-bit
-    compression, then :func:`assemble_index`.  Under frozen ``centroids``
-    and ``codec`` the result is array-identical to the reference's on the
-    same embeddings.  The whole corpus is one float32 array; the streaming
-    builder and token pruning are not ported (ROADMAP Queue 1 item 5).
+    reference's: token pruning (``prune_fraction > 0``, the streaming
+    builder's ``build.prune.prune_chunk`` with its default method), k-means
+    centroids (``16 sqrt(Nt)`` unless ``num_centroids``) unless
+    ``centroids=`` is given, nearest-centroid assignment, the residual codec
+    fitted unless ``codec=`` is given, b-bit compression, then
+    :func:`assemble_index`.  Under frozen ``centroids`` and ``codec`` the
+    result is array-identical to the reference's on the same embeddings,
+    and to the streaming builder's (``repro_torch.build``).  The whole
+    corpus is one float32 array on ``device``: the streaming builder is the
+    corpus-scale path.
     """
-    if prune_fraction > 0.0:
-        raise NotImplementedError(
-            "build_index(prune_fraction > 0): build-time token pruning is not "
-            "ported yet (ROADMAP Queue 1 item 5)"
-        )
     dev = resolve_device(device)
     if isinstance(doc_embeddings, (list, tuple)):
         doc_lens = [len(d) for d in doc_embeddings]
@@ -439,6 +447,11 @@ def build_index(
         if doc_lens is None:
             raise ValueError("packed doc_embeddings need doc_lens")
         packed = _as_tensor(doc_embeddings, torch.float32, dev)
+    if prune_fraction > 0.0:
+        from repro_torch.build.chunks import host_lens
+        from repro_torch.build.prune import prune_chunk
+
+        packed, doc_lens = prune_chunk(packed, host_lens(doc_lens), fraction=prune_fraction)
     doc_lens = _as_tensor(doc_lens, torch.int32, dev)
     if int(doc_lens.long().sum()) != packed.shape[0]:
         raise ValueError(f"doc_lens sum {int(doc_lens.long().sum())} != tokens {packed.shape[0]}")
@@ -453,18 +466,11 @@ def build_index(
 
     codes, _ = _kmeans._assign_chunked(packed, centroids)
     residuals = packed - centroids[codes.long()]
-    if codec is None:
-        codec = rc.fit_codec(residuals, nbits)
-    else:
-        codec = rc.ResidualCodec(
-            _as_tensor(codec.cutoffs, torch.float32, dev),
-            _as_tensor(codec.weights, torch.float32, dev),
-            codec.nbits,
-        )
+    codec = rc.fit_codec(residuals, nbits) if codec is None else codec_to(codec, dev)
     packed_res = rc.compress_residuals(codec, residuals)
     del residuals
     return assemble_index(
         centroids, codes, packed_res, doc_lens,
         cutoffs=codec.cutoffs, weights=codec.weights, nbits=codec.nbits,
-        ivf_list_cap=ivf_list_cap, device=dev,
+        ivf_list_cap=ivf_list_cap, prune_fraction=prune_fraction, device=dev,
     )

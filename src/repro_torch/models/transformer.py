@@ -152,8 +152,8 @@ class Transformer(nn.Module):
         super().__init__()
         if cfg.n_experts:
             raise NotImplementedError(
-                f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not ported yet "
-                "(ROADMAP Queue 1 item 13)"
+                f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}; the reference's "
+                "layers.moe_init / moe_apply) are not ported"
             )
         if cfg.attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {cfg.attn_impl!r}")

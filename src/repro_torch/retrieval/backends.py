@@ -39,12 +39,21 @@ from repro_torch.retrieval.types import (
 _DIAG_NAMES = ("stage1_candidates", "stage2_kept_centroids", "stage3_survivors")
 
 
+def _build_index(corpus_embs, cfg: RetrieverConfig, doc_lens, device):
+    """Every facade ``build`` routes through the streaming two-pass builder
+    (``repro_torch.build``) on ``device``, with ``cfg.index`` as its
+    keywords."""
+    from repro_torch.build import build_index_streaming
+
+    return build_index_streaming(corpus_embs, doc_lens=doc_lens, device=device, **cfg.index)
+
+
 def to_engine_params(p: SearchParams, impl: str = "ref") -> plaid_mod.SearchParams:
     """Facade ``SearchParams`` -> core ``plaid.SearchParams``."""
     if p.tiered:
         raise NotImplementedError(
-            "SearchParams(tiered=True): the tiered index is not ported yet "
-            "(ROADMAP Queue 1 item 9)"
+            "SearchParams(tiered=True): the tiered index "
+            "(repro_torch.core.tiered) is not ported"
         )
     return plaid_mod.SearchParams(
         k=p.k,
@@ -130,6 +139,10 @@ class PlaidRetriever:
 
     # ---- construction ----------------------------------------------------
     @classmethod
+    def build(cls, corpus_embs, cfg: RetrieverConfig, doc_lens=None, *, device="cuda"):
+        return cls(_build_index(corpus_embs, cfg, doc_lens, device), cfg.params)
+
+    @classmethod
     def from_index(cls, index, cfg: RetrieverConfig):
         return cls(index, cfg.params)
 
@@ -210,6 +223,10 @@ class VanillaRetriever:
                 ndocs_cap=p.ndocs, impl=self.impl,
             ),
         )
+
+    @classmethod
+    def build(cls, corpus_embs, cfg: RetrieverConfig, doc_lens=None, *, device="cuda"):
+        return cls(_build_index(corpus_embs, cfg, doc_lens, device), cfg.params)
 
     @classmethod
     def from_index(cls, index, cfg: RetrieverConfig):

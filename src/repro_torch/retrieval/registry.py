@@ -1,6 +1,7 @@
 """String-keyed backend registry + the build / from_index / load factories
 (the counterpart of ``repro.retrieval.registry``).
 
+    r = retrieval.build(corpus, backend="plaid-cuda", index=dict(num_centroids=4096))
     r = retrieval.from_index(index, backend="plaid-cuda")
     r.save(path)
     r = retrieval.load(path)              # backend recorded on disk
@@ -63,15 +64,21 @@ def coerce_config(cfg: Any = None, **overrides) -> RetrieverConfig:
     return cfg.replace(**overrides) if overrides else cfg
 
 
-def build(corpus_embs, cfg=None, *, doc_lens=None, **overrides):
-    """Corpus embeddings -> index -> Retriever: routes through the streaming
-    builder, which is not ported yet."""
-    raise NotImplementedError(
-        "repro_torch.retrieval.build routes through the streaming index "
-        "builder, which is not ported yet (ROADMAP Queue 1 item 5).  For an "
-        "in-memory corpus, build with repro_torch.core.index.build_index and "
-        "wrap the index with retrieval.from_index"
-    )
+def build(
+    corpus_embs, cfg=None, *, doc_lens=None, device: str | torch.device = "cuda",
+    **overrides,
+):
+    """Corpus embeddings -> index on ``device`` -> ready Retriever.
+
+    ``corpus_embs``: list of (len_i, dim) arrays or tensors, packed
+    (Nt, dim) with ``doc_lens``, a ``build.ChunkStream`` or a chunk
+    factory.  The index comes from the streaming builder
+    (``repro_torch.build.build_index_streaming``) with ``cfg.index`` as its
+    keywords.  ``cfg``/``overrides``: see :func:`coerce_config`
+    (``backend=``, ``params=``, ``index=``).
+    """
+    cfg = coerce_config(cfg, **overrides)
+    return get_backend(cfg.backend).build(corpus_embs, cfg, doc_lens=doc_lens, device=device)
 
 
 def from_index(index, cfg=None, **overrides):

@@ -77,10 +77,19 @@ def params_for_k(k: int, candidate_cap: int | None = None) -> SearchParams:
 
 @dataclasses.dataclass(frozen=True)
 class RetrieverConfig:
-    """Backend choice + parameters."""
+    """Everything ``retrieval.build`` needs: backend choice + parameters.
+
+    ``index`` is forwarded to the streaming index builder
+    (``repro_torch.build.build_index_streaming``): the classic knobs
+    (``num_centroids``, ``nbits``, ``kmeans_iters``, ``seed``,
+    ``ivf_list_cap``, frozen ``centroids``/``codec``, ``prune_fraction``)
+    plus the streaming geometry (``chunk_docs``, ``sample_size``,
+    ``stat_blocks``).
+    """
 
     backend: str = "plaid"
     params: SearchParams = SearchParams()
+    index: dict = dataclasses.field(default_factory=dict)
 
     def replace(self, **changes) -> "RetrieverConfig":
         return dataclasses.replace(self, **changes)

@@ -132,9 +132,23 @@ def test_frozen_table_build_is_array_identical_to_reference(corpus, ref_trained)
         assert got.static_dict() == {f: getattr(want, f) for f in ti.STATIC_FIELDS}
 
 
-def test_build_refuses_pruning_and_unbalanced_lengths(corpus):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ti.build_index(corpus, prune_fraction=0.25, device="cpu")
+def test_build_refuses_pruning_and_unbalanced_lengths(corpus, ref_trained):
+    """Pruning is ported (it was refused until the streaming build came):
+    a pruned frozen-table build equals the reference's, field for field;
+    unbalanced lengths are still refused."""
+    cents = np.asarray(ref_trained.centroids)
+    want = ri.build_index(
+        corpus, centroids=cents, prune_fraction=0.25,
+        codec=rrc.ResidualCodec(ref_trained.cutoffs, ref_trained.weights, 2),
+    )
+    got = ti.build_index(corpus, centroids=cents, codec=_port_codec(ref_trained),
+                         prune_fraction=0.25, device="cpu")
+    assert got.num_tokens < sum(len(d) for d in corpus)
+    for f in ti.ARRAY_FIELDS:
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert got.static_dict() == {f: getattr(want, f) for f in ti.STATIC_FIELDS}
     with pytest.raises(ValueError, match="doc_lens"):
         ti.build_index(np.concatenate(corpus), np.array([1, 2], np.int32), device="cpu")
 

@@ -139,7 +139,15 @@ def test_unported_features_are_refused(saved, backend):
     with pytest.raises(NotImplementedError, match="tiered"):
         tret.load(path, backend=backend, device="cpu",
                   params=tret.SearchParams(tiered=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tret.build(qs)
+    # the streaming build is ported: retrieval.build runs on the CPU when
+    # asked (here over the queries as a 3-passage corpus, against r's
+    # frozen centroids), on the card by default (no silent fallback)
+    built = tret.build(list(qs), backend=backend, device="cpu",
+                       index=dict(centroids=r.index.centroids))
+    assert built.backend_name == backend and built.index.num_passages == len(qs)
+    assert torch.equal(built.index.centroids, r.index.centroids)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tret.build(list(qs), backend=backend)
     with pytest.raises(KeyError, match="unknown retrieval backend"):
         tret.load(path, backend="plaid-pallas", device="cpu")

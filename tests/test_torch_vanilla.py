@@ -194,5 +194,10 @@ def test_vanilla_backend_refuses_diagnostics_funnel_and_build(saved):
         r.search_batch(qs, with_diagnostics=True)
     with pytest.raises(ValueError, match="with_funnel"):
         r.search(qs[0], with_funnel=True)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tret.build(np.zeros((4, 32), np.float32), "vanilla", doc_lens=np.array([4]))
+    # build is ported (the streaming builder); it was refused until then
+    built = tret.build(np.asarray(qs[0], np.float32), "vanilla", doc_lens=np.array([len(qs[0])]),
+                       index=dict(centroids=r.index.centroids), device="cpu")
+    assert built.backend_name == "vanilla" and built.index.num_passages == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tret.build(np.asarray(qs[0], np.float32), "vanilla", doc_lens=np.array([len(qs[0])]))
