@@ -32,7 +32,12 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
 7. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
-               card), launch counts;
+               card), launch counts; then, per k, one unfused batch with
+               ``with_funnel=True`` through both backends (pids identical
+               to each other and to the batch without the funnel, every
+               ``FunnelStats`` field identical), each field's mean over the
+               batch, and funnel off against on interleaved (p50 of 4
+               pairs);
 8. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
@@ -44,14 +49,31 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                ``impl="cuda"`` (K5, K6) for k in {10, 100, 1000}: pids
                identical to the same lanes of ``plaid-cuda``'s batch and to
                ``_search(impl="ref")``;
-10. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
+10. quality    the quality harness (``repro_torch.eval``): (i) an index
+               of 2^16 passages of 8..180 tokens from
+               ``data.synthetic.embedding_corpus`` (d=128, nbits 2, K by
+               ColBERTv2's rule) built on the card and 64 seeded queries of
+               32 tokens; ``sweep_quality`` over ``default_grid`` (48
+               points) and 8 points whose ndocs caps cut real candidates,
+               with ``impl="cuda"`` and with ``impl="ref"``: pids, funnel,
+               work and metrics identical at every point; records, the
+               frontier, ``n_programs``, per-point latency, the points
+               where each cap's mask bound; (ii)
+               ``certify_backends`` at lossless caps on 4,096 passages and
+               32 queries: every variant (``plaid-cuda``, ``vanilla``,
+               fused, bf16 and int8 stage 1) within 1e-6 of the exact f32
+               ``plaid`` baseline's recall@10, the PLAID variants' pids
+               identical to the baseline's and ``vanilla``'s to
+               ``VanillaEngine(impl="ref")``'s, scores within 1e-5, with
+               the IVF walk's and the candidate blocks' bytes;
+11. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
                weights) encodes a corpus of 8..180-token passages,
                ``build_index`` indexes it on the card (k-means at
                ColBERTv2's centroid count), encoded B=32 query batches are
                searched with ``plaid-cuda`` and ``plaid`` (identical pids)
                and in the main index: encode and tokens -> pids latencies,
                K7 launch counts, one encode held against the CPU;
-11. stream_build  the streaming build (``repro_torch.build``): (i) a
+12. stream_build  the streaming build (``repro_torch.build``): (i) a
                trained build at ColBERTv2's widths (d=128, nbits=2, K=2^17,
                a 2^18 sample, 8 Lloyd iterations) of 250,000 passages of
                8..180 tokens (~23.5M tokens) made chunk by chunk on the
@@ -66,9 +88,9 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                over 2,048 passages through the encoder (K7) identical to
                ``build_index`` over the same output, and ``retrieval.build``
                identical to ``build_index_streaming``;
-12. persist    the main index saved and loaded through the facade: every
+13. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
-13. profile    device time of one plaid-cuda batch, one vanilla batch and
+14. profile    device time of one plaid-cuda batch, one vanilla batch and
                one B=32 query encode by kernel (torch.profiler) and the
                device's busy share of each.
 
@@ -101,9 +123,12 @@ from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import indexer  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.eval import qrels as eval_qrels, sweep as eval_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.models import colbert  # noqa: E402
+from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -139,6 +164,22 @@ ENCODE_PASSAGES, DOC_MAXLEN, ENCODE_BATCH = 8192, 180, 64
 #: check; 2,048 encoded passages for build_from_encoder
 STREAM_PASSAGES, STREAM_CHUNK_DOCS = 250_000, 16_384
 DETERMINISM_PASSAGES, ENCODER_BUILD_PASSAGES = 10_640, 2048
+#: phase quality: the sweep's corpus and queries (embedding_corpus, 8..180
+#: tokens), the certification's.  16 passages a topic (the reference's
+#: 96-passage harness has 12): at the default 32 topics a query would judge
+#: 2,048 passages relevant and recall@10 could not pass ~0.005
+QUALITY_PASSAGES, QUALITY_QUERIES = 1 << 16, 64
+CERT_PASSAGES, CERT_QUERIES = 4096, 32
+PASSAGES_PER_TOPIC = 16
+#: phase quality: sweep points past ``default_grid`` whose ndocs sit below
+#: the stage-1 candidates a query of that corpus gathers (~640 at nprobe 3,
+#: ~1,850 at 8) and below their pow2 bucket, so that the ndocs_t / n3_t
+#: masks cut real candidates; default_grid's ndocs (n/8 and up) exceed them
+CAP_GRID_NPROBES, CAP_GRID_NDOCS = (3, 8), (12, 40, 100, 300)
+#: phase quality: certification scores, a variant against the baseline and
+#: vanilla against its plain version
+CERT_SCORE_ATOL = 1e-5
+FUNNEL_PAIRS = 4  # funnel off/on timing pairs per k, interleaved
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -314,14 +355,17 @@ def k1_stage3_check(s_cq, codes3, qm) -> dict:
     def kern():
         return ops.centroid_interaction_batched(s_cq, codes3, qm, None)
 
-    got, want = kern(), ref.centroid_interaction_batched_ref(s_cq, codes3, None, qm)
+    def plain():
+        return ref.centroid_interaction_batched_ref(s_cq, codes3, None, qm)
+
+    got, want = kern(), plain()
     torch.cuda.synchronize()
     valid = int((codes3 >= 0).sum())
     bound_ms, bound_by = k1_bound(s_cq, codes3, None)
     row = dict(equal=torch.equal(got, want), max_abs_err=float((got - want).abs().max()),
                ms=time_ms(kern, reps=25), device_ms=device_time_ms(kern, reps=25),
-               host_us=host_us(kern, reps=25), bound_ms=bound_ms, bound_by=bound_by,
-               valid_tokens=valid, gathered_row_bytes=valid * NQ * 4,
+               host_us=host_us(kern, reps=25), plain_ms=time_ms(plain, reps=3),
+               bound_ms=bound_ms, bound_by=bound_by, valid_tokens=valid, gathered_row_bytes=valid * NQ * 4,
                shape=dict(B=codes3.shape[0], nd=codes3.shape[1], L=codes3.shape[2],
                           K=s_cq.shape[1], nq=NQ))
     emit({"kernel_check": "centroid_interaction_batched", "case": "stage3", **row})
@@ -608,6 +652,7 @@ def main(argv=None) -> int:
                     row[name] = dict(p50_ms=p50, qps=BATCH / p50 * 1e3)
                 emit({"search": row})
                 runs.append(row)
+        info["funnel"] = funnel_rows(index, batches)
         search_counts = ops.launch_counts()
         info.update(configs=len(runs), launches=search_counts)
         assert all(search_counts[name] > 0 for name in SEARCH_KERNELS), search_counts
@@ -629,11 +674,17 @@ def main(argv=None) -> int:
         assert oracle_counts["centroid_interaction"] > 0, oracle_counts
         assert oracle_counts["decompress_and_score"] > 0, oracle_counts
 
-    # ---- 10. the encoder path: tokens -> vectors -> index -> pids ---------
+    # ---- 10. the quality harness: sweep and certification -----------------
+    ops.reset_launch_counts()
+    with Phase("quality") as info:
+        quality_phase(args.seed, dev, info)
+        info["launches"] = ops.launch_counts()
+
+    # ---- 11. the encoder path: tokens -> vectors -> index -> pids ---------
     with Phase("encode") as info:
         model, encode_counts, q_toks, enc_corpus = encode_phase(index, args.seed, dev, info)
 
-    # ---- 11. the streaming build --------------------------------------------
+    # ---- 12. the streaming build --------------------------------------------
     ops.reset_launch_counts()
     with Phase("stream_build") as info:
         stream_build_phase(model, enc_corpus, args.seed, dev, info)
@@ -642,7 +693,7 @@ def main(argv=None) -> int:
         assert stream_counts["flash_attention"] > 0, stream_counts
     del enc_corpus
 
-    # ---- 12. persistence of the main index --------------------------------
+    # ---- 13. persistence of the main index --------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
         qb = batches[1][0]
@@ -668,7 +719,7 @@ def main(argv=None) -> int:
         assert torch.equal(before.scores, after.scores)
         del r, r2, loaded
 
-    # ---- 13. where a plaid-cuda batch and a query encode spend device time -
+    # ---- 14. where a plaid-cuda batch and a query encode spend device time -
     with Phase("profile") as info:
         info["configs"] = [
             dict(k=k, fused=False, **profile_batch(
@@ -1273,6 +1324,197 @@ def oracle_phase(index, qb) -> list:
         rows.append(row)
     del s1_all
     return rows
+
+
+def funnel_rows(index, batches) -> list:
+    """Funnel telemetry on the main index, for k in {10, 100, 1000}: one
+    unfused batch with ``with_funnel=True`` through ``plaid-cuda`` and
+    ``plaid``, pids identical to each other and to the batch without the
+    funnel, every ``FunnelStats`` field identical; each field's mean over
+    the batch; then ``plaid-cuda`` funnel off against on, interleaved in one
+    process (p50 of FUNNEL_PAIRS pairs of the call's wall time, which
+    includes the funnel's copy to the host)."""
+    rows = []
+    qb = batches[1][0]
+    for k in (10, 100, 1000):
+        p = retrieval.params_for_k(k)
+        cuda_r = retrieval.from_index(index, backend="plaid-cuda", params=p)
+        plain_r = retrieval.from_index(index, backend="plaid", params=p)
+        on = cuda_r.search_batch(qb, with_funnel=True)
+        on_plain = plain_r.search_batch(qb, with_funnel=True)
+        off = cuda_r.search_batch(qb)
+        check_result(on, k)
+        assert off.funnel is None and list(on.funnel) == list(FunnelStats._fields)
+        assert torch.equal(on.pids, on_plain.pids), f"funnel: plaid-cuda vs plaid pids, k={k}"
+        assert torch.equal(on.pids, off.pids), f"funnel on vs off pids, k={k}"
+        assert torch.equal(on.scores, off.scores), f"funnel on vs off scores, k={k}"
+        fn = on.funnel
+        for f, v in fn.items():
+            assert v.shape == (BATCH,) and np.array_equal(v, on_plain.funnel[f]), (k, f)
+        assert (fn["stage2_survivors"] <= fn["stage1_candidates"]).all()
+        assert (fn["stage3_survivors"] <= fn["stage2_survivors"]).all()
+        assert (fn["alive_dropped"] == 0).all() and (fn["gathered_tokens"] > 0).all()
+        times = {"off": [], "on": []}
+        for i in range(FUNNEL_PAIRS):
+            for mode in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cuda_r.search_batch(qb, with_funnel=mode == "on")
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+        p50 = {mode: statistics.median(xs) for mode, xs in times.items()}
+        row = dict(k=k, batch=BATCH, funnel_mean={f: float(v.mean()) for f, v in fn.items()},
+                   identical_to_plaid=True, pairs=FUNNEL_PAIRS, off_p50_ms=p50["off"],
+                   on_p50_ms=p50["on"], on_minus_off_ms=p50["on"] - p50["off"],
+                   off_ms=times["off"], on_ms=times["on"])
+        emit({"funnel": row})
+        rows.append(row)
+    return rows
+
+
+def quality_phase(seed, dev, info: dict) -> None:
+    """The quality harness (``repro_torch.eval``) on the card.
+
+    (i) An index of QUALITY_PASSAGES passages of 8..180 tokens from
+    ``data.synthetic.embedding_corpus`` (d=128, nbits 2, K by ColBERTv2's
+    rule) built on the card, QUALITY_QUERIES seeded queries of NQ tokens:
+    ``sweep_quality`` over ``default_grid`` (48 points) and the
+    CAP_GRID points with ``impl="cuda"``, then with ``impl="ref"`` on the
+    same card; every point's pids, funnel, work and metrics identical, and
+    the ndocs mask cuts real candidates at every CAP_GRID point.  (ii)
+    ``certify_backends`` at lossless caps on a CERT_PASSAGES-passage index
+    of the same widths, CERT_QUERIES queries: every variant's recall@10
+    within 1e-6 of the exact f32 ``plaid`` baseline; the PLAID variants'
+    pids identical to the baseline's and ``vanilla``'s to its plain
+    version's on the same batches, scores within CERT_SCORE_ATOL.  At nprobe = K the IVF
+    walk holds B x nq x K x ivf_list_cap pids, so certification searches
+    a few queries at a time (``eval.sweep.lossless_query_batch``)."""
+    # ---- (i) the sweep
+    t0 = time.perf_counter()
+    docs, topics = synthetic.embedding_corpus(
+        QUALITY_PASSAGES, dim=DIM, min_len=8, max_len=DOC_MAXLEN, seed=seed,
+        n_topics=QUALITY_PASSAGES // PASSAGES_PER_TOPIC, n_concepts=QUALITY_PASSAGES)
+    qset = eval_qrels.synthetic_query_set(docs, topics, QUALITY_QUERIES, q_len=NQ,
+                                          seed=seed + 1)
+    corpus_s = time.perf_counter() - t0
+    n_tok = sum(len(d) for d in docs)
+    t0 = time.perf_counter()
+    index = build.build_index_streaming(
+        docs, num_centroids=kmeans.num_centroids_for(n_tok), nbits=NBITS, seed=seed,
+        chunk_docs=STREAM_CHUNK_DOCS, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del docs
+    grid = eval_sweep.default_grid(index)
+    assert len(grid) == 48
+    grid += [eval_sweep.GridPoint(eval_sweep.T_CS_OFF, p, d)
+             for p in CAP_GRID_NPROBES for d in CAP_GRID_NDOCS]
+    t0 = time.perf_counter()
+    rec_c, eng = eval_sweep.sweep_quality(index, qset, grid=grid, impl="cuda")
+    cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec_r, _ = eval_sweep.sweep_quality(index, qset, grid=grid, impl="ref",
+                                        measure_latency=False)
+    ref_s = time.perf_counter() - t0
+    assert len(rec_c) == len(rec_r) == len(grid)
+    for c, r in zip(rec_c, rec_r):
+        assert np.array_equal(c.pids, r.pids), f"sweep pids, cuda vs ref, at {c.case}"
+        for f, v in r.funnel.items():
+            assert np.array_equal(c.funnel[f], v), f"sweep funnel {f}, cuda vs ref, at {c.case}"
+        assert c.work == r.work and c.metrics == r.metrics, c.case
+        assert math.isfinite(c.work) and 0.0 <= c.metrics["recall@10"] <= 1.0, c.case
+    # a cap's mask binds where it sits below its bucket and cut a real
+    # candidate (ndocs_t at stage 2, n3_t at stage 3) in some query
+    def cut(r, kept, had):
+        return bool((r.funnel[kept] < r.funnel[had]).any())
+
+    ndocs_binds = [r.case for r in rec_c if r.ndocs < r.bucket_ndocs
+                   and cut(r, "stage2_survivors", "stage1_candidates")]
+    n3_binds = [r.case for r in rec_c if r.ndocs < r.bucket_ndocs
+                and cut(r, "stage3_survivors", "stage2_survivors")]
+    nprobe_masked = [r.case for r in rec_c if r.nprobe < r.bucket_nprobe]
+    cap_cases = {r.case for r in rec_c[48:]}
+    assert cap_cases <= set(ndocs_binds), f"ndocs mask cut nothing at {cap_cases - set(ndocs_binds)}"
+    frontier = eval_sweep.pareto_frontier(rec_c)
+    emit({"sweep": [
+        dict(case=r.case, bucket=[r.bucket_nprobe, r.bucket_ndocs], work=r.work,
+             recall_at_10=r.metrics["recall@10"], mrr_at_10=r.metrics["mrr@10"],
+             latency_ms_per_query=r.latency_ms, on_frontier=r.on_frontier,
+             stage1_candidates_mean=float(r.funnel["stage1_candidates"].mean()),
+             stage2_survivors_mean=float(r.funnel["stage2_survivors"].mean()),
+             stage3_survivors_mean=float(r.funnel["stage3_survivors"].mean()))
+        for r in rec_c]})
+    recalls = [r.metrics["recall@10"] for r in rec_c]
+    info["sweep"] = dict(
+        passages=index.num_passages, tokens=index.num_tokens, centroids=index.num_centroids,
+        ivf_list_cap=index.ivf_list_cap, queries=QUALITY_QUERIES, points=len(rec_c),
+        default_grid_points=48, cap_grid_points=len(rec_c) - 48,
+        identical_cuda_vs_ref=True, ndocs_mask_binds=len(ndocs_binds),
+        n3_mask_binds=len(n3_binds), nprobe_mask_points=len(nprobe_masked),
+        ndocs_mask_binds_in_default_grid=len(set(ndocs_binds) - cap_cases),
+        frontier=len(frontier),
+        frontier_cases=[r.case for r in frontier], n_programs=eng.n_programs,
+        recall_at_10_min=min(recalls), recall_at_10_max=max(recalls),
+        latency_ms_per_query_p50=statistics.median(r.latency_ms for r in rec_c),
+        corpus_s=corpus_s, build_s=build_s, cuda_sweep_s=cuda_s, ref_sweep_s=ref_s)
+    del index, rec_c, rec_r
+
+    # ---- (ii) lossless-caps certification
+    t0 = time.perf_counter()
+    docs_c, topics_c = synthetic.embedding_corpus(
+        CERT_PASSAGES, dim=DIM, min_len=8, max_len=DOC_MAXLEN, seed=seed + 2,
+        n_topics=CERT_PASSAGES // PASSAGES_PER_TOPIC, n_concepts=CERT_PASSAGES)
+    qset_c = eval_qrels.synthetic_query_set(docs_c, topics_c, CERT_QUERIES, q_len=NQ,
+                                            seed=seed + 3)
+    idx_c = build.build_index_streaming(docs_c, nbits=NBITS, seed=seed, device=dev)
+    del docs_c
+    n, K, L = idx_c.num_passages, idx_c.num_centroids, idx_c.doc_maxlen
+    walk_slots = NQ * K * idx_c.ivf_list_cap  # one query's IVF walk at nprobe = K
+    qbatch = eval_sweep.lossless_query_batch(idx_c, NQ, CERT_QUERIES)
+    n3 = max(n // 4, 10)
+    sizes = dict(
+        passages=n, tokens=idx_c.num_tokens, centroids=K, ivf_list_cap=idx_c.ivf_list_cap,
+        queries=CERT_QUERIES, query_batch=qbatch,
+        walk_pids_bytes_all_queries=CERT_QUERIES * walk_slots * 4,
+        walk_pids_bytes_a_batch=qbatch * walk_slots * 4,
+        stage2_blocks_bytes_a_batch=qbatch * n * L * 5,  # codes i32 + valid
+        stage4_blocks_bytes_a_batch=qbatch * n3 * L * (idx_c.residuals.shape[1] + 5))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    records, failures = eval_sweep.certify_backends(idx_c, qset_c)
+    torch.cuda.synchronize()
+    sizes["peak_device_bytes_above_resident"] = torch.cuda.max_memory_allocated() - base
+    emit({"certify": [dict(variant=r["variant"], backend=r["backend"],
+                           recall_at_10=r["metrics"]["recall@10"], delta=r["delta"],
+                           passed=r["passed"]) for r in records]})
+    assert not failures, failures
+    variants = {r["variant"] for r in records}
+    want = {"baseline-exact-f32", "plaid-cuda", "vanilla", "plaid-fused",
+            "plaid-stage1-bf16", "plaid-stage1-int8"}
+    assert want <= variants, variants
+    assert all(abs(r["delta"]) <= eval_sweep.CERT_TOLERANCE for r in records), records
+    # recall@10 alone would pass a kernel that reorders the top 10 or gets a
+    # score wrong: at lossless caps every PLAID variant ranks as the exact
+    # baseline does, and vanilla as its plain version on the same batches
+    by = {r["variant"]: r for r in records}
+    base, score_err = by["baseline-exact-f32"], {}
+    for v in ("plaid-cuda", "plaid-fused", "plaid-stage1-bf16", "plaid-stage1-int8"):
+        assert np.array_equal(by[v]["pids"], base["pids"]), f"certify: {v} pids differ from the baseline's"
+        score_err[v] = float(np.abs(by[v]["scores"] - base["scores"]).max())
+    lossless = eval_sweep.lossless_params(idx_c)
+    plain = vanilla.VanillaEngine(idx_c, vanilla.VanillaParams(
+        k=lossless.k, nprobe=lossless.nprobe, ncandidates=idx_c.num_tokens,
+        ndocs_cap=lossless.ndocs, impl="ref"))
+    qs_c = np.asarray(qset_c.queries, np.float32)
+    want = [plain.search_batch(qs_c[i:i + qbatch]) for i in range(0, CERT_QUERIES, qbatch)]
+    want_p = np.concatenate([p.cpu().numpy() for _, p in want])
+    want_s = np.concatenate([s.cpu().numpy() for s, _ in want])
+    assert np.array_equal(by["vanilla"]["pids"], want_p), "certify: vanilla pids differ from impl='ref'"
+    score_err["vanilla_vs_ref"] = float(np.abs(by["vanilla"]["scores"] - want_s).max())
+    assert all(e <= CERT_SCORE_ATOL for e in score_err.values()), score_err
+    info["certify"] = dict(sizes, variants=len(records), passed=True,
+                           pids_identical=True, max_abs_score_err=score_err,
+                           seconds=time.perf_counter() - t0)
 
 
 def extra_kernel_cases(dev) -> list:

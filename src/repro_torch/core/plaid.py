@@ -249,18 +249,27 @@ class PlaidEngine:
             score_dtype=p.score_dtype,
         )
 
-    def search(self, q, q_mask=None, *, t_cs: float | None = None, diag: bool = False):
-        """q: (nq, dim) one query matrix -> (scores (k,), pids (k,))."""
+    def search(self, q, q_mask=None, *, t_cs: float | None = None, diag: bool = False,
+               funnel: bool = False):
+        """q: (nq, dim) one query matrix -> (scores (k,), pids (k,)[, diag]
+        [, FunnelStats of 0-d counts])."""
         dev = self.index.device
         q = _as_queries(q, dev, 2)
         q_mask = None if q_mask is None else _as_queries(q_mask, dev, 1)[None]
-        scores, pids, *extras = self.search_batch(q[None], q_mask, t_cs=t_cs, diag=diag)
+        scores, pids, *extras = self.search_batch(
+            q[None], q_mask, t_cs=t_cs, diag=diag, funnel=funnel
+        )
+        out_extras = []
         if diag:
-            return scores[0], pids[0], {k: v[0] for k, v in extras[0].items()}
-        return scores[0], pids[0]
+            out_extras.append({k: v[0] for k, v in extras.pop(0).items()})
+        if funnel:
+            fs = extras.pop(0)
+            out_extras.append(type(fs)(*(v[0] for v in fs)))
+        return (scores[0], pids[0], *out_extras)
 
-    def search_batch(self, qs, q_masks=None, *, t_cs: float | None = None, diag: bool = False):
-        """qs: (B, nq, dim) -> (scores (B, k), pids (B, k))."""
+    def search_batch(self, qs, q_masks=None, *, t_cs: float | None = None,
+                     diag: bool = False, funnel: bool = False):
+        """qs: (B, nq, dim) -> (scores (B, k), pids (B, k)[, diag][, FunnelStats])."""
         dev = self.index.device
         qs = _as_queries(qs, dev, 3)
         if q_masks is None:
@@ -271,5 +280,6 @@ class PlaidEngine:
         if isinstance(t, np.ndarray):
             t = torch.from_numpy(t)
         return pipeline.run_pipeline(
-            self.index, qs, q_masks, t, self._pipeline_params(), diag=diag
+            self.index, qs, q_masks, t, self._pipeline_params(), diag=diag,
+            funnel=funnel,
         )

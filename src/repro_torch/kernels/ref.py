@@ -11,9 +11,10 @@ wrappers run these for CPU tensors; ``chip_smoke.py`` and the GPU tests call
 them directly to hold the kernels against them.
 
 The engine's ``impl="ref"`` path uses the same functions, so the ``plaid``
-and ``plaid-cuda`` backends rank identically.  Work is cut into chunks of
-lanes so the (B, nd, L, nq) intermediates stay near ``_CHUNK_ELEMS``
-elements; results do not depend on the chunking.
+and ``plaid-cuda`` backends rank identically.  K1's and K7's work is cut
+into chunks of lanes so the largest intermediates stay near
+``_CHUNK_ELEMS`` elements, and K2's runs one lane at a time over its valid
+tokens; results do not depend on the chunking.
 """
 from __future__ import annotations
 
@@ -103,26 +104,27 @@ def decompress_and_score_batched_ref(
     """K2: exact MaxSim over decompressed tokens -> (B, nd) f32.
 
     ``emb = centroids[code] + weights[idx]``; invalid tokens score ``NEG``;
-    max over tokens, then ``sum_i q_mask * max`` (no 0-clamp).
+    max over tokens, then ``sum_i q_mask * max`` (no 0-clamp).  One lane at
+    a time, only its valid tokens are decompressed and scored (as the
+    kernel streams them); the max is exact, so where they are scored does
+    not change a bit.
     """
     B, nd, L = codes.shape
-    d = centroids.shape[1]
+    nq = q.shape[1]
     cents = centroids.float()
     w = weights.float()
     out = torch.empty((B, nd), dtype=torch.float32, device=codes.device)
-    for sl in _lane_chunks(B, nd * L * d):
-        c = codes[sl]
-        safe = torch.where(c >= 0, c, 0).long()
-        resid = decompress_residuals_ref(packed_res[sl], w, nbits=nbits)  # (nb, nd, L, d)
-        emb = cents[safe] + resid
-        emb_t = emb.transpose(-1, -2).contiguous()  # (nb, nd, d, L)
-        # (nb, 1, nq, d, 1) . (nb, nd, 1, d, L) over d -> (nb, nd, nq, L)
-        scores = scoring.dot_in_order(
-            q[sl].float()[:, None, :, :, None], emb_t[:, :, None, :, :]
-        )
-        scores = torch.where(tok_valid[sl][:, :, None, :], scores, NEG)
-        per_q = scores.amax(dim=-1) * q_mask[sl].float()[:, None, :]
-        out[sl] = scoring.lane_tree_sum(per_q)
+    for b in range(B):
+        rows = tok_valid[b].reshape(-1).nonzero().squeeze(1)  # slot * L + token
+        code = codes[b].reshape(-1)[rows]
+        resid = decompress_residuals_ref(packed_res[b].reshape(nd * L, -1)[rows], w, nbits=nbits)
+        emb_t = (cents[torch.where(code >= 0, code, 0).long()] + resid).T.contiguous()
+        # (Nv, d, 1) . (d, nq) over d -> (Nv, nq); dim j's column contiguous
+        scores = scoring.dot_in_order(emb_t.T[:, :, None], q[b].float().T)
+        full = torch.full((nd * L, nq), NEG, dtype=torch.float32, device=codes.device)
+        full[rows] = scores
+        per_q = full.view(nd, L, nq).amax(dim=1) * q_mask[b].float()[None, :]
+        out[b] = scoring.lane_tree_sum(per_q)
     return out
 
 

@@ -13,8 +13,9 @@ of the ``plaid`` / ``plaid-pallas`` part of ``repro.retrieval.backends``).
 ``SearchParams.candidate_cap`` is the stage-1 bound in each engine's own
 unit: candidate *passages* for PLAID, candidate *embeddings* for vanilla.
 
-Funnel telemetry (``with_funnel=True``) and the tiered storage mode are not
-ported; both are refused with a ``ValueError`` / ``NotImplementedError``.
+Funnel telemetry (``with_funnel=True``) runs on ``plaid`` and ``plaid-cuda``
+and is refused on ``vanilla``.  The tiered storage mode is not ported and is
+refused with a ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 from repro_torch.core import indexer
 from repro_torch.core import plaid as plaid_mod
 from repro_torch.core import vanilla as vanilla_mod
+from repro_torch.obs import funnel as funnel_mod
 from repro_torch.retrieval import registry
 from repro_torch.retrieval.types import (
     DYNAMIC_FIELDS,
@@ -80,8 +82,8 @@ def _as_request(q, q_mask, t_cs, with_diagnostics, with_funnel=False):
 def _reject_funnel(req: SearchRequest, backend: str) -> None:
     if req.with_funnel:
         raise ValueError(
-            f"with_funnel is not supported by backend {backend!r} (funnel "
-            "telemetry is not ported yet)"
+            f"with_funnel is not supported by backend {backend!r} "
+            "(funnel telemetry exists on the PLAID-pipeline backends)"
         )
 
 
@@ -104,23 +106,30 @@ def _index_summary(index) -> dict:
     )
 
 
-def _finish(out, *, backend, k, t_cs, t0, diag: bool = False) -> SearchResult:
+def _finish(out, *, backend, k, t_cs, t0, diag: bool = False,
+            funnel: bool = False) -> SearchResult:
     """Wait for the device and wrap the result with serving metadata:
     ``latency_ms`` measures a completed search."""
     scores, pids, *extras = out
     if pids.device.type == "cuda":
         torch.cuda.synchronize(pids.device)
     latency_ms = (time.perf_counter() - t0) * 1e3
-    diagnostics = None
+    diagnostics = funnel_stats = None
     if diag:
+        d = extras.pop(0)
         diagnostics = {
-            name: np.asarray(extras[0][name].cpu()) if extras[0][name].ndim
-            else int(extras[0][name])
+            name: np.asarray(d[name].cpu()) if d[name].ndim else int(d[name])
             for name in _DIAG_NAMES
+        }
+    if funnel:
+        funnel_stats = {
+            name: v if v.ndim else int(v)
+            for name, v in funnel_mod.to_host(extras.pop(0)).items()
         }
     return SearchResult(
         scores=scores, pids=pids, backend=backend, k=k,
         latency_ms=latency_ms, t_cs=t_cs, diagnostics=diagnostics,
+        funnel=funnel_stats,
     )
 
 
@@ -157,13 +166,13 @@ class PlaidRetriever:
     # ---- search ----------------------------------------------------------
     def _search(self, fn, q, q_mask, t_cs, with_diagnostics, with_funnel):
         req = _as_request(q, q_mask, t_cs, with_diagnostics, with_funnel)
-        _reject_funnel(req, self.backend_name)
         t = self.params.t_cs if req.t_cs is None else req.t_cs
         t0 = time.perf_counter()
-        out = fn(req.q, req.q_mask, t_cs=t, diag=req.with_diagnostics)
+        out = fn(req.q, req.q_mask, t_cs=t, diag=req.with_diagnostics,
+                 funnel=req.with_funnel)
         return _finish(
             out, backend=self.backend_name, k=self.params.k, t_cs=t, t0=t0,
-            diag=req.with_diagnostics,
+            diag=req.with_diagnostics, funnel=req.with_funnel,
         )
 
     def search(self, q, q_mask=None, *, t_cs=None, with_diagnostics=False,

@@ -103,7 +103,7 @@ class SearchRequest:
     q_mask: Any | None = None  # (nq,) / (B, nq); None = all tokens valid
     t_cs: float | None = None
     with_diagnostics: bool = False  # per-stage survivor counts
-    with_funnel: bool = False  # funnel telemetry: not ported, refused
+    with_funnel: bool = False  # attach obs.FunnelStats funnel telemetry
 
 
 @dataclasses.dataclass
@@ -117,7 +117,9 @@ class SearchResult:
     k: int
     latency_ms: float | None = None
     t_cs: float | None = None
-    diagnostics: dict | None = None
+    diagnostics: dict | None = None  # per-stage survivor counts (if requested)
+    funnel: dict | None = None  # obs.FunnelStats as host numpy arrays (if
+    # requested via with_funnel): per-query counts at every funnel stage
 
     def __iter__(self):
         return iter((self.scores, self.pids))

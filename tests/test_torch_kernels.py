@@ -168,6 +168,44 @@ def test_k3_plain_equals_k2_plain_on_gathered_blocks():
     assert torch.equal(fused, unfused)
 
 
+_K2_ARGS = ("q", "q_mask", "codes", "packed_res", "tok_valid", "centroids", "weights")
+
+
+def _k2_whole_block(q, q_mask, codes, packed_res, tok_valid, centroids, weights, *, nbits):
+    """K2 as one expression over whole blocks: every slot's every token is
+    decompressed and scored, invalid ones then set to NEG."""
+    from repro_torch.constants import NEG
+    from repro_torch.core import scoring
+
+    safe = torch.where(codes >= 0, codes, 0).long()
+    emb = centroids.float()[safe] + tref.decompress_residuals_ref(
+        packed_res, weights.float(), nbits=nbits)
+    emb_t = emb.transpose(-1, -2).contiguous()  # (B, nd, d, L)
+    scores = scoring.dot_in_order(q.float()[:, None, :, :, None], emb_t[:, :, None, :, :])
+    scores = torch.where(tok_valid[:, :, None, :], scores, NEG)  # (B, nd, nq, L)
+    return scoring.lane_tree_sum(scores.amax(dim=-1) * q_mask.float()[:, None, :])
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 4])
+@pytest.mark.parametrize("seed,nq,d", [(7, 6, 32), (8, 33, 128)])
+def test_k2_plain_equals_whole_block_formulation(nbits, seed, nq, d):
+    """K2's plain version scores each lane's valid tokens only; that must
+    not change a bit against scoring every token of the block, on ragged
+    blocks: a lane and a slot with no valid token, -1 codes (invalid, and
+    one marked valid, which reads centroid 0 as the kernel does)."""
+    a = k2_inputs(seed, nbits, B=3, nq=nq, d=d)
+    a["tok_valid"][1] = False
+    a["tok_valid"][0, 2] = False
+    a["codes"][2, 3, :4] = -1
+    a["tok_valid"][2, 3, :3] = False
+    a["tok_valid"][2, 3, 3] = True
+    t = [_t(a[k]) for k in _K2_ARGS]
+    got = tref.decompress_and_score_batched_ref(*t, nbits=nbits)
+    want = _k2_whole_block(*t, nbits=nbits)
+    assert got.shape == (3, a["codes"].shape[1])
+    assert torch.equal(got, want)
+
+
 # --------------------------------------------------------------------------
 # K4 (decompress_residuals) and the single-query K5 / K6
 # --------------------------------------------------------------------------
