@@ -38,18 +38,30 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                ``FunnelStats`` field identical), each field's mean over the
                batch, and funnel off against on interleaved (p50 of 4
                pairs);
-8. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
+8. live        the live index (``repro_torch.live``) with the main index
+               as its base segment: ``live-cuda`` over the bare base equals
+               ``plaid-cuda`` (equal scores ordered by pid, as the merge
+               orders them); three deltas (4,096, 1,000 and 333 passages)
+               through ``add_passages`` and 20,100 tombstones; ``live-cuda``
+               (K1-K3 on every segment) and ``live`` identical for k 10 and
+               1000 (fused and not) over a warm-up and 4 B=32 batches, with
+               the funnel, no tombstoned pid returned; p50 beside
+               ``plaid-cuda`` on the bare base (interleaved), launches and
+               ``stage1_scores_batched`` calls a batch (one); ``compact()``
+               seconds and peak device bytes; after it ``live-cuda`` equals
+               ``plaid-cuda`` over the compacted base;
+9. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
                identical to ``VanillaEngine(impl="ref")``, p50 per batch
                beside ``plaid-cuda``'s on the same batches, and
                ``plaid-cuda``'s recall@10 against vanilla's top 10 (the
                paper's Table 3 protocol, as smoke numbers);
-9. oracle      8 queries through the single-query ``plaid._search`` with
+10. oracle      8 queries through the single-query ``plaid._search`` with
                ``impl="cuda"`` (K5, K6) for k in {10, 100, 1000}: pids
                identical to the same lanes of ``plaid-cuda``'s batch and to
                ``_search(impl="ref")``;
-10. quality    the quality harness (``repro_torch.eval``): (i) an index
+11. quality    the quality harness (``repro_torch.eval``): (i) an index
                of 2^16 passages of 8..180 tokens from
                ``data.synthetic.embedding_corpus`` (d=128, nbits 2, K by
                ColBERTv2's rule) built on the card and 64 seeded queries of
@@ -61,19 +73,24 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                where each cap's mask bound; (ii)
                ``certify_backends`` at lossless caps on 4,096 passages and
                32 queries: every variant (``plaid-cuda``, ``vanilla``,
-               fused, bf16 and int8 stage 1) within 1e-6 of the exact f32
-               ``plaid`` baseline's recall@10, the PLAID variants' pids
-               identical to the baseline's and ``vanilla``'s to
-               ``VanillaEngine(impl="ref")``'s, scores within 1e-5, with
-               the IVF walk's and the candidate blocks' bytes;
-11. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
+               fused, bf16 and int8 stage 1, ``live``, ``live-cuda`` and
+               ``live-delta``: a frozen-table base over half the corpus
+               plus the other half as a delta) within 1e-6 of the exact
+               f32 ``plaid`` baseline's recall@10, the PLAID and live
+               variants' pids identical to the baseline's (the live ones
+               with equal scores ordered by pid) and
+               ``vanilla``'s to ``VanillaEngine(impl="ref")``'s, scores
+               within 1e-5, with the IVF walk's and the candidate blocks'
+               bytes; (iii) a live directory with two deltas and
+               tombstones saved and loaded, identical pids;
+12. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
                weights) encodes a corpus of 8..180-token passages,
                ``build_index`` indexes it on the card (k-means at
                ColBERTv2's centroid count), encoded B=32 query batches are
                searched with ``plaid-cuda`` and ``plaid`` (identical pids)
                and in the main index: encode and tokens -> pids latencies,
                K7 launch counts, one encode held against the CPU;
-12. stream_build  the streaming build (``repro_torch.build``): (i) a
+13. stream_build  the streaming build (``repro_torch.build``): (i) a
                trained build at ColBERTv2's widths (d=128, nbits=2, K=2^17,
                a 2^18 sample, 8 Lloyd iterations) of 250,000 passages of
                8..180 tokens (~23.5M tokens) made chunk by chunk on the
@@ -88,9 +105,9 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                over 2,048 passages through the encoder (K7) identical to
                ``build_index`` over the same output, and ``retrieval.build``
                identical to ``build_index_streaming``;
-13. persist    the main index saved and loaded through the facade: every
+14. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
-14. profile    device time of one plaid-cuda batch, one vanilla batch and
+15. profile    device time of one plaid-cuda batch, one vanilla batch and
                one B=32 query encode by kernel (torch.profiler) and the
                device's busy share of each.
 
@@ -117,13 +134,14 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
-from repro_torch import build, retrieval  # noqa: E402
+from repro_torch import build, live, retrieval  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import indexer  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.distributed.topk import merge_topk  # noqa: E402
 from repro_torch.eval import qrels as eval_qrels, sweep as eval_sweep  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -180,6 +198,12 @@ CAP_GRID_NPROBES, CAP_GRID_NDOCS = (3, 8), (12, 40, 100, 300)
 #: vanilla against its plain version
 CERT_SCORE_ATOL = 1e-5
 FUNNEL_PAIRS = 4  # funnel off/on timing pairs per k, interleaved
+#: phase live: three delta segments of unequal sizes (the delta group's
+#: clamp basis is the largest), 1% of the base and 100 of the first delta
+#: tombstoned, live-cuda vs plaid-cuda timing pairs per k
+LIVE_DELTAS = (4096, 1000, 333)
+LIVE_BASE_DELETES, LIVE_DELTA_DELETES = 20_000, 100
+LIVE_PAIRS = 4
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -657,7 +681,15 @@ def main(argv=None) -> int:
         info.update(configs=len(runs), launches=search_counts)
         assert all(search_counts[name] > 0 for name in SEARCH_KERNELS), search_counts
 
-    # ---- 8. the vanilla ColBERTv2 baseline (K4) ---------------------------
+    # ---- 8. the live index: deltas, tombstones, compaction -----------------
+    ops.reset_launch_counts()
+    with Phase("live") as info:
+        live_phase(index, batches, args.seed, info)
+        live_counts = ops.launch_counts()
+        info["launches"] = live_counts
+        assert all(live_counts[name] > 0 for name in SEARCH_KERNELS), live_counts
+
+    # ---- 9. the vanilla ColBERTv2 baseline (K4) ---------------------------
     ops.reset_launch_counts()
     with Phase("vanilla") as info:
         info["configs"] = vanilla_phase(index, batches[:VANILLA_BATCHES])
@@ -665,7 +697,7 @@ def main(argv=None) -> int:
         info["launches"] = vanilla_counts
         assert vanilla_counts["decompress_residuals"] > 0, vanilla_counts
 
-    # ---- 9. the single-query _search oracle (K5, K6) ----------------------
+    # ---- 10. the single-query _search oracle (K5, K6) ----------------------
     ops.reset_launch_counts()
     with Phase("oracle") as info:
         info["configs"] = oracle_phase(index, batches[1][0])
@@ -674,17 +706,17 @@ def main(argv=None) -> int:
         assert oracle_counts["centroid_interaction"] > 0, oracle_counts
         assert oracle_counts["decompress_and_score"] > 0, oracle_counts
 
-    # ---- 10. the quality harness: sweep and certification -----------------
+    # ---- 11. the quality harness: sweep and certification -----------------
     ops.reset_launch_counts()
     with Phase("quality") as info:
         quality_phase(args.seed, dev, info)
         info["launches"] = ops.launch_counts()
 
-    # ---- 11. the encoder path: tokens -> vectors -> index -> pids ---------
+    # ---- 12. the encoder path: tokens -> vectors -> index -> pids ---------
     with Phase("encode") as info:
         model, encode_counts, q_toks, enc_corpus = encode_phase(index, args.seed, dev, info)
 
-    # ---- 12. the streaming build --------------------------------------------
+    # ---- 13. the streaming build --------------------------------------------
     ops.reset_launch_counts()
     with Phase("stream_build") as info:
         stream_build_phase(model, enc_corpus, args.seed, dev, info)
@@ -693,7 +725,7 @@ def main(argv=None) -> int:
         assert stream_counts["flash_attention"] > 0, stream_counts
     del enc_corpus
 
-    # ---- 13. persistence of the main index --------------------------------
+    # ---- 14. persistence of the main index --------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
         qb = batches[1][0]
@@ -719,7 +751,7 @@ def main(argv=None) -> int:
         assert torch.equal(before.scores, after.scores)
         del r, r2, loaded
 
-    # ---- 14. where a plaid-cuda batch and a query encode spend device time -
+    # ---- 15. where a plaid-cuda batch and a query encode spend device time -
     with Phase("profile") as info:
         info["configs"] = [
             dict(k=k, fused=False, **profile_batch(
@@ -734,10 +766,10 @@ def main(argv=None) -> int:
             batches[1][0]))
         info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
-    # launches: each kernel's from the path that runs it, its counts zeroed
-    # just before that path: K1-K3 in search, K4 in vanilla, K5/K6 in
-    # oracle, K7 in encode and stream_build
-    launches = {name: search_counts[name] for name in SEARCH_KERNELS}
+    # launches: each kernel's from the paths that run it, its counts zeroed
+    # just before each path: K1-K3 in search and live, K4 in vanilla, K5/K6
+    # in oracle, K7 in encode and stream_build
+    launches = {name: search_counts[name] + live_counts[name] for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
@@ -762,24 +794,49 @@ def main(argv=None) -> int:
     return 0
 
 
+def traced_kernels(fn, reps: int = 3, sessions: int = 3):
+    """``fn``'s CUDA kernels under ``torch.profiler`` (CUPTI) over ``reps``
+    calls, after one untimed call.  CUPTI loses kernel records two ways:
+    late in a run a session can miss the first kernels of its first call
+    (phase ``profile`` read a ``plaid-cuda`` batch without its stage-1
+    GEMM in one of three calls, session after session), which a warm-up
+    step that traces one call and discards it prevents; and now and then
+    one record anywhere, so a session whose kernel counts are not all
+    multiples of ``reps`` is traced again, up to ``sessions`` times.
+    Returns the last session's kernels by descending device time, its wall
+    ms a call, whether its counts were whole, and how many sessions ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for n in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+            prof.step()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")]  # the schedule's step marks
+        kern.sort(key=lambda e: -e.self_device_time_total)
+        whole = all(e.count % reps == 0 for e in kern)
+        if whole:
+            break
+    return kern, wall_ms, whole, n
+
+
 def profile_batch(retriever, qb, reps: int = 3) -> dict:
-    """Device time of one ``search_batch`` by kernel, from ``torch.profiler``
-    (CUPTI), over ``reps`` warm batches: the top kernels, their total, the
+    """Device time of one ``search_batch`` by kernel over ``reps`` warm
+    batches (:func:`traced_kernels`): the top kernels, their total, the
     profiled wall time and the device's busy share of it (one stream, so
     kernel times do not overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    retriever.search_batch(qb)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            retriever.search_batch(qb)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kern.sort(key=lambda e: -e.self_device_time_total)
+    kern, wall_ms, whole, n = traced_kernels(lambda: retriever.search_batch(qb), reps)
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / reps
 
     def row(e):
@@ -789,7 +846,7 @@ def profile_batch(retriever, qb, reps: int = 3) -> dict:
     return dict(
         wall_ms=wall_ms, device_ms=device_ms,
         busy_share=device_ms / wall_ms if device_ms else None,
-        launches=sum(e.count for e in kern) // reps,
+        launches=sum(e.count for e in kern) // reps, launches_whole=whole, sessions=n,
         top=[row(e) for e in kern[:10]],
         # the port's own kernels (K1: "interaction", K2/K3: "score_kernel",
         # K4, K7), wherever they rank
@@ -1042,21 +1099,10 @@ def profile_quantize(index, factory) -> dict:
     """Device time of pass 2's per-chunk work (``quantize_rows``: assign,
     residual, compress) over four 16,384-row windows of the first chunk
     against the built tables, by kernel (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.build.streaming import quantize_rows
 
     x = next(factory())[0][: 4 * 16384]
-    quantize_rows(x, index.centroids, index.codec)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        quantize_rows(x, index.centroids, index.codec)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kern.sort(key=lambda e: -e.self_device_time_total)
+    kern, wall_ms, *_ = traced_kernels(lambda: quantize_rows(x, index.centroids, index.codec), 1)
     device_ms = sum(e.self_device_time_total for e in kern) / 1e3
     flops = 2.0 * x.shape[0] * index.num_centroids * DIM
     return dict(rows=x.shape[0], wall_ms=wall_ms, device_ms=device_ms,
@@ -1196,19 +1242,7 @@ def stream_build_phase(model, enc, seed, dev, info: dict):
 def profile_encode(model, toks, reps: int = 3) -> dict:
     """Device time of one warm query encode, grouped: cuBLAS GEMMs, K7 and
     everything else (elementwise ops, norms, reductions, copies)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    colbert.encode(model, toks)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            colbert.encode(model, toks)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kern.sort(key=lambda e: -e.self_device_time_total)
+    kern, wall_ms, whole, n = traced_kernels(lambda: colbert.encode(model, toks), reps)
     groups = {"gemm": 0.0, "flash_attention": 0.0, "other": 0.0}
     for e in kern:
         name = e.key.lower()
@@ -1220,7 +1254,7 @@ def profile_encode(model, toks, reps: int = 3) -> dict:
     return dict(
         wall_ms=wall_ms, device_ms=device_ms, device_ms_by_group=groups,
         busy_share=device_ms / wall_ms if device_ms else None,
-        launches=sum(e.count for e in kern) // reps,
+        launches=sum(e.count for e in kern) // reps, launches_whole=whole, sessions=n,
         top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3 / reps,
                   calls=e.count // reps) for e in kern[:12]],
     )
@@ -1371,6 +1405,190 @@ def funnel_rows(index, batches) -> list:
     return rows
 
 
+def delta_passages(index, n, seed):
+    """``n`` passages drawn like the main corpus (8..180 tokens), as
+    embeddings: each takes its tokens' codes from a random source passage
+    (its topic's centroids), uniform residual bytes, and is reconstructed
+    through the index's codec.  Returns (packed (nt, d) f32, lens (n,))."""
+    dev = index.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.normal(70.0, 40.0, (n,), generator=g, device=dev)
+    lens = lens.round().clamp(8, DOC_MAXLEN).to(torch.int32)
+    src = torch.randint(0, index.num_passages, (n,), generator=g, device=dev)
+    tok_src = torch.repeat_interleave(src, lens.long())
+    pos = (torch.rand(tok_src.shape[0], generator=g, device=dev)
+           * index.doc_lens[tok_src]).long()
+    codes = index.codes[index.doc_offsets[tok_src].long() + pos]
+    residuals = torch.randint(0, 256, (codes.shape[0], DIM * NBITS // 8), generator=g,
+                              device=dev, dtype=torch.uint8)
+    return rc.decompress(index.codec, codes, residuals, index.centroids), lens
+
+
+def count_stage1(fn):
+    """Calls of ``pipeline.stage1_scores_batched`` (the C·Qᵀ GEMM) made by
+    ``fn()``, counted through a wrapper installed for the call."""
+    calls = [0]
+    real = pipeline.stage1_scores_batched
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    pipeline.stage1_scores_batched = counted
+    try:
+        fn()
+    finally:
+        pipeline.stage1_scores_batched = real
+    return calls[0]
+
+
+def same_as_plaid_cuda(live_idx, base, k, qb) -> dict:
+    """``live-cuda`` over a one-segment live index against ``plaid-cuda``
+    over its base: scores ``torch.equal``, and pids equal once
+    ``plaid-cuda``'s are put in the merge's order.  The live search merges
+    its partitions with ``merge_topk``, which orders equal scores by pid
+    (the reference's ``jax.lax.sort`` does the same), where ``plaid-cuda``'s
+    top-k keeps them in finalist order; returns how many slots that
+    reordered."""
+    p = retrieval.params_for_k(k)
+    got = retrieval.from_index(live_idx, backend="live-cuda", params=p).search_batch(qb)
+    want = retrieval.from_index(base, backend="plaid-cuda", params=p).search_batch(qb)
+    check_result(got, k)
+    merged_s, merged_p = merge_topk(want.scores, want.pids, k)
+    assert torch.equal(got.scores, want.scores) and torch.equal(merged_s, want.scores), k
+    assert torch.equal(got.pids, merged_p), f"live-cuda vs plaid-cuda pids, k={k}"
+    return dict(identical=True, tie_slots_reordered=int((merged_p != want.pids).sum()))
+
+
+def live_phase(index, batches, seed, info: dict) -> None:
+    """The live index (``repro_torch.live``, backends ``live-cuda`` and
+    ``live``) over the main index as its base segment, shared, not copied.
+
+    Check 0: with no deltas ``live-cuda`` gives ``plaid-cuda``'s pids and
+    scores.  Then LIVE_DELTAS passages are added as three delta segments
+    (``add_passages``, timed) and LIVE_BASE_DELETES base pids plus
+    LIVE_DELTA_DELETES of the first delta tombstoned.  Check 1: for k 10
+    and 1000 unfused and 1000 fused, one warm-up and TIMED_BATCHES B=32
+    batches: ``live-cuda`` (K1-K3 on every segment) and ``live`` (plain,
+    same card) give identical pids and scores, no tombstoned pid; with the
+    funnel every field identical and ``alive_dropped > 0`` in some lane.
+    Cost of the deltas: ``live-cuda`` against ``plaid-cuda`` on the bare
+    base, LIVE_PAIRS interleaved pairs; kernel launches a batch (profiler)
+    and ``stage1_scores_batched`` calls a batch (1: stage 1 is shared by
+    every segment).  ``compact()`` timed with its peak device bytes; check
+    2: ``live-cuda`` over the compacted base equals ``plaid-cuda`` over
+    that base, and the pid map drops exactly the tombstones."""
+    base_n = index.num_passages
+    live_idx = live.LiveIndex(index)
+    # ---- check 0: zero deltas
+    info["check0_bare_base_equals_plaid_cuda"] = {
+        k: same_as_plaid_cuda(live_idx, index, k, batches[1][0]) for k in (10, 1000)}
+
+    # ---- three deltas, then tombstones
+    adds = []
+    for i, n in enumerate(LIVE_DELTAS):
+        emb, lens = delta_passages(index, n, seed + 100 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pids = live_idx.add_passages(emb, doc_lens=lens)
+        torch.cuda.synchronize()
+        adds.append(dict(passages=n, tokens=int(lens.sum()), seconds=time.perf_counter() - t0,
+                         first_pid=int(pids[0])))
+        del emb
+    g = np.random.default_rng(seed + 5)
+    dead = np.concatenate([
+        g.choice(base_n, LIVE_BASE_DELETES, replace=False),
+        base_n + g.choice(LIVE_DELTAS[0], LIVE_DELTA_DELETES, replace=False)])
+    assert live_idx.delete(dead) == dead.size
+    dead_t = torch.zeros(live_idx.num_passages, dtype=torch.bool, device=index.device)
+    dead_t[torch.from_numpy(dead).to(index.device)] = True
+    segs = live_idx.snapshot().segments
+    info.update(adds=adds, deltas=[s.num_passages for s in segs[1:]],
+                delta_tokens=[s.num_tokens for s in segs[1:]], tombstones=int(dead.size),
+                generation=live_idx.generation)
+
+    # ---- check 1: live-cuda against live (plain), with deltas + tombstones
+    rows = []
+    for k, fused in ((10, False), (1000, False), (1000, True)):
+        p = retrieval.params_for_k(k).replace(fused=fused)
+        cuda_r = retrieval.from_index(live_idx, backend="live-cuda", params=p)
+        plain_r = retrieval.from_index(live_idx, backend="live", params=p)
+        lat = {"live-cuda": [], "live": []}
+        for i, (qb, _) in enumerate(batches):
+            rc_, rp_ = cuda_r.search_batch(qb), plain_r.search_batch(qb)
+            check_result(rc_, k)
+            assert bool((rc_.pids >= 0).all()), "fewer than k results"
+            assert torch.equal(rc_.pids, rp_.pids), f"live: pids differ k={k} fused={fused}"
+            assert torch.equal(rc_.scores, rp_.scores), f"live: scores differ k={k} fused={fused}"
+            assert not bool(dead_t[rc_.pids.long()].any()), "a tombstoned pid came back"
+            if i:
+                lat["live-cuda"].append(rc_.latency_ms)
+                lat["live"].append(rp_.latency_ms)
+        fc = cuda_r.search_batch(batches[1][0], with_funnel=True)
+        fp = plain_r.search_batch(batches[1][0], with_funnel=True)
+        assert torch.equal(fc.pids, fp.pids)
+        for f, v in fc.funnel.items():
+            assert np.array_equal(v, fp.funnel[f]), f"live funnel {f}, k={k} fused={fused}"
+        assert (fc.funnel["alive_dropped"] > 0).any(), "no tombstone met a candidate"
+        from_deltas = int((rc_.pids >= base_n).sum())
+        row = dict(k=k, fused=fused, batches=len(batches) - 1, identical=True,
+                   funnel_mean={f: float(v.mean()) for f, v in fc.funnel.items()},
+                   pids_from_deltas_last_batch=from_deltas,
+                   **{name: dict(p50_ms=statistics.median(xs)) for name, xs in lat.items()})
+        emit({"live": row})
+        rows.append(row)
+    info["check1_live_cuda_equals_live"] = rows
+
+    # ---- the cost of the deltas: live-cuda vs plaid-cuda on the bare base
+    cost = []
+    qb = batches[1][0]
+    for k in (10, 1000):
+        p = retrieval.params_for_k(k)
+        live_r = retrieval.from_index(live_idx, backend="live-cuda", params=p)
+        bare_r = retrieval.from_index(index, backend="plaid-cuda", params=p)
+        times = {"live-cuda": [], "plaid-cuda": []}
+        for i in range(LIVE_PAIRS):
+            order = (live_r, bare_r) if i % 2 == 0 else (bare_r, live_r)
+            for r in order:
+                times[r.backend_name].append(r.search_batch(qb).latency_ms)
+        before = ops.launch_counts()
+        stage1_calls = count_stage1(lambda: live_r.search_batch(qb))
+        kernel_launches = {n: c - before[n] for n, c in ops.launch_counts().items()}
+        assert stage1_calls == 1, f"stage 1 ran {stage1_calls} times a batch"
+        prof_live, prof_bare = profile_batch(live_r, qb), profile_batch(bare_r, qb)
+        p50 = {name: statistics.median(xs) for name, xs in times.items()}
+        row = dict(k=k, pairs=LIVE_PAIRS, live_cuda_p50_ms=p50["live-cuda"],
+                   plaid_cuda_p50_ms=p50["plaid-cuda"],
+                   live_minus_plaid_ms=p50["live-cuda"] - p50["plaid-cuda"], ms=times,
+                   stage1_calls_a_batch=stage1_calls,
+                   port_kernel_launches_a_batch={n: c for n, c in kernel_launches.items() if c},
+                   launches_a_batch=dict(live_cuda=prof_live["launches"],
+                                         plaid_cuda=prof_bare["launches"]),
+                   device_ms=dict(live_cuda=prof_live["device_ms"],
+                                  plaid_cuda=prof_bare["device_ms"]))
+        emit({"live_cost": row})
+        cost.append(row)
+    info["cost_of_deltas"] = cost
+
+    # ---- compaction, then check 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    pid_map = live_idx.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    new_base = live_idx.base
+    assert live_idx.num_segments == 1 and live_idx.num_deleted == 0
+    assert new_base.num_passages == pid_map.shape[0] - dead.size
+    assert (pid_map[dead] == -1).all() and (np.delete(pid_map, dead) >= 0).all()
+    info.update(compact_s=compact_s, compact_peak_device_bytes=peak,
+                compacted_passages=new_base.num_passages, compacted_tokens=new_base.num_tokens,
+                check2_compacted_equals_plaid_cuda={
+                    k: same_as_plaid_cuda(live_idx, new_base, k, qb) for k in (10, 1000)})
+
+
 def quality_phase(seed, dev, info: dict) -> None:
     """The quality harness (``repro_torch.eval``) on the card.
 
@@ -1466,7 +1684,6 @@ def quality_phase(seed, dev, info: dict) -> None:
     qset_c = eval_qrels.synthetic_query_set(docs_c, topics_c, CERT_QUERIES, q_len=NQ,
                                             seed=seed + 3)
     idx_c = build.build_index_streaming(docs_c, nbits=NBITS, seed=seed, device=dev)
-    del docs_c
     n, K, L = idx_c.num_passages, idx_c.num_centroids, idx_c.doc_maxlen
     walk_slots = NQ * K * idx_c.ivf_list_cap  # one query's IVF walk at nprobe = K
     qbatch = eval_sweep.lossless_query_batch(idx_c, NQ, CERT_QUERIES)
@@ -1481,7 +1698,7 @@ def quality_phase(seed, dev, info: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    records, failures = eval_sweep.certify_backends(idx_c, qset_c)
+    records, failures = eval_sweep.certify_backends(idx_c, qset_c, docs=docs_c)
     torch.cuda.synchronize()
     sizes["peak_device_bytes_above_resident"] = torch.cuda.max_memory_allocated() - base
     emit({"certify": [dict(variant=r["variant"], backend=r["backend"],
@@ -1489,8 +1706,9 @@ def quality_phase(seed, dev, info: dict) -> None:
                            passed=r["passed"]) for r in records]})
     assert not failures, failures
     variants = {r["variant"] for r in records}
-    want = {"baseline-exact-f32", "plaid-cuda", "vanilla", "plaid-fused",
-            "plaid-stage1-bf16", "plaid-stage1-int8"}
+    ranked_as_baseline = ("plaid-cuda", "plaid-fused", "plaid-stage1-bf16",
+                          "plaid-stage1-int8", "live", "live-cuda", "live-delta")
+    want = {"baseline-exact-f32", "vanilla", *ranked_as_baseline}
     assert want <= variants, variants
     assert all(abs(r["delta"]) <= eval_sweep.CERT_TOLERANCE for r in records), records
     # recall@10 alone would pass a kernel that reorders the top 10 or gets a
@@ -1498,8 +1716,13 @@ def quality_phase(seed, dev, info: dict) -> None:
     # baseline does, and vanilla as its plain version on the same batches
     by = {r["variant"]: r for r in records}
     base, score_err = by["baseline-exact-f32"], {}
-    for v in ("plaid-cuda", "plaid-fused", "plaid-stage1-bf16", "plaid-stage1-int8"):
-        assert np.array_equal(by[v]["pids"], base["pids"]), f"certify: {v} pids differ from the baseline's"
+    # the live variants merge their partitions by (-score, pid): the
+    # baseline's pids in that order (equal scores ordered by pid)
+    merged = merge_topk(torch.from_numpy(base["scores"]), torch.from_numpy(base["pids"]), 10)
+    base_merged = merged[1].numpy()
+    for v in ranked_as_baseline:
+        want_p = base_merged if v.startswith("live") else base["pids"]
+        assert np.array_equal(by[v]["pids"], want_p), f"certify: {v} pids differ from the baseline's"
         score_err[v] = float(np.abs(by[v]["scores"] - base["scores"]).max())
     lossless = eval_sweep.lossless_params(idx_c)
     plain = vanilla.VanillaEngine(idx_c, vanilla.VanillaParams(
@@ -1515,6 +1738,28 @@ def quality_phase(seed, dev, info: dict) -> None:
     info["certify"] = dict(sizes, variants=len(records), passed=True,
                            pids_identical=True, max_abs_score_err=score_err,
                            seconds=time.perf_counter() - t0)
+
+    # ---- (iii) a live directory with deltas and tombstones, saved and loaded
+    t0 = time.perf_counter()
+    half, three_q = len(docs_c) // 2, 3 * len(docs_c) // 4
+    live_base = index_mod.build_index(docs_c[:half], centroids=idx_c.centroids,
+                                      codec=idx_c.codec, device=dev)
+    lr = retrieval.from_index(live_base, backend="live-cuda", params=retrieval.params_for_k(10))
+    lr.add_passages(docs_c[half:three_q])
+    lr.add_passages(docs_c[three_q:])
+    lr.delete_passages(np.arange(0, len(docs_c), 7))
+    del docs_c
+    before = lr.search_batch(qs_c[:BATCH])
+    with tempfile.TemporaryDirectory() as tmp:
+        lr.save(tmp)
+        back = retrieval.load(tmp, device=dev)
+        after = back.search_batch(qs_c[:BATCH])
+    assert back.backend_name == "live-cuda" and back.index.num_segments == 3
+    assert np.array_equal(back.index.tombstones(), lr.index.tombstones())
+    assert torch.equal(before.pids, after.pids) and torch.equal(before.scores, after.scores)
+    info["live_roundtrip"] = dict(segments=back.index.num_segments,
+                                  tombstones=back.index.num_deleted, identical=True,
+                                  seconds=time.perf_counter() - t0)
 
 
 def extra_kernel_cases(dev) -> list:

@@ -7,8 +7,9 @@
                 of either package
 ``"sharded"``   per-shard directory layout: needs the document-sharded
                 engine (``repro_torch.core.engine_sharded``), not ported
-``"live"``      v2 directory stamped with a live-index lineage: needs the
-                live index (``repro_torch.live.index``), not ported
+``"live"``      v2 directory stamped with a LiveIndex lineage uuid, so a
+                bare save sniffs back to the ``"live"`` backend (the
+                build seeds the live index's BASE segment)
 ==============  ==========================================================
 """
 from __future__ import annotations
@@ -34,15 +35,17 @@ def save_sharded(path: str, index: PlaidIndex, n_shards: int) -> None:
 
 
 def to_live_index(index: PlaidIndex):
-    """The built index as a live-index base segment: not ported."""
-    raise NotImplementedError(
-        "layout='live': the live index (repro_torch.live.index) is not ported"
-    )
+    """Wrap the built index as a LiveIndex base segment (in memory)."""
+    from repro_torch.live.index import LiveIndex
+
+    return LiveIndex(index)
 
 
 def save_live(path: str, index: PlaidIndex):
-    """v2 directory with a live lineage stamp: not ported."""
-    return to_live_index(index)
+    """v2 directory with a live lineage stamp; returns the LiveIndex."""
+    live = to_live_index(index)
+    live.save(path)
+    return live
 
 
 def emit(index: PlaidIndex, path: str, *, layout: str = "v2", n_shards: int | None = None):

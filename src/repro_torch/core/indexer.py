@@ -18,7 +18,7 @@ from repro_torch.live import manifest as manifest_mod
 
 def save_index(path: str, index: PlaidIndex) -> None:
     """Write ``index`` as a v2 (segment manifest) directory, one base segment."""
-    manifest_mod.save_single_segment(path, index, generation=0)
+    manifest_mod.save_segmented(path, [index], [0], None, generation=0)
 
 
 def load_index(path: str, device: str | torch.device = "cuda") -> PlaidIndex:

@@ -3,6 +3,10 @@
 
 ``stage1_scores_batched``
     ONE ``C·Qᵀ`` matmul for the whole (B, nq) query batch.
+``shared_stage1``
+    That product, its top-``nprobe`` probe and stage 2's prune mask: they
+    depend on the centroid space and the queries only, so segments that
+    share one centroid space (``repro_torch.exec``) compute them once.
 ``candidate_generation_batched``
     Per-lane top-``nprobe`` probe + IVF union, batched over B.
 ``gather_candidate_tokens_shared``
@@ -25,6 +29,8 @@ prefix-stable with ties toward the lower index, so the masked program
 ranks exactly as one built at the requested caps.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -84,6 +90,29 @@ def probe_centroids(s_cq: torch.Tensor, nprobe: int) -> torch.Tensor:
     """(B, K, nq) scores -> (B, nq, nprobe) int64 top-``nprobe`` centroid ids
     per query token, in ``jax.lax.top_k``'s order."""
     return scoring.stable_topk(s_cq.transpose(1, 2), nprobe)[1]
+
+
+class Stage1(NamedTuple):
+    """Stage 1's products that depend on the centroid space and the queries
+    only: the (B, K, nq) scores, the (B, nq, nprobe) probe and stage 2's
+    (B, K) kept-centroid mask.  Segments that share one centroid space
+    (``repro_torch.exec``) compute them once per batch."""
+
+    s_cq: torch.Tensor
+    cids: torch.Tensor
+    keep: torch.Tensor
+
+
+def shared_stage1(index: PlaidIndex, qs: torch.Tensor, t_cs, params) -> Stage1:
+    """One ``C·Qᵀ`` (:func:`stage1_scores_batched`), its top-``nprobe``
+    probe and the ``t_cs`` prune mask, for every index over ``index``'s
+    centroids.  ``t_cs`` is a scalar or a per-lane (B,) tensor."""
+    p = params
+    s_cq = stage1_scores_batched(index, qs, p.score_dtype, p.stage1_dtype)
+    cids = probe_centroids(s_cq, p.nprobe)  # (B, nq, np)
+    t_arr = torch.as_tensor(t_cs, dtype=torch.float32, device=qs.device)
+    t_bcast = t_arr if t_arr.ndim == 0 else t_arr[:, None]  # vs (B, K) max
+    return Stage1(s_cq, cids, scoring.prune_mask(s_cq, t_bcast))
 
 
 def candidate_generation_batched(
@@ -220,13 +249,16 @@ def select_finalists_impl(
     keep_blocks: bool = True,
     nprobe_t: int | None = None,  # effective caps <= params.nprobe /
     ndocs_t: int | None = None,  # params.ndocs (exec.bucketed)
+    stage1: Stage1 | None = None,
 ):
     """Stages 1-3: pick the (B, n3) finalist passages.
 
     Returns ``(final_pids, codes4, tok_valid4, extras)``; ``extras`` holds
     the ``diag`` dict and then ``FunnelStats`` when asked for.
     ``keep_blocks=False`` (the fused tail reads CSR rows itself) skips the
-    per-finalist blocks.
+    per-finalist blocks.  ``stage1`` is :func:`shared_stage1` of these
+    queries and ``t_cs`` over ``index``'s centroids when the caller already
+    has it (the same arithmetic; computed here when ``None``).
     """
     p = params
     B = qs.shape[0]
@@ -240,8 +272,9 @@ def select_finalists_impl(
         raise ValueError(f"unknown impl: {p.impl!r} (expected 'ref' or 'cuda')")
 
     # ---- Stage 1: one batched C.Q^T + per-lane candidate generation
-    s_cq = stage1_scores_batched(index, qs, p.score_dtype, p.stage1_dtype)
-    cids = probe_centroids(s_cq, p.nprobe)  # (B, nq, np)
+    if stage1 is None:
+        stage1 = shared_stage1(index, qs, t_cs, p)
+    s_cq, cids, keep = stage1
     cand_out = candidate_generation_batched(
         index, s_cq, p.nprobe, p.candidate_cap, alive, with_stats=funnel,
         nprobe_t=nprobe_t, cids=cids,
@@ -262,9 +295,6 @@ def select_finalists_impl(
         candidates = cand_out
 
     # ---- Stage 2: pruned centroid interaction over the shared gather
-    t_arr = torch.as_tensor(t_cs, dtype=torch.float32, device=qs.device)
-    t_bcast = t_arr if t_arr.ndim == 0 else t_arr[:, None]  # vs (B, K) max
-    keep = scoring.prune_mask(s_cq, t_bcast)  # (B, K)
     codes_blk, tok_valid = gather_candidate_tokens_shared(index, candidates)
     approx2 = interaction(s_cq, codes_blk, q_masks, keep)  # (B, cap)
     approx2 = torch.where(candidates >= 0, approx2, NEG)
@@ -393,6 +423,7 @@ def run_pipeline(
     alive: torch.Tensor | None = None,  # (Nd,) bool; False = tombstoned
     nprobe_t=None,
     ndocs_t=None,
+    stage1: Stage1 | None = None,
 ):
     """Batched (B >= 1) PLAID search on ``index``'s device.
 
@@ -402,13 +433,14 @@ def run_pipeline(
     and :func:`finalize_topk`, in the reference's order.  ``nprobe_t`` /
     ``ndocs_t`` (ints, or 0-d tensors read once) cap the static
     ``params.nprobe`` / ``params.ndocs``; the result equals a program built
-    at those caps.
+    at those caps.  ``stage1``: see :func:`select_finalists_impl`.
     """
     final_pids, codes4, tok_valid4, extras = select_finalists_impl(
         index, qs, q_masks, t_cs, params=params, diag=diag, funnel=funnel,
         alive=alive, keep_blocks=not params.fused,
         nprobe_t=None if nprobe_t is None else int(nprobe_t),
         ndocs_t=None if ndocs_t is None else int(ndocs_t),
+        stage1=stage1,
     )
     exact = exact_stage4_impl(
         index, qs, q_masks, final_pids, codes4, tok_valid4, params=params

@@ -52,6 +52,10 @@ LOSSLESS_WALK_SLOTS = 1 << 28
 #: exists for (the fused variant is K3's path); on CPU tensors
 #: ``plaid-cuda`` runs the plain versions and ranks as ``plaid`` does.
 VARIANT_BACKEND = "plaid-cuda"
+#: the backend of the ``live-delta`` certification variant (the reference
+#: uses ``"live"``; ``"live-cuda"`` runs the kernels on the card and their
+#: plain versions on the host)
+LIVE_VARIANT_BACKEND = "live-cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,10 +311,11 @@ def certify_backends(
     index is moved there), or where the index lies when ``device`` is
     ``None``.  Queries are searched :func:`lossless_query_batch` at a time.
 
-    ``docs`` asks for the reference's ``live-delta`` variant (a
-    frozen-centroid base plus an ingested delta segment), which needs the
-    live index (``repro_torch.live``); it is not ported, so ``docs`` is
-    refused.
+    ``docs`` (the corpus ``index`` was built from, at least 4 passages)
+    adds the reference's ``live-delta`` variant: a base built over the
+    first half of ``docs`` against ``index``'s frozen centroids and codec,
+    plus the second half ingested as a delta segment (global pids stay
+    ``0..n-1``), searched through :data:`LIVE_VARIANT_BACKEND`.
 
     Returns ``(records, failures)``: one record per variant with its full
     metric dict and recall@k delta vs the baseline, and (port only) its
@@ -321,11 +326,6 @@ def certify_backends(
     """
     from repro_torch import retrieval
 
-    if docs is not None:
-        raise NotImplementedError(
-            "certify_backends(docs=...): the live-delta variant needs the live "
-            "index (repro_torch.live), which is not ported"
-        )
     index = _on(index, device)
     qs = np.asarray(query_set.queries, np.float32)
     qrels = query_set.qrels
@@ -389,5 +389,21 @@ def certify_backends(
             index, backend=VARIANT_BACKEND,
             params=lossless_params(index, k, **overrides),
         ))
+
+    # live with a REAL delta segment: frozen-centroid base over a corpus
+    # prefix + online ingest of the remainder
+    if docs is not None and len(docs) >= 4:
+        from repro_torch.core.index import build_index
+
+        n_base = len(docs) // 2
+        base_index = build_index(
+            docs[:n_base], centroids=index.centroids, codec=index.codec,
+            device=index.device,
+        )
+        live = retrieval.from_index(
+            base_index, backend=LIVE_VARIANT_BACKEND, params=base_params
+        )
+        live.add_passages(docs[n_base:])
+        check("live-delta", LIVE_VARIANT_BACKEND, live)
 
     return records, failures

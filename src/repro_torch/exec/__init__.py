@@ -1,16 +1,43 @@
 """``repro_torch.exec`` — the partition-execution layer (the counterpart of
 ``repro.exec``).
 
-Ported so far:
+Every partitioned search is an :class:`ExecutionPlan`: partition groups,
+each running the batch-first pipeline (``core.pipeline.run_pipeline``) per
+partition, joined by ONE shared top-k merge
+(``repro_torch.distributed.topk.merge_topk``).
 
+* :mod:`repro_torch.exec.plan`     — the plan and the cross-group merge;
+* :mod:`repro_torch.exec.segments` — the stacked-segment group (a loop over
+  real segments that keeps the reference's clamp, padding, offsets and
+  funnel) and the pow2 bucket rule;
+* :mod:`repro_torch.exec.live`     — plan builder/cache for mutable
+  indexes on one device;
 * :mod:`repro_torch.exec.bucketed` — pow2-bucketed static-cap dispatch:
-  dynamic ``nprobe`` / ``ndocs`` sweeps over a few launch shapes;
-* :mod:`repro_torch.exec.segments` — the pow2 bucket rule only.
+  dynamic ``nprobe`` / ``ndocs`` sweeps over a few launch shapes.
 
-The plan, stacked-segment, sharded, live and tiered partition groups come
-with the live, tiered and multi-GPU slices.
+The sharded and tiered partition groups come with the multi-GPU and tiered
+slices.
 """
 from repro_torch.exec.bucketed import BucketedCapEngine
-from repro_torch.exec.segments import ceil_pow2, pow2_bucket
+from repro_torch.exec.live import LiveExecutor
+from repro_torch.exec.plan import ExecutionPlan
+from repro_torch.exec.segments import (
+    SegmentBucket,
+    bucket_for,
+    ceil_pow2,
+    make_stacked_search,
+    pack_offsets,
+    pow2_bucket,
+)
 
-__all__ = ["BucketedCapEngine", "ceil_pow2", "pow2_bucket"]
+__all__ = [
+    "BucketedCapEngine",
+    "ExecutionPlan",
+    "LiveExecutor",
+    "SegmentBucket",
+    "bucket_for",
+    "ceil_pow2",
+    "make_stacked_search",
+    "pack_offsets",
+    "pow2_bucket",
+]

@@ -1,19 +1,28 @@
-"""On-disk index format: the single-segment side of ``format_version: 2``.
+"""On-disk format for segmented PLAID indexes — ``format_version: 2`` (the
+counterpart of ``repro.live.manifest``).
 
 A v2 index directory is a *segment manifest*::
 
     <path>/
       manifest.json            # format_version, generation, segment list
       seg_000000/arrays.npz    # base segment (PlaidIndex array fields)
+      seg_000001/arrays.npz    # delta segments, same layout
+      tombstones_000007.npy    # bool bitmap over global pids (if any dead)
 
-The bytes are the reference's (``repro.live.manifest``): a directory
-written by either package loads in the other array-identically.  Writers
-put every payload on disk (temp file + fsync + ``os.replace``) before the
-manifest that names it, and swap the manifest in atomically.  v1
-directories (flat ``arrays.npz`` next to the manifest) remain readable.
+The bytes and file names are the reference's: a directory written by
+either package loads in the other array-identically.  Writer protocol
+(single writer, many readers): every payload is on disk (temp file +
+fsync + ``os.replace``) before the manifest that names it; the manifest
+is swapped in atomically with a monotonic ``generation``; only then are
+``seg_*`` / ``tombstones_*`` entries no manifest references collected.
+A reader that races a save (its generation's files collected mid-read)
+gets a clean ``FileNotFoundError``; :func:`load_segmented` re-reads the
+fresh manifest and retries.  v1 directories (flat ``arrays.npz`` next to
+the manifest) load as one base segment; unknown versions fail loudly.
 
-The multi-segment side (delta segments, tombstones, tiered payloads) is
-the live index's and is not ported yet.
+The tiered layout (``storage: "tiered"``, payloads as mmap-able ``.npy``
+files) and its readers belong to the tiered slice (ROADMAP Queue 1 item 5)
+and are refused here.
 """
 from __future__ import annotations
 
@@ -45,12 +54,30 @@ class PayloadCorruptError(ValueError):
     write, bad magic, wrong dtype header) — never load garbage."""
 
 
+class StaleGenerationError(RuntimeError):
+    """The on-disk manifest's generation is older than the caller's
+    required minimum (e.g. a reader re-opening after a known flush)."""
+
+
 def _static_from_meta(static_meta: dict) -> dict:
     return {k: static_meta.get(k, STATIC_DEFAULTS[k]) for k in STATIC_FIELDS}
 
 
 def segment_name(seg_id: int) -> str:
     return f"seg_{seg_id:06d}"
+
+
+def segment_static_meta(seg: PlaidIndex) -> dict:
+    return seg.static_dict()
+
+
+def _refuse_tiered(path: str, storage: str) -> None:
+    if storage != "resident":
+        raise ValueError(
+            f"index at {path!r}: storage={storage!r}; only resident "
+            "directories are read and written here (the tiered index is "
+            "ROADMAP Queue 1 item 5)"
+        )
 
 
 def _write_durable(path_tmp: str, path_final: str, write_fn) -> None:
@@ -127,49 +154,140 @@ def write_manifest_atomic(path: str, manifest: dict) -> None:
     os.replace(tmp, os.path.join(path, "manifest.json"))
 
 
-def save_single_segment(path: str, seg: PlaidIndex, generation: int = 0) -> None:
-    """Write a v2 directory holding one base segment and no tombstones
-    (payload first, manifest swap last, unreferenced ``seg_*`` removed)."""
+def save_segmented(
+    path: str,
+    segments: list[PlaidIndex],
+    seg_ids: list[int],
+    tombstones: np.ndarray | None,
+    generation: int,
+    index_uuid: str | None = None,
+) -> None:
+    """Write a v2 index directory (payloads first, manifest swap last).
+
+    ``index_uuid`` identifies one LiveIndex lineage: within a lineage a
+    segment name always maps to the same immutable content, so segments
+    the CURRENT on-disk manifest (same uuid) already references are
+    skipped — a save after a delta flush writes the delta, not the base.
+    """
     os.makedirs(path, exist_ok=True)
-    name = segment_name(0)
-    write_segment(os.path.join(path, name), seg)
+    names = [segment_name(i) for i in seg_ids]
+    already_on_disk: set[str] = set()
+    if index_uuid is not None:
+        try:
+            existing = read_manifest(path)
+            if existing.get("index_uuid") == index_uuid:
+                already_on_disk = {s["name"] for s in existing["segments"]}
+        except (FileNotFoundError, ValueError, KeyError):
+            pass
+    for name, seg in zip(names, segments):
+        if name not in already_on_disk:
+            write_segment(os.path.join(path, name), seg)
+    ts_name = None
+    if tombstones is not None and tombstones.any():
+        ts_name = f"tombstones_{generation:06d}.npy"
+        _write_durable(
+            os.path.join(path, f"tombstones_{generation:06d}.tmp.npy"),
+            os.path.join(path, ts_name),
+            lambda f: np.save(f, np.asarray(tombstones, bool)),
+        )
+    base = segments[0]
     manifest = dict(
         format_version=FORMAT_VERSION,
         generation=generation,
-        index_uuid=None,
+        index_uuid=index_uuid,
         segments=[
             dict(
                 name=name,
                 num_passages=int(seg.num_passages),
                 num_tokens=int(seg.num_tokens),
-                **seg.static_dict(),
+                **segment_static_meta(seg),
             )
+            for name, seg in zip(names, segments)
         ],
-        tombstones=None,
-        num_passages=int(seg.num_passages),
-        num_centroids=int(seg.num_centroids),
-        dim=seg.dim,
-        nbits=seg.nbits,
+        tombstones=ts_name,
+        num_passages=int(sum(s.num_passages for s in segments)),
+        num_centroids=int(base.num_centroids),
+        dim=base.dim,
+        nbits=base.nbits,
     )
     write_manifest_atomic(path, manifest)
+    _collect_garbage(path, keep=set(names) | ({ts_name} if ts_name else set()))
+
+
+def _collect_garbage(path: str, keep: set[str]) -> None:
+    """Drop segment dirs / tombstone bitmaps no manifest references."""
     for entry in os.listdir(path):
+        if entry in keep or entry.endswith(".tmp") or entry.endswith(".tmp.npy"):
+            continue
         full = os.path.join(path, entry)
-        if entry.startswith("seg_") and entry != name and os.path.isdir(full):
+        if entry.startswith("seg_") and os.path.isdir(full):
             shutil.rmtree(full, ignore_errors=True)
         elif entry.startswith("tombstones_") and entry.endswith(".npy"):
             os.unlink(full)
+
+
+def load_segmented(
+    path: str,
+    _retries: int = 2,
+    min_generation: int = 0,
+    device: str | torch.device = "cuda",
+):
+    """Read a v1 or v2 index directory onto ``device``.
+
+    Returns ``(segments, seg_ids, tombstones, generation, index_uuid)``;
+    v1 directories come back as one base segment with an all-alive bitmap
+    (and no uuid).  If a concurrent save collects this reader's generation
+    mid-read, the fresh manifest is re-read and the load retried.
+    ``min_generation`` rejects manifests older than a generation the caller
+    knows was written (:class:`StaleGenerationError`).
+    """
+    try:
+        return _load_segmented_once(path, min_generation, device)
+    except FileNotFoundError:
+        # PayloadMissingError lands here too: only a file missing under a
+        # manifest that stays put across the retries is real data loss
+        if _retries <= 0:
+            raise
+        return load_segmented(
+            path, _retries=_retries - 1, min_generation=min_generation, device=device
+        )
+
+
+def _load_segmented_once(path: str, min_generation: int, device):
+    manifest = read_manifest(path)
+    _refuse_tiered(path, manifest.get("storage", "resident"))
+    if int(manifest.get("generation", 0)) < min_generation:
+        raise StaleGenerationError(
+            f"index at {path!r} is at generation {manifest.get('generation', 0)}, "
+            f"caller requires >= {min_generation}"
+        )
+    if manifest.get("format_version", 1) == 1:
+        seg = read_segment(path, manifest, device)  # flat arrays.npz
+        return [seg], [0], np.zeros(seg.num_passages, bool), 0, None
+    segments, seg_ids = [], []
+    for entry in manifest["segments"]:
+        segments.append(read_segment(os.path.join(path, entry["name"]), entry, device))
+        seg_ids.append(int(entry["name"].split("_")[-1]))
+    total = sum(s.num_passages for s in segments)
+    if manifest.get("tombstones"):
+        tombstones = np.asarray(np.load(os.path.join(path, manifest["tombstones"])), bool)
+        assert tombstones.shape[0] == total
+    else:
+        tombstones = np.zeros(total, bool)
+    return (
+        segments,
+        seg_ids,
+        tombstones,
+        int(manifest["generation"]),
+        manifest.get("index_uuid"),
+    )
 
 
 def load_single_segment(path: str, device: str | torch.device = "cuda") -> PlaidIndex:
     """Read a v1 directory, or a v2 directory holding exactly one segment
     and no tombstones; anything else is a live index and is refused."""
     manifest = read_manifest(path)
-    storage = manifest.get("storage", "resident")
-    if storage != "resident":
-        raise ValueError(
-            f"index at {path!r} stamps storage={storage!r}; only resident "
-            "directories load here (the tiered index is not ported yet)"
-        )
+    _refuse_tiered(path, manifest.get("storage", "resident"))
     if manifest.get("format_version", 1) == 1:
         return read_segment(path, manifest, device)
     segments = manifest["segments"]
@@ -177,6 +295,7 @@ def load_single_segment(path: str, device: str | torch.device = "cuda") -> Plaid
         raise ValueError(
             f"index at {path!r} holds {len(segments)} segments"
             f"{' + tombstones' if manifest.get('tombstones') else ''}; "
-            "that is a live index, which this package does not load yet"
+            "that is a live index: load it with repro_torch.live.LiveIndex.load "
+            "or retrieval.load (the 'live' backends), or compact it first"
         )
     return read_segment(os.path.join(path, segments[0]["name"]), segments[0], device)

@@ -7,9 +7,10 @@
     res2 = r.search_batch(qs, t_cs=0.4)
     r.save("/idx");  r2 = retrieval.load("/idx")
 
-Backends: ``"plaid"`` (plain PyTorch), ``"plaid-cuda"`` (Hopper kernels)
-and ``"vanilla"`` (the ColBERTv2 baseline, K4 on the card); see
-``retrieval.list_backends()``.
+Backends: ``"plaid"`` (plain PyTorch), ``"plaid-cuda"`` (Hopper kernels),
+``"vanilla"`` (the ColBERTv2 baseline, K4 on the card), and the mutable
+``"live"`` / ``"live-cuda"`` (``repro_torch.live``: ``add_passages``,
+``delete_passages``, ``compact``); see ``retrieval.list_backends()``.
 """
 from repro_torch.retrieval.registry import (
     build,
@@ -22,6 +23,7 @@ from repro_torch.retrieval.registry import (
 from repro_torch.retrieval.types import (
     DEFAULT_SCORE_DTYPE,
     DYNAMIC_FIELDS,
+    MutableRetriever,
     PAPER_PARAMS,
     RetrieverConfig,
     SearchParams,
@@ -31,8 +33,10 @@ from repro_torch.retrieval.types import (
     params_for_k,
 )
 
-# importing the module registers the built-in backends
+# importing the modules registers the built-in backends (incl. the
+# mutable-corpus "live" / "live-cuda" engines of repro_torch.live)
 from repro_torch.retrieval import backends as _backends  # noqa: E402,F401
+from repro_torch.live import backend as _live_backend  # noqa: E402,F401
 
 __all__ = [
     "build",

@@ -6,8 +6,9 @@
     r.save(path)
     r = retrieval.load(path)              # backend recorded on disk
 
-``retriever.json`` has the reference's format, so a ``"plaid"`` or ``"vanilla"`` directory
-moves between the packages with its backend and params.
+``retriever.json`` has the reference's format, so a ``"plaid"``,
+``"vanilla"`` or ``"live"`` directory moves between the packages with its
+backend and params.
 """
 from __future__ import annotations
 
@@ -129,8 +130,12 @@ def read_meta(path: str) -> dict | None:
 
 
 def _sniff_backend(path: str) -> str:
-    """A bare index directory: single-segment layouts load as ``"plaid"``;
-    sharded, live and tiered layouts are not ported and are refused."""
+    """Identify the backend of a bare index directory from its manifest,
+    as the reference does: a v2 segment manifest with a lineage uuid,
+    several segments or tombstones is ``"live"``, a single clean segment
+    and a v1 directory ``"plaid"``.  Sharded layouts (``n_shards``, a
+    ``"sharding"`` stamp) and tiered ones are not ported and are refused;
+    so is an unknown version."""
     manifest = os.path.join(path, "manifest.json")
     if not os.path.exists(manifest):
         raise FileNotFoundError(
@@ -138,20 +143,29 @@ def _sniff_backend(path: str) -> str:
         )
     with open(manifest) as f:
         m = json.load(f)
-    if (
-        "n_shards" in m
-        or m.get("storage", "resident") != "resident"
-        or len(m.get("segments", [None])) > 1
-        or m.get("tombstones")
-        or m.get("index_uuid")
-    ):
+    if m.get("storage", "resident") != "resident":
         raise ValueError(
-            f"{path!r} is a sharded, tiered or live index directory; those "
-            "backends are not ported yet"
+            f"{path!r} stamps storage={m.get('storage')!r}; the tiered index "
+            "is not ported yet (ROADMAP Queue 1 item 5)"
         )
-    if m.get("format_version", 1) not in (1, 2):
+    if "n_shards" in m or m.get("sharding"):
         raise ValueError(
-            f"{path!r} has manifest.json with format_version="
-            f"{m.get('format_version')!r}; refusing to guess"
+            f"{path!r} is a sharded index directory; the sharded backends "
+            "are not ported yet (ROADMAP Queue 1 item 7)"
         )
-    return "plaid"
+    version = m.get("format_version", 1)
+    if version not in (1, 2):
+        raise ValueError(
+            f"{path!r} has manifest.json with format_version={version!r}; "
+            "refusing to guess"
+        )
+    if "segments" in m:
+        if m.get("index_uuid") or len(m["segments"]) > 1 or m.get("tombstones"):
+            return "live"
+        return "plaid"
+    if version == 1:
+        return "plaid"
+    raise ValueError(
+        f"{path!r} has a v2 manifest.json without a segment list; refusing "
+        "to guess"
+    )

@@ -9,7 +9,7 @@ compiles anything, but the split is kept: ``retriever.json`` files and
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Protocol, runtime_checkable
 
 from repro_torch.constants import DEFAULT_CANDIDATE_CAP
 
@@ -123,3 +123,24 @@ class SearchResult:
 
     def __iter__(self):
         return iter((self.scores, self.pids))
+
+
+@runtime_checkable
+class MutableRetriever(Protocol):
+    """A retriever whose corpus can change at serving time: the ``"live"``
+    and ``"live-cuda"`` backends (``repro_torch.live``).  Mutations are
+    snapshot-consistent with in-flight searches, and ``generation`` (the
+    LiveIndex mutation counter) lets a result cache invalidate on them."""
+
+    def add_passages(self, doc_embeddings, doc_lens=None):
+        """Ingest passages (one delta segment); returns their global pids."""
+        ...
+
+    def delete_passages(self, pids) -> int:
+        """Tombstone global pids; returns how many were newly deleted."""
+        ...
+
+    def compact(self):
+        """Merge delta segments into the base, dropping tombstoned docs;
+        returns the old->new global pid map (``-1`` = dropped)."""
+        ...

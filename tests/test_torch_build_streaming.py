@@ -352,13 +352,21 @@ def test_emit_v2_loads_in_reference_and_other_layouts_raise(corpus, ref_mono, tm
     assert_identical(tindexer.load_index(str(tmp_path / "v2"), device="cpu"), idx, "port load")
     with pytest.raises(NotImplementedError, match="engine_sharded"):
         tb.emit(idx, str(tmp_path / "s"), layout="sharded", n_shards=2)
-    with pytest.raises(NotImplementedError, match="live.index"):
-        tb.emit(idx, str(tmp_path / "l"), layout="live")
+    # the live layout is ported with the live index: a lineage-stamped
+    # directory that both packages read as a one-segment live index
+    lv = tb.emit(idx, str(tmp_path / "l"), layout="live")
+    assert lv.num_segments == 1
+    from repro.live import LiveIndex as RefLiveIndex
+
+    assert_identical(idx, RefLiveIndex.load(str(tmp_path / "l")).base, "live layout")
+    from repro_torch import retrieval as tret
+
+    assert tret.load(str(tmp_path / "l"), device="cpu").backend_name == "live"
     with pytest.raises(ValueError, match="n_shards"):
         tb.emit(idx, str(tmp_path / "s"), layout="sharded")
     with pytest.raises(ValueError, match="unknown layout"):
         tb.emit(idx, str(tmp_path / "p"), layout="parquet")
-    assert not os.path.exists(tmp_path / "s") and not os.path.exists(tmp_path / "l")
+    assert not os.path.exists(tmp_path / "s")
     assert tb.LAYOUTS == rb.LAYOUTS
 
 

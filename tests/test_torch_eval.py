@@ -433,9 +433,17 @@ def _assert_rankings_certified(idx, qset, records, atol=1e-5):
 
 
 def test_certify_refuses_the_live_delta_variant(harness):
-    docs, _, _, idx, qset = harness
-    with pytest.raises(NotImplementedError, match="repro_torch.live"):
-        certify_backends(idx, qset, docs=docs)
+    """The live-delta variant was refused until the live index was ported;
+    it now gives the reference's record (tests/test_torch_live.py holds
+    its ranking against the reference's)."""
+    docs, _, ref, idx, qset = harness
+    records, failures = certify_backends(idx, qset, docs=docs, backends=[], device="cpu")
+    want, want_failures = rsweep.certify_backends(ref, qset, docs=docs, backends=[])
+    assert failures == want_failures == []
+    assert [r["variant"] for r in records] == [w["variant"] for w in want]
+    got, w = records[-1], want[-1]
+    assert got["variant"] == "live-delta" and got["backend"] == "live-cuda"
+    assert got["metrics"] == w["metrics"] and got["delta"] == w["delta"] == 0.0
 
 
 @pytest.mark.gpu

@@ -109,7 +109,7 @@ def test_from_index_and_a_bare_index_directory(saved, tmp_path):
     loaded = tret.load(bare, device="cpu", params=tret.SearchParams(**PARAMS))
     assert loaded.backend_name == "plaid"
     assert torch.equal(loaded.search_batch(qs).pids, r.search_batch(qs).pids)
-    assert tret.list_backends() == sorted(BACKENDS + ["vanilla"])
+    assert tret.list_backends() == sorted(BACKENDS + ["vanilla", "live", "live-cuda"])
 
 
 def test_default_device_is_the_card(saved):
