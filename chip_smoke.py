@@ -50,6 +50,23 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                ``stage1_scores_batched`` calls a batch (one); ``compact()``
                seconds and peak device bytes; after it ``live-cuda`` equals
                ``plaid-cuda`` over the compacted base;
+8b. tiered     the tiered index (``repro_torch.core.tiered``) over the main
+               index, payloads demoted to host memory: device-tier bytes
+               against the resident engine's; ``plaid-tiered-cuda`` equal
+               to ``plaid-cuda`` under ``torch.equal`` for k in {10, 100,
+               1000}, fused and not, over a warm-up and 4 B=32 batches, to
+               ``plaid-tiered`` (plain) on one batch per k and in every
+               funnel field; each batch's transfer bytes equal to
+               ``tiered_transfer_cost`` of an independent recount; per k
+               the batch split (phase A, the finalists to the host, the
+               host gather, the copy, phase B), the copy's GB/s, peak
+               device bytes, p50 beside ``plaid-cuda`` (4 interleaved
+               pairs) and launches a batch; every tiered batch launches
+               K1 with K2 (K3 fused) and nothing else, counted around the
+               tiered calls alone; two partitions equal to the
+               per-partition resident oracle plus ``merge_topk``; and the
+               staging ring under a device sleep queued on its copy stream
+               (its save / load round trip runs in phase ``quality``);
 9. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
@@ -82,7 +99,9 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                ``vanilla``'s to ``VanillaEngine(impl="ref")``'s, scores
                within 1e-5, with the IVF walk's and the candidate blocks'
                bytes; (iii) a live directory with two deltas and
-               tombstones saved and loaded, identical pids;
+               tombstones saved and loaded, identical pids; (iv) the sweep's
+               index as a tiered directory (``plaid-tiered-cuda``) saved
+               and loaded, payloads memory-mapped, identical results;
 12. encode     ColBERTv2 at full width (``attn_impl="flash"``, seeded
                weights) encodes a corpus of 8..180-token passages,
                ``build_index`` indexes it on the card (k-means at
@@ -140,11 +159,15 @@ from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import indexer  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
+from repro_torch.core import tiered as tiered_mod  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.distributed.topk import merge_topk  # noqa: E402
 from repro_torch.eval import qrels as eval_qrels, sweep as eval_sweep  # noqa: E402
+from repro_torch.exec.segments import pow2_bucket  # noqa: E402
+from repro_torch.exec.tiered import partition_tiered  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.models import colbert  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 
@@ -204,6 +227,12 @@ FUNNEL_PAIRS = 4  # funnel off/on timing pairs per k, interleaved
 LIVE_DELTAS = (4096, 1000, 333)
 LIVE_BASE_DELETES, LIVE_DELTA_DELETES = 20_000, 100
 LIVE_PAIRS = 4
+#: phase tiered: Table 2's k, plaid-tiered-cuda vs plaid-cuda timing pairs
+#: per k, batch splits per k, and the device sleep (~0.1 s) queued on the
+#: copy stream before each copy of the ring check
+TIERED_KS = (10, 100, 1000)
+TIERED_PAIRS, TIERED_SPLITS = 4, 3
+RING_SLEEP_CYCLES = 200_000_000
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -689,6 +718,14 @@ def main(argv=None) -> int:
         info["launches"] = live_counts
         assert all(live_counts[name] > 0 for name in SEARCH_KERNELS), live_counts
 
+    # ---- 8b. the tiered index: payloads in host memory ---------------------
+    with Phase("tiered") as info:
+        # counted around the tiered calls alone (the phase also runs
+        # plaid-cuda as its oracle)
+        tiered_counts = tiered_phase(index, batches, info)
+        info["launches"] = tiered_counts
+        assert all(tiered_counts[name] > 0 for name in SEARCH_KERNELS), tiered_counts
+
     # ---- 9. the vanilla ColBERTv2 baseline (K4) ---------------------------
     ops.reset_launch_counts()
     with Phase("vanilla") as info:
@@ -767,9 +804,11 @@ def main(argv=None) -> int:
         info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
     # launches: each kernel's from the paths that run it, its counts zeroed
-    # just before each path: K1-K3 in search and live, K4 in vanilla, K5/K6
-    # in oracle, K7 in encode and stream_build
-    launches = {name: search_counts[name] + live_counts[name] for name in SEARCH_KERNELS}
+    # just before each path (tiered: taken around each tiered call): K1-K3
+    # in search, live and tiered, K4 in vanilla, K5/K6 in oracle, K7 in
+    # encode and stream_build
+    launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
+                for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
@@ -1589,6 +1628,308 @@ def live_phase(index, batches, seed, info: dict) -> None:
                     k: same_as_plaid_cuda(live_idx, new_base, k, qb) for k in (10, 1000)})
 
 
+def counted(counts: dict, fn, *a, **kw):
+    """``fn(*a, **kw)`` and the port's kernel launches it made (the counts'
+    change across the call), added into ``counts``."""
+    before = ops.launch_counts()
+    out = fn(*a, **kw)
+    per = {n: c - before[n] for n, c in ops.launch_counts().items()}
+    for n, c in per.items():
+        counts[n] = counts.get(n, 0) + c
+    return out, per
+
+
+def assert_tiered_launches(per: dict, fused: bool, where) -> None:
+    """A tiered batch's launches: K1 (phase A) and K2 unfused or K3 fused
+    (phase B), and no other kernel of the port."""
+    k1, k2, k3 = (per[n] for n in SEARCH_KERNELS)
+    ok = k1 > 0 and ((k3 > 0 and k2 == 0) if fused else (k2 > 0 and k3 == 0))
+    others = {n: c for n, c in per.items() if n not in SEARCH_KERNELS and c}
+    assert ok and not others, (where, fused, per)
+
+
+def tiered_batch_split(eng, qb, counts: dict) -> tuple[dict, tuple]:
+    """One batch of ``eng`` (a ``TieredEngine``) with ``time_steps`` set:
+    the engine's own step times (``last_steps``: phase A's and phase B's
+    device ms, the finalists' copy to the host, the host slice gather, the
+    copy's enqueue and its device ms on the copy stream) and the batch's
+    wall ms.  Returns the split and the batch's (scores, pids)."""
+    eng.time_steps = True
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    out, per = counted(counts, eng.search_batch, qb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    eng.time_steps = False
+    assert_tiered_launches(per, eng.params.fused, "split")
+    return dict(eng.last_steps(), wall_ms=wall * 1e3,
+                staged_bytes=eng.last_transfer.staged_bytes), out
+
+
+def check_transfer(eng, tiered, index, qb) -> dict:
+    """The engine's last ``TransferStats`` against ``tiered_transfer_cost``
+    of an independent recount: stages 1-3 in plain torch (no kernel
+    launch) on the resident index, the finalists' pool and its CSR token
+    count.  Exact, and the slices below the resident payload."""
+    ep = plaid.clamp_params(dataclasses.replace(eng.params, impl="ref"), index.num_passages)
+    qm = torch.ones(qb.shape[:2], device=qb.device)
+    fp, *_ = pipeline.select_finalists_impl(index, qb, qm, ep.t_cs, params=ep,
+                                            keep_blocks=False)
+    fp = fp.cpu().numpy()
+    pool = np.unique(fp[fp >= 0])
+    tokens = int(tiered.host_doc_lens[pool].sum())
+    model = tiered_transfer_cost(
+        pool_docs=pool.size, slice_tokens=tokens, pd=tiered.host_residuals.shape[1],
+        n3=fp.shape[1], B=fp.shape[0], p_cap=pow2_bucket(max(pool.size, 1), lo=1),
+        t_cap=pow2_bucket(max(tokens, 1), lo=index.doc_maxlen),
+    )
+    st = eng.last_transfer
+    assert (st.pool_docs, st.slice_tokens) == (pool.size, tokens), (st, pool.size, tokens)
+    assert st.slice_bytes == model["slice_bytes"], (st, model)
+    assert st.staged_bytes == model["staged_bytes"], (st, model)
+    assert st.slice_bytes < tiered.resident_payload_nbytes()
+    return st.as_dict()
+
+
+def tiered_roundtrip(index, qb) -> dict:
+    """``save`` / ``load`` of ``plaid-tiered-cuda`` over ``index``: the
+    directory loads back as ``plaid-tiered-cuda`` with memory-mapped
+    payloads, and the same batch gives identical scores and pids."""
+    r = retrieval.from_index(index, backend="plaid-cuda",
+                             params=retrieval.params_for_k(10).replace(tiered=True))
+    before = r.search_batch(qb)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r.save(tmp)
+        t1 = time.perf_counter()
+        r2 = retrieval.load(tmp, device="cuda")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        disk_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+        assert r2.backend_name == "plaid-tiered-cuda" and r2.params.tiered
+        assert isinstance(r2.tiered.host_residuals, np.memmap)
+        assert isinstance(r2.tiered.host_codes, np.memmap)
+        after = r2.search_batch(qb)
+        assert torch.equal(before.pids, after.pids) and torch.equal(before.scores, after.scores)
+        out = dict(passages=r2.tiered.num_passages, tokens=r2.tiered.num_tokens,
+                   save_s=t1 - t0, load_s=t2 - t1, disk_bytes=disk_bytes, mmapped=True,
+                   identical=True)
+        del r2
+    return out
+
+
+def tiered_phase(index, batches, info: dict) -> dict:
+    """The tiered index (``repro_torch.core.tiered``, backends
+    ``plaid-tiered-cuda`` and ``plaid-tiered``) over the main index.
+
+    (1) ``tiered_from_index`` demotes it (the device tensors it keeps are
+    shared): device-tier bytes against the resident engine's, the host
+    payload bytes.  (2) For k in TIERED_KS, fused and not, a warm-up and
+    TIMED_BATCHES B=32 batches: ``plaid-tiered-cuda`` equals ``plaid-cuda``
+    under ``torch.equal`` (scores and pids) and launches K1 and K2 (K3
+    fused) every batch; per k one batch through ``plaid-tiered`` (plain,
+    same card, no kernel launch) equals it too, and with the funnel every
+    field equals ``plaid-cuda``'s.  (3) Every batch's
+    ``TransferStats`` equals ``tiered_transfer_cost`` of an independent
+    recount (:func:`check_transfer`); pool docs, slice tokens and bytes,
+    staged bytes, the copy's device ms and GB/s.  (4) Per k (unfused) the
+    batch split (:func:`tiered_batch_split`, median of TIERED_SPLITS), the
+    peak device bytes of a batch beside ``plaid-cuda``'s, p50 of
+    TIERED_PAIRS interleaved pairs and launches a batch (profiler).  (5) ``n_shards=2`` equals each partition's resident
+    ``plaid-cuda`` plus ``merge_topk``, bit for bit.  (6) The staging ring:
+    a slot handed out again waits for the copy that reads it (queued
+    behind a device sleep), and three batches with a device sleep queued
+    on the copy stream before each copy equal the resident engine's.  The
+    save / load round trip runs in phase ``quality`` on its 2^16-passage
+    index (:func:`tiered_roundtrip`): at 2M passages the save alone took
+    ~40 s, over this phase's 60 s target.
+
+    Returns the port's kernel launches of the tiered calls alone (each
+    taken by :func:`counted`), not those of the resident oracle.
+    """
+    qb = batches[1][0]
+    counts: dict = {}
+    # ---- (1) demote
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiered = tiered_mod.tiered_from_index(index)
+    demote_s = time.perf_counter() - t0
+    assert tiered.device.codes is index.codes and tiered.device.centroids is index.centroids
+    dev_b, res_b = tiered.device_nbytes(), tiered.resident_nbytes()
+    assert res_b == sum(index.nbytes().values()), (res_b, index.nbytes())
+    info["demote"] = dict(
+        seconds=demote_s, device_nbytes=dev_b, resident_nbytes=res_b,
+        resident_over_device=res_b / dev_b,
+        host_payload_bytes=tiered.host_codes.nbytes + tiered.host_residuals.nbytes,
+        resident_payload_nbytes=tiered.resident_payload_nbytes(),
+    )
+    emit({"tiered_demote": info["demote"]})
+
+    # ---- (2) identity and (3) transfer
+    rows, unfused = [], {}
+    for k in TIERED_KS:
+        for fused in (False, True):
+            p = retrieval.params_for_k(k).replace(fused=fused)
+            tr = retrieval.from_index(tiered, backend="plaid-cuda", params=p.replace(tiered=True))
+            rr = retrieval.from_index(index, backend="plaid-cuda", params=p)
+            assert tr.backend_name == "plaid-tiered-cuda"
+            eng = tr._executor.engines[0]
+            lat = {"plaid-tiered-cuda": [], "plaid-cuda": []}
+            stats = []
+            for i, (qbi, _) in enumerate(batches):
+                got, per = counted(counts, tr.search_batch, qbi)
+                want = rr.search_batch(qbi)
+                assert_tiered_launches(per, fused, ("identity", k, i))
+                check_result(got, k)
+                assert torch.equal(got.pids, want.pids), f"tiered pids k={k} fused={fused}"
+                assert torch.equal(got.scores, want.scores), f"tiered scores k={k} fused={fused}"
+                copy_ms = eng.last_copy_ms()
+                st = check_transfer(eng, tiered, index, qbi)
+                if i:
+                    lat["plaid-tiered-cuda"].append(got.latency_ms)
+                    lat["plaid-cuda"].append(want.latency_ms)
+                    stats.append(dict(st, copy_ms=copy_ms))
+            copy = statistics.median(s["copy_ms"] for s in stats)
+            row = dict(k=k, fused=fused, batches=len(batches) - 1, identical=True,
+                       transfer_exact=True,
+                       kernel_launches_a_batch={n: c for n, c in per.items() if c},
+                       **{f: statistics.mean(s[f] for s in stats) for f in
+                          ("pool_docs", "slice_tokens", "slice_bytes", "staged_bytes")},
+                       copy_ms=copy,
+                       copy_gb_s=statistics.mean(s["staged_bytes"] for s in stats) / copy / 1e6,
+                       **{name: dict(p50_ms=statistics.median(xs)) for name, xs in lat.items()})
+            if not fused:
+                plain = retrieval.from_index(tiered, backend="plaid", params=p.replace(tiered=True))
+                assert plain.backend_name == "plaid-tiered"
+                got, per = counted(counts, tr.search_batch, qb)
+                other, none = counted({}, plain.search_batch, qb)
+                assert_tiered_launches(per, fused, ("plain", k))
+                assert not any(none.values()), ("plaid-tiered launched a kernel", none)
+                assert torch.equal(got.pids, other.pids) and torch.equal(got.scores, other.scores)
+                fg, per = counted(counts, tr.search_batch, qb, with_funnel=True)
+                assert_tiered_launches(per, fused, ("funnel", k))
+                fw = rr.search_batch(qb, with_funnel=True)
+                assert torch.equal(fg.pids, fw.pids)
+                for f, v in fg.funnel.items():
+                    assert np.array_equal(v, fw.funnel[f]), f"tiered funnel {f}, k={k}"
+                row.update(plain_identical=True, funnel_identical=True)
+                unfused[k] = (tr, rr)
+            emit({"tiered": row})
+            rows.append(row)
+    info["identity_and_transfer"] = rows
+
+    # ---- (4) where a batch's time goes
+    split_rows = []
+    for k, (tr, rr) in unfused.items():
+        eng = tr._executor.engines[0]
+        splits = []
+        for _ in range(TIERED_SPLITS):
+            sp, (s, pid) = tiered_batch_split(eng, qb, counts)
+            want = rr.search_batch(qb)
+            assert torch.equal(s, want.scores) and torch.equal(pid, want.pids)
+            splits.append(sp)
+        split = {f: statistics.median(sp[f] for sp in splits) for f in splits[0]}
+        peak = {}
+        for r in (tr, rr):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            counted(counts if r is tr else {}, r.search_batch, qb)
+            torch.cuda.synchronize()
+            peak[r.backend_name] = torch.cuda.max_memory_allocated() - before
+        times = {"plaid-tiered-cuda": [], "plaid-cuda": []}
+        for i in range(TIERED_PAIRS):
+            for r in ((tr, rr) if i % 2 == 0 else (rr, tr)):
+                res, _ = counted(counts if r is tr else {}, r.search_batch, qb)
+                times[r.backend_name].append(res.latency_ms)
+        prof_t, prof_r = profile_batch(tr, qb), profile_batch(rr, qb)
+        p50 = {name: statistics.median(xs) for name, xs in times.items()}
+        row = dict(k=k, fused=False, splits=TIERED_SPLITS, split_median=split,
+                   peak_device_bytes_a_batch=peak, pairs=TIERED_PAIRS,
+                   tiered_cuda_p50_ms=p50["plaid-tiered-cuda"], plaid_cuda_p50_ms=p50["plaid-cuda"],
+                   tiered_minus_plaid_ms=p50["plaid-tiered-cuda"] - p50["plaid-cuda"], ms=times,
+                   launches_a_batch=dict(tiered_cuda=prof_t["launches"],
+                                         plaid_cuda=prof_r["launches"]),
+                   launches_whole=dict(tiered_cuda=prof_t["launches_whole"],
+                                       plaid_cuda=prof_r["launches_whole"]),
+                   device_ms=dict(tiered_cuda=prof_t["device_ms"], plaid_cuda=prof_r["device_ms"]),
+                   wall_ms_profiled=dict(tiered_cuda=prof_t["wall_ms"],
+                                         plaid_cuda=prof_r["wall_ms"]),
+                   top_kernels_tiered=prof_t["top"][:6])
+        emit({"tiered_split": row})
+        split_rows.append(row)
+    info["batch_split"] = split_rows
+    unfused.clear()
+
+    # ---- (5) two partitions against the per-partition resident oracle
+    parts, offs = partition_tiered(tiered, 2)
+    part_rows = []
+    for k in (10, 1000):
+        p = retrieval.params_for_k(k)
+        tr2 = retrieval.from_index(tiered, backend="plaid-cuda", params=p.replace(tiered=True),
+                                   n_shards=2)
+        got, per = counted(counts, tr2.search_batch, qb)
+        assert_tiered_launches(per, False, ("partitions", k))
+        check_result(got, k)
+        ss, pp = [], []
+        for part, off in zip(parts, offs):
+            t_lo = int(tiered.host_doc_offsets[off])
+            dense = dataclasses.replace(
+                part.device, residuals=index.residuals[t_lo : t_lo + part.num_tokens])
+            res = retrieval.from_index(dense, backend="plaid-cuda", params=p).search_batch(qb)
+            ss.append(res.scores)
+            pp.append(torch.where(res.pids >= 0, res.pids + off, -1))
+        want_s, want_p = merge_topk(torch.cat(ss, 1), torch.cat(pp, 1), k)
+        assert torch.equal(got.scores, want_s), f"partitioned scores k={k}"
+        assert torch.equal(got.pids, want_p), f"partitioned pids k={k}"
+        part_rows.append(dict(k=k, n_partitions=2, identical=True,
+                              partition_passages=[q.num_passages for q in parts],
+                              transfer=tr2.transfer_totals))
+    info["partitions"] = part_rows
+    del parts
+
+    # ---- (6) the staging ring under a device sleep on the copy stream
+    p = plaid.params_for_k(1000, impl="cuda")
+    eng = tiered_mod.TieredEngine(tiered, p)
+    ring = eng._staging
+    shapes = dict(codes=(1 << 22,), res=(1 << 22, DIM * NBITS // 8), offs=(1 << 15 | 1,),
+                  lens=(1 << 15,), pos=(BATCH, 1024))
+    slot, staged = ring.take(shapes)
+    g = torch.Generator().manual_seed(3)
+    for s in staged:
+        s.copy_(torch.randint(0, 100, s.shape, generator=g, dtype=s.dtype))
+    want = [s.clone() for s in staged]
+    with torch.cuda.stream(ring.stream):
+        torch.cuda._sleep(RING_SLEEP_CYCLES)
+    moved = ring.upload(slot, staged)
+    ring.take(shapes)
+    again, views = ring.take(shapes)  # the first slot: waits for its copy
+    assert again is slot
+    for v in views:
+        v.zero_()
+    torch.cuda.synchronize()
+    assert all(torch.equal(m.cpu(), w) for m, w in zip(moved, want)), "ring slot overwritten"
+    del moved, want, staged, views
+    real = ring.upload
+
+    def delayed(slot, staged):
+        with torch.cuda.stream(ring.stream):
+            torch.cuda._sleep(RING_SLEEP_CYCLES)
+        return real(slot, staged)
+
+    ring.upload = delayed
+    resident = plaid.PlaidEngine(index, p)
+    for qbi, _ in batches[1:4]:
+        got, per = counted(counts, eng.search_batch, qbi)
+        want = resident.search_batch(qbi)
+        assert_tiered_launches(per, False, "ring")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "ring check"
+    info["ring"] = dict(slot_reuse_waits=True, delayed_batches=3, identical=True,
+                        sleep_cycles=RING_SLEEP_CYCLES)
+    del eng, resident, tiered
+    return counts
+
+
 def quality_phase(seed, dev, info: dict) -> None:
     """The quality harness (``repro_torch.eval``) on the card.
 
@@ -1674,6 +2015,8 @@ def quality_phase(seed, dev, info: dict) -> None:
         recall_at_10_min=min(recalls), recall_at_10_max=max(recalls),
         latency_ms_per_query_p50=statistics.median(r.latency_ms for r in rec_c),
         corpus_s=corpus_s, build_s=build_s, cuda_sweep_s=cuda_s, ref_sweep_s=ref_s)
+    # phase tiered's save / load round trip, on this index
+    info["tiered_roundtrip"] = tiered_roundtrip(index, synth_queries(index, BATCH, seed)[0])
     del index, rec_c, rec_r
 
     # ---- (ii) lossless-caps certification

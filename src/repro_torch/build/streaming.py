@@ -29,6 +29,10 @@ centroids the build is array-identical to the reference's streaming build
 (pruned or not).  Trained builds are bit-identical across chunkings and
 runs; they differ from the reference's because ``torch.Generator`` draws
 replace ``jax.random`` keys.
+
+Spans (``obs.trace``, the reference's names and attributes): one
+``build.sample_chunk`` a chunk of pass 1, ``build.kmeans`` around the
+centroid fit, one ``build.quantize_chunk`` a chunk of pass 2.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core import index as index_mod
 from repro_torch.core import kmeans as _kmeans
 from repro_torch.core import residual_codec as rc
 from repro_torch.core.index import PlaidIndex
+from repro_torch.obs.trace import get_tracer
 
 DEFAULT_SAMPLE_SIZE = 1 << 18  # matches core.kmeans.train_centroids
 DEFAULT_CHUNK_DOCS = 256
@@ -152,16 +157,18 @@ class StreamingIndexBuilder:
         if not (need_centroids or need_codec):
             return self.centroids, self.codec
 
+        tracer = get_tracer()
         reservoir = ReservoirSampler(self.sample_size, seed=self.seed)
         n_tokens = n_docs = n_chunks = 0
         for payload, doc_lens in stream.chunks():
-            emb, doc_lens = self._chunk(stream, payload, doc_lens)
-            reservoir.offer(emb, n_tokens)
-            if self.device.type == "cpu":
-                self.stats.note_f32((reservoir.n_kept + emb.shape[0]) * emb.shape[1])
-            n_tokens += emb.shape[0]
-            n_docs += len(doc_lens)
-            n_chunks += 1
+            with tracer.span("build.sample_chunk", chunk=n_chunks):
+                emb, doc_lens = self._chunk(stream, payload, doc_lens)
+                reservoir.offer(emb, n_tokens)
+                if self.device.type == "cpu":
+                    self.stats.note_f32((reservoir.n_kept + emb.shape[0]) * emb.shape[1])
+                n_tokens += emb.shape[0]
+                n_docs += len(doc_lens)
+                n_chunks += 1
         if n_tokens == 0:
             raise ValueError("corpus stream yielded no tokens")
         self.stats.n_docs, self.stats.n_tokens = n_docs, n_tokens
@@ -175,11 +182,12 @@ class StreamingIndexBuilder:
             # is unused (the reservoir is priority-based)
             _, g_fit = _kmeans.fit_generators(self.seed, self.device)
             t1 = time.perf_counter()
-            self.centroids = kmeans_mesh.kmeans_fit_mesh(
-                sample, k, generator=g_fit, iters=self.kmeans_iters,
-                stat_blocks=self.stat_blocks,
-            )
-            self._sync()
+            with tracer.span("build.kmeans", k=int(k), sample_tokens=reservoir.n_kept):
+                self.centroids = kmeans_mesh.kmeans_fit_mesh(
+                    sample, k, generator=g_fit, iters=self.kmeans_iters,
+                    stat_blocks=self.stat_blocks,
+                )
+                self._sync()
             self.stats.kmeans_s = time.perf_counter() - t1
         self.stats.num_centroids = int(self.centroids.shape[0])
         if need_codec:
@@ -211,13 +219,15 @@ class StreamingIndexBuilder:
             prune_fraction=self.prune_fraction,
             device=self.device,
         )
+        tracer = get_tracer()
         n_chunks = 0
         for payload, doc_lens in stream.chunks():
-            emb, doc_lens = self._chunk(stream, payload, doc_lens)
-            codes, packed = quantize_rows(emb, self.centroids, self.codec)
-            del emb  # freed before the stream makes the next chunk
-            assembler.add_chunk(codes, packed, doc_lens)
-            n_chunks += 1
+            with tracer.span("build.quantize_chunk", chunk=n_chunks):
+                emb, doc_lens = self._chunk(stream, payload, doc_lens)
+                codes, packed = quantize_rows(emb, self.centroids, self.codec)
+                del emb  # freed before the stream makes the next chunk
+                assembler.add_chunk(codes, packed, doc_lens)
+                n_chunks += 1
         self.index = assembler.finish()
         self.stats.n_chunks = max(self.stats.n_chunks, n_chunks)
         if not self.stats.n_tokens:  # frozen-tables single-pass build

@@ -13,10 +13,11 @@ partition, joined by ONE shared top-k merge
 * :mod:`repro_torch.exec.live`     — plan builder/cache for mutable
   indexes on one device;
 * :mod:`repro_torch.exec.bucketed` — pow2-bucketed static-cap dispatch:
-  dynamic ``nprobe`` / ``ndocs`` sweeps over a few launch shapes.
+  dynamic ``nprobe`` / ``ndocs`` sweeps over a few launch shapes;
+* :mod:`repro_torch.exec.tiered`   — tiered doc-range partitions (host
+  payloads, per-batch slice copies) as plan groups.
 
-The sharded and tiered partition groups come with the multi-GPU and tiered
-slices.
+The sharded partition groups come with the multi-GPU slice.
 """
 from repro_torch.exec.bucketed import BucketedCapEngine
 from repro_torch.exec.live import LiveExecutor
@@ -29,15 +30,18 @@ from repro_torch.exec.segments import (
     pack_offsets,
     pow2_bucket,
 )
+from repro_torch.exec.tiered import TieredExecutor, partition_tiered
 
 __all__ = [
     "BucketedCapEngine",
     "ExecutionPlan",
     "LiveExecutor",
     "SegmentBucket",
+    "TieredExecutor",
     "bucket_for",
     "ceil_pow2",
     "make_stacked_search",
     "pack_offsets",
+    "partition_tiered",
     "pow2_bucket",
 ]

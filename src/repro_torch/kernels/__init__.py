@@ -15,4 +15,7 @@ Each wrapper launches its kernel for CUDA tensors and runs its plain version
 launches in a module-level integer (``launches``; K5 and K6, the B=1
 launches of K1 and K2, in ``single_launches``; K4 in
 ``residual_launches``); ``ops.launch_counts()`` reads them all.
+
+``costs`` holds the tiered index's host-to-device transfer model
+(``tiered_transfer_cost``), which the tiered engine's counts must equal.
 """

@@ -17,8 +17,8 @@ neither the merge nor a search reads unfinished tensors.
 
 Persistence: compaction is in memory; construct with ``spill_path`` (or
 call ``LiveIndex.save``) to publish the compacted generation behind the
-manifest's atomic swap.  The reference's ``live.compact.spill`` trace
-span waits for ``obs/trace.py`` (ROADMAP Queue 1 item 6).
+manifest's atomic swap, inside a ``live.compact.spill`` span
+(``obs.trace``).
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.live.index import LiveIndex
+from repro_torch.obs.trace import get_tracer
 
 
 class Compactor:
@@ -78,7 +79,8 @@ class Compactor:
         return pid_map
 
     def _spill(self) -> None:
-        self.live.save(self.spill_path)
+        with get_tracer().span("live.compact.spill", path=self.spill_path):
+            self.live.save(self.spill_path)
         self._spill_pending = False
 
     # ---- background thread -----------------------------------------------

@@ -26,9 +26,10 @@ through ``self._lock`` and replaces references; searches run on a
 the device, generation), so an in-flight query is never torn by a
 concurrent add, delete or compaction.
 
-The reference's ``obs.trace`` spans (``live.add_passages``,
-``live.delete``, ``live.compact.merge`` / ``.swap``) are left out until
-the port has ``obs/trace.py`` (ROADMAP Queue 1 item 6).
+Spans (``obs.trace``, the reference's names and attributes): a
+``live.add_passages`` span, a ``live.delete`` instant, a
+``live.compact.merge`` span around the merge and a ``live.compact.swap``
+instant after the swap.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import torch
 from repro_torch.core import index as index_mod
 from repro_torch.core.index import PlaidIndex
 from repro_torch.live import manifest as manifest_mod
+from repro_torch.obs.trace import get_tracer
 
 
 def build_delta_segment(doc_embeddings, base: PlaidIndex, doc_lens=None) -> PlaidIndex:
@@ -201,21 +203,23 @@ class LiveIndex:
         The segment build runs outside the lock (it only reads the frozen
         tables every segment shares), so queries and deletes proceed.
         """
-        seg = build_delta_segment(doc_embeddings, self.base, doc_lens=doc_lens)
-        with self._lock:
-            start = self.num_passages
-            self._segments.append(seg)
-            self._seg_ids.append(self._next_seg_id)
-            self._next_seg_id += 1
-            self._tombstones = np.concatenate(
-                [self._tombstones, np.zeros(seg.num_passages, bool)]
-            )
-            self._bump()
+        with get_tracer().span("live.add_passages", n_docs=len(doc_embeddings)):
+            seg = build_delta_segment(doc_embeddings, self.base, doc_lens=doc_lens)
+            with self._lock:
+                start = self.num_passages
+                self._segments.append(seg)
+                self._seg_ids.append(self._next_seg_id)
+                self._next_seg_id += 1
+                self._tombstones = np.concatenate(
+                    [self._tombstones, np.zeros(seg.num_passages, bool)]
+                )
+                self._bump()
         return np.arange(start, start + seg.num_passages, dtype=np.int64)
 
     def delete(self, pids) -> int:
         """Tombstone global pids; returns how many were newly deleted."""
         pids = np.unique(np.atleast_1d(np.asarray(pids, np.int64)))
+        get_tracer().instant("live.delete", n_pids=int(pids.size))
         with self._lock:
             n = self.num_passages
             if pids.size and (pids.min() < 0 or pids.max() >= n):
@@ -248,19 +252,22 @@ class LiveIndex:
             n_old = int(sum(s.num_passages for s in snap_segments))
 
             # the expensive part: no index lock held
-            if stream is None:
-                new_base, pid_map = compact_segments(snap_segments, snap_tomb)
-            else:
-                # the merge reads segments whose producing work may still be
-                # queued on the readers' stream; the readers then use the new
-                # base, allocated from the merge stream's pool
-                readers = torch.cuda.current_stream(self.device)
-                stream.wait_stream(readers)
-                with torch.cuda.stream(stream):
+            with get_tracer().span(
+                "live.compact.merge", n_segments=len(snap_segments), n_passages=n_old
+            ):
+                if stream is None:
                     new_base, pid_map = compact_segments(snap_segments, snap_tomb)
-                for f in index_mod.ARRAY_FIELDS:
-                    getattr(new_base, f).record_stream(readers)
-                stream.synchronize()
+                else:
+                    # the merge reads segments whose producing work may still
+                    # be queued on the readers' stream; the readers then use
+                    # the new base, allocated from the merge stream's pool
+                    readers = torch.cuda.current_stream(self.device)
+                    stream.wait_stream(readers)
+                    with torch.cuda.stream(stream):
+                        new_base, pid_map = compact_segments(snap_segments, snap_tomb)
+                    for f in index_mod.ARRAY_FIELDS:
+                        getattr(new_base, f).record_stream(readers)
+                    stream.synchronize()
 
             with self._lock:
                 # only appends/deletes can have happened (compactions are
@@ -284,6 +291,7 @@ class LiveIndex:
                 self._next_seg_id += 1
                 self._tombstones = np.concatenate([base_tomb, self._tombstones[n_old:]])
                 self._bump()
+            get_tracer().instant("live.compact.swap", generation=self._generation)
         return full_map
 
     # ---- search-side view ------------------------------------------------

@@ -20,9 +20,14 @@ gets a clean ``FileNotFoundError``; :func:`load_segmented` re-reads the
 fresh manifest and retries.  v1 directories (flat ``arrays.npz`` next to
 the manifest) load as one base segment; unknown versions fail loudly.
 
-The tiered layout (``storage: "tiered"``, payloads as mmap-able ``.npy``
-files) and its readers belong to the tiered slice (ROADMAP Queue 1 item 5)
-and are refused here.
+The tiered layout (``storage: "tiered"`` stamped in the manifest): the
+O(num_tokens) payload fields (:data:`TIERED_PAYLOAD_FIELDS`) move out of
+``arrays.npz`` into raw per-field ``.npy`` files in the segment directory
+(``codes.npy``, ``residuals.npy``, ...), each durable before the manifest
+names it, so ``core.tiered.load_tiered`` memory-maps them with no
+load-time copy.  The resident loaders refuse tiered directories (a silent
+cross-load would densify the payload or read a placeholder), and
+``load_tiered`` refuses resident ones.
 """
 from __future__ import annotations
 
@@ -43,6 +48,12 @@ from repro_torch.core.index import (
 )
 
 FORMAT_VERSION = 2
+
+#: O(num_tokens) payload fields a tiered segment stores as raw mmap-able
+#: ``.npy`` files instead of ``arrays.npz`` members.  ``codes`` and
+#: ``residuals`` are what a search reads; ``tok_pid`` / ``eivf_eids`` ride
+#: along so a tiered directory still holds a full index.
+TIERED_PAYLOAD_FIELDS = ("codes", "residuals", "tok_pid", "eivf_eids")
 
 
 class PayloadMissingError(FileNotFoundError):
@@ -72,11 +83,13 @@ def segment_static_meta(seg: PlaidIndex) -> dict:
 
 
 def _refuse_tiered(path: str, storage: str) -> None:
+    """The resident loaders' refusal of a tiered (or unknown) layout."""
     if storage != "resident":
         raise ValueError(
-            f"index at {path!r}: storage={storage!r}; only resident "
-            "directories are read and written here (the tiered index is "
-            "ROADMAP Queue 1 item 5)"
+            f"index at {path!r} stamps storage={storage!r}; the resident "
+            "loader would densify (or garble) the payload — open tiered "
+            "directories via repro_torch.core.tiered.load_tiered / the "
+            "'plaid-tiered' backends"
         )
 
 
@@ -89,10 +102,30 @@ def _write_durable(path_tmp: str, path_final: str, write_fn) -> None:
     os.replace(path_tmp, path_final)
 
 
-def write_segment(seg_dir: str, seg: PlaidIndex) -> None:
-    """Write one segment's arrays as ``arrays.npz``; atomic for readers."""
+def _host(x) -> np.ndarray:
+    """An array field as host numpy: a tensor's copy, an array (or mmap)
+    as it is."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def write_segment(seg_dir: str, seg: PlaidIndex, *, storage: str = "resident") -> None:
+    """Write one segment's arrays as ``arrays.npz``; atomic for readers.
+
+    ``storage="tiered"`` writes the payload fields as raw ``.npy`` files
+    instead (one a field), each durable before the ``arrays.npz`` the
+    manifest names beside it.  A field may be a tensor on any device or a
+    host array (a tiered index's payloads are numpy, often mmaps).
+    """
     os.makedirs(seg_dir, exist_ok=True)
-    arrays = seg.numpy_arrays()
+    arrays = {f: _host(getattr(seg, f)) for f in ARRAY_FIELDS}
+    if storage == "tiered":
+        for field in TIERED_PAYLOAD_FIELDS:
+            payload = arrays.pop(field)
+            _write_durable(
+                os.path.join(seg_dir, f"{field}.tmp.npy"),
+                os.path.join(seg_dir, f"{field}.npy"),
+                lambda f, payload=payload: np.save(f, payload),
+            )
     _write_durable(
         os.path.join(seg_dir, "arrays.tmp.npz"),
         os.path.join(seg_dir, "arrays.npz"),
@@ -116,6 +149,32 @@ def _load_npz_arrays(seg_dir: str) -> dict:
             f"segment payload unreadable: {npz_path}: {e} (truncated or "
             "torn write — refusing to load garbage)"
         ) from e
+
+
+def read_tiered_payload(seg_dir: str, field: str) -> np.ndarray:
+    """Open one tiered payload ``.npy``, memory-mapped read-only (no copy)."""
+    path = os.path.join(seg_dir, f"{field}.npy")
+    try:
+        return np.load(path, mmap_mode="r")
+    except FileNotFoundError as e:
+        raise PayloadMissingError(
+            f"tiered payload missing: {path} (manifest stamps storage="
+            "'tiered' but the payload file is absent)"
+        ) from e
+    except (ValueError, OSError, EOFError) as e:
+        raise PayloadCorruptError(f"tiered payload unreadable: {path}: {e}") from e
+
+
+def read_tiered_segment(seg_dir: str, static_meta: dict):
+    """One tiered segment -> ``(arrays, static, payloads)`` on the host.
+
+    ``arrays`` holds the device tier's (non-payload) fields as numpy;
+    ``payloads`` maps ``codes`` and ``residuals`` (what a search reads) to
+    read-only mmaps.  ``tok_pid`` / ``eivf_eids`` are not opened.
+    """
+    arrays = _load_npz_arrays(seg_dir)
+    payloads = {f: read_tiered_payload(seg_dir, f) for f in ("codes", "residuals")}
+    return arrays, _static_from_meta(static_meta), payloads
 
 
 def read_segment(
@@ -161,6 +220,7 @@ def save_segmented(
     tombstones: np.ndarray | None,
     generation: int,
     index_uuid: str | None = None,
+    storage: str = "resident",
 ) -> None:
     """Write a v2 index directory (payloads first, manifest swap last).
 
@@ -168,7 +228,11 @@ def save_segmented(
     segment name always maps to the same immutable content, so segments
     the CURRENT on-disk manifest (same uuid) already references are
     skipped — a save after a delta flush writes the delta, not the base.
+    ``storage="tiered"`` stamps the manifest and writes the payloads as
+    mmap-able ``.npy`` files (:func:`write_segment`).
     """
+    if storage not in ("resident", "tiered"):
+        raise ValueError(f"unknown storage layout: {storage!r}")
     os.makedirs(path, exist_ok=True)
     names = [segment_name(i) for i in seg_ids]
     already_on_disk: set[str] = set()
@@ -181,7 +245,7 @@ def save_segmented(
             pass
     for name, seg in zip(names, segments):
         if name not in already_on_disk:
-            write_segment(os.path.join(path, name), seg)
+            write_segment(os.path.join(path, name), seg, storage=storage)
     ts_name = None
     if tombstones is not None and tombstones.any():
         ts_name = f"tombstones_{generation:06d}.npy"
@@ -191,7 +255,9 @@ def save_segmented(
             lambda f: np.save(f, np.asarray(tombstones, bool)),
         )
     base = segments[0]
+    stamp = {} if storage == "resident" else dict(storage=storage)
     manifest = dict(
+        stamp,
         format_version=FORMAT_VERSION,
         generation=generation,
         index_uuid=index_uuid,

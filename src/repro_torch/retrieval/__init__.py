@@ -8,8 +8,10 @@
     r.save("/idx");  r2 = retrieval.load("/idx")
 
 Backends: ``"plaid"`` (plain PyTorch), ``"plaid-cuda"`` (Hopper kernels),
-``"vanilla"`` (the ColBERTv2 baseline, K4 on the card), and the mutable
-``"live"`` / ``"live-cuda"`` (``repro_torch.live``: ``add_passages``,
+``"vanilla"`` (the ColBERTv2 baseline, K4 on the card), the tiered
+``"plaid-tiered"`` / ``"plaid-tiered-cuda"`` (host-resident payloads,
+``SearchParams(tiered=True)``), and the mutable ``"live"`` /
+``"live-cuda"`` (``repro_torch.live``: ``add_passages``,
 ``delete_passages``, ``compact``); see ``retrieval.list_backends()``.
 """
 from repro_torch.retrieval.registry import (

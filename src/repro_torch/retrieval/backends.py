@@ -8,14 +8,19 @@ of the ``plaid`` / ``plaid-pallas`` part of ``repro.retrieval.backends``).
 ``plaid-cuda``  The same pipeline through the Hopper kernels
                 (``repro_torch.kernels``); on CPU tensors the kernels'
                 plain versions run, so it also answers on ``device="cpu"``.
+``plaid-tiered``  The tiered index: host-resident (mmap) token payloads,
+                a per-batch candidate-slice copy (``repro_torch.core.
+                tiered`` / ``exec.tiered``), plain PyTorch ops.
+                ``SearchParams(tiered=True)`` routes the plaid family here.
+``plaid-tiered-cuda``  The tiered index through the Hopper kernels (K1 in
+                phase A; K2, or K3 fused, over the compacted slices).
 ==============  =========================================================
 
 ``SearchParams.candidate_cap`` is the stage-1 bound in each engine's own
 unit: candidate *passages* for PLAID, candidate *embeddings* for vanilla.
 
-Funnel telemetry (``with_funnel=True``) runs on ``plaid`` and ``plaid-cuda``
-and is refused on ``vanilla``.  The tiered storage mode is not ported and is
-refused with a ``NotImplementedError``.
+Funnel telemetry (``with_funnel=True``) runs on the plaid family (tiered
+included) and is refused on ``vanilla``.
 """
 from __future__ import annotations
 
@@ -51,12 +56,8 @@ def _build_index(corpus_embs, cfg: RetrieverConfig, doc_lens, device):
 
 
 def to_engine_params(p: SearchParams, impl: str = "ref") -> plaid_mod.SearchParams:
-    """Facade ``SearchParams`` -> core ``plaid.SearchParams``."""
-    if p.tiered:
-        raise NotImplementedError(
-            "SearchParams(tiered=True): the tiered index "
-            "(repro_torch.core.tiered) is not ported"
-        )
+    """Facade ``SearchParams`` -> core ``plaid.SearchParams`` (``tiered`` is
+    a storage choice, settled by the registry's routing)."""
     return plaid_mod.SearchParams(
         k=p.k,
         nprobe=p.nprobe,
@@ -281,3 +282,137 @@ class VanillaRetriever:
             dynamic_fields=(),  # vanilla has no per-call knobs
             index=_index_summary(self.index),
         )
+
+
+# --------------------------------------------------------------------------
+# The tiered index
+# --------------------------------------------------------------------------
+@registry.register("plaid-tiered")
+class TieredRetriever:
+    """PLAID with host-resident payloads: the funnel on the device, the
+    token payload in host memory.
+
+    Wraps :class:`repro_torch.exec.tiered.TieredExecutor` (two phases per
+    partition, one shared top-k merge).  ``RetrieverConfig.n_shards`` sets
+    the partition count (here the partitions split the host tier, not a
+    set of devices).  Results are identical to ``"plaid"`` on the same
+    index; only the finalists' CSR slices cross to the device a batch,
+    counted in ``transfer_totals`` / ``last_transfer_bytes``.
+    """
+
+    impl = "ref"
+    partitions = True  # honours RetrieverConfig.n_shards
+
+    def __init__(self, tiered, params: SearchParams | None = None, *,
+                 n_partitions: int = 1, device_budget_bytes: int | None = None):
+        from repro_torch.core import tiered as tiered_mod
+        from repro_torch.exec.tiered import TieredExecutor
+
+        if not isinstance(tiered, tiered_mod.TieredIndex):
+            tiered = tiered_mod.tiered_from_index(tiered)
+        self.tiered = tiered
+        self.params = params or SearchParams()
+        self.n_partitions = max(int(n_partitions), 1)
+        self._executor = TieredExecutor(
+            tiered, to_engine_params(self.params, self.impl),
+            n_partitions=self.n_partitions, device_budget_bytes=device_budget_bytes,
+        )
+
+    # ---- construction ----------------------------------------------------
+    @classmethod
+    def build(cls, corpus_embs, cfg: RetrieverConfig, doc_lens=None, *, device="cuda"):
+        return cls.from_index(_build_index(corpus_embs, cfg, doc_lens, device), cfg)
+
+    @classmethod
+    def from_index(cls, index, cfg: RetrieverConfig):
+        return cls(index, cfg.params, n_partitions=cfg.n_shards or 1)
+
+    @classmethod
+    def load(cls, path: str, params: SearchParams | None = None, *, device="cuda"):
+        from repro_torch.core import tiered as tiered_mod
+
+        return cls(tiered_mod.load_tiered(path, device), params)
+
+    def save(self, path: str) -> None:
+        from repro_torch.core import tiered as tiered_mod
+
+        tiered_mod.save_tiered(path, self.tiered)
+        registry.write_meta(path, self)
+
+    # ---- transfer accounting ---------------------------------------------
+    @property
+    def transfer_totals(self) -> dict:
+        return self._executor.transfer_totals
+
+    def last_transfer_bytes(self) -> tuple[int, int]:
+        return self._executor.last_transfer_bytes()
+
+    # ---- search ----------------------------------------------------------
+    def search(self, q, q_mask=None, *, t_cs=None, with_diagnostics=False,
+               with_funnel=False):
+        """One query matrix (nq, dim) -> top-k SearchResult."""
+        req = _as_request(q, q_mask, t_cs, with_diagnostics, with_funnel)
+        _reject_diagnostics(req, self.backend_name)
+        t = self.params.t_cs if req.t_cs is None else req.t_cs
+        dev = self.tiered.device.device
+        q1 = plaid_mod._as_queries(req.q, dev, 2)[None]
+        mask = None if req.q_mask is None else plaid_mod._as_queries(req.q_mask, dev, 1)[None]
+        t0 = time.perf_counter()
+        scores, pids, *aux = self._executor.search_batch(q1, mask, t, funnel=req.with_funnel)
+        out = (scores[0], pids[0])
+        if req.with_funnel:
+            fs = aux[0]
+            out = (*out, type(fs)(*(v[0] for v in fs)))
+        return _finish(out, backend=self.backend_name, k=self.params.k, t_cs=t, t0=t0,
+                       funnel=req.with_funnel)
+
+    def search_batch(self, qs, q_masks=None, *, t_cs=None, with_diagnostics=False,
+                     with_funnel=False):
+        """Query batch (B, nq, dim) -> batched top-k SearchResult."""
+        req = _as_request(qs, q_masks, t_cs, with_diagnostics, with_funnel)
+        _reject_diagnostics(req, self.backend_name)
+        t = self.params.t_cs if req.t_cs is None else req.t_cs
+        t0 = time.perf_counter()
+        out = self._executor.search_batch(req.q, req.q_mask, t, funnel=req.with_funnel)
+        return _finish(out, backend=self.backend_name, k=self.params.k, t_cs=t, t0=t0,
+                       funnel=req.with_funnel)
+
+    # ---- introspection ---------------------------------------------------
+    def describe(self) -> dict:
+        t = self.tiered
+        ex = self._executor
+        return dict(
+            backend=self.backend_name,
+            impl=self.impl,
+            device=str(t.device.device),
+            static=self.params.static_dict(),
+            dynamic=self.params.dynamic_dict(),
+            static_fields=STATIC_FIELDS,
+            dynamic_fields=DYNAMIC_FIELDS,
+            storage=dict(
+                mode="tiered",
+                n_partitions=self.n_partitions,
+                device_bytes=ex.device_nbytes(),
+                resident_payload_bytes=ex.resident_payload_nbytes(),
+                device_budget_bytes=ex.device_budget_bytes,
+                payload_itemsize=t.payload_itemsize,
+            ),
+            transfer=self.transfer_totals,
+            index=dict(
+                num_passages=t.num_passages,
+                num_tokens=t.num_tokens,
+                num_centroids=t.device.num_centroids,
+                dim=t.device.dim,
+                nbits=t.device.nbits,
+                doc_maxlen=t.device.doc_maxlen,
+            ),
+        )
+
+
+@registry.register("plaid-tiered-cuda")
+class TieredCudaRetriever(TieredRetriever):
+    """The tiered index through the Hopper kernels (the counterpart of
+    ``plaid-tiered-pallas``): K1 in phase A, K2 or K3 over the compacted
+    slice arrays in phase B."""
+
+    impl = "cuda"

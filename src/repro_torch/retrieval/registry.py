@@ -7,8 +7,8 @@
     r = retrieval.load(path)              # backend recorded on disk
 
 ``retriever.json`` has the reference's format, so a ``"plaid"``,
-``"vanilla"`` or ``"live"`` directory moves between the packages with its
-backend and params.
+``"vanilla"``, ``"live"`` or ``"plaid-tiered"`` directory moves between the
+packages with its backend and params.
 """
 from __future__ import annotations
 
@@ -49,6 +49,45 @@ def list_backends() -> list[str]:
     return sorted(_REGISTRY)
 
 
+#: ``SearchParams(tiered=True)`` routes the plaid family to its tiered twin
+#: when a retriever is made: the storage mode is a params decision, not a
+#: separate backend string at the call site.
+_TIERED_BACKEND = {
+    "plaid": "plaid-tiered",
+    "plaid-cuda": "plaid-tiered-cuda",
+    "plaid-tiered": "plaid-tiered",
+    "plaid-tiered-cuda": "plaid-tiered-cuda",
+}
+
+
+def _resolve_tiered(cfg: RetrieverConfig) -> RetrieverConfig:
+    if not cfg.params.tiered:
+        return cfg
+    mapped = _TIERED_BACKEND.get(cfg.backend)
+    if mapped is None:
+        raise ValueError(
+            f"SearchParams(tiered=True) is only meaningful for the plaid "
+            f"family ({sorted(set(_TIERED_BACKEND))}); backend "
+            f"{cfg.backend!r} has no tiered storage mode"
+        )
+    return cfg.replace(backend=mapped) if mapped != cfg.backend else cfg
+
+
+def _resolve(cfg: RetrieverConfig) -> RetrieverConfig:
+    """``_resolve_tiered``, then refuse ``n_shards > 1`` for a backend that
+    does not partition its index (``partitions`` unset): the
+    device-sharded backends belong to the multi-GPU slice, and running
+    unsharded instead would ignore the request."""
+    cfg = _resolve_tiered(cfg)
+    if (cfg.n_shards or 1) > 1 and not getattr(get_backend(cfg.backend), "partitions", False):
+        raise NotImplementedError(
+            f"backend {cfg.backend!r} does not partition its index "
+            f"(n_shards={cfg.n_shards}): the device-sharded backends belong to "
+            "the multi-GPU slice (ROADMAP Queue 1 item 7)"
+        )
+    return cfg
+
+
 def coerce_config(cfg: Any = None, **overrides) -> RetrieverConfig:
     """Accept RetrieverConfig | backend name | SearchParams | None."""
     if cfg is None:
@@ -78,14 +117,15 @@ def build(
     keywords.  ``cfg``/``overrides``: see :func:`coerce_config`
     (``backend=``, ``params=``, ``index=``).
     """
-    cfg = coerce_config(cfg, **overrides)
+    cfg = _resolve(coerce_config(cfg, **overrides))
     return get_backend(cfg.backend).build(corpus_embs, cfg, doc_lens=doc_lens, device=device)
 
 
 def from_index(index, cfg=None, **overrides):
     """Wrap a ``repro_torch.core.index.PlaidIndex`` (on its device) in any
-    registered backend."""
-    cfg = coerce_config(cfg, **overrides)
+    registered backend (``params.tiered`` routes the plaid family to its
+    tiered twin)."""
+    cfg = _resolve(coerce_config(cfg, **overrides))
     return get_backend(cfg.backend).from_index(index, cfg)
 
 
@@ -98,8 +138,9 @@ def load(
 ):
     """Restore a Retriever saved with ``.save(path)`` onto ``device``.
 
-    Backend and params come from ``retriever.json``; a bare
-    ``save_index`` directory loads as ``"plaid"``.  Both can be overridden.
+    Backend and params come from ``retriever.json``; a bare directory is
+    sniffed from its manifest (``"plaid"``, ``"live"`` or
+    ``"plaid-tiered"``).  Both can be overridden.
     """
     meta = read_meta(path)
     if backend is None:
@@ -131,11 +172,12 @@ def read_meta(path: str) -> dict | None:
 
 def _sniff_backend(path: str) -> str:
     """Identify the backend of a bare index directory from its manifest,
-    as the reference does: a v2 segment manifest with a lineage uuid,
-    several segments or tombstones is ``"live"``, a single clean segment
-    and a v1 directory ``"plaid"``.  Sharded layouts (``n_shards``, a
-    ``"sharding"`` stamp) and tiered ones are not ported and are refused;
-    so is an unknown version."""
+    as the reference does: a ``storage: "tiered"`` stamp is
+    ``"plaid-tiered"``; a v2 segment manifest with a lineage uuid, several
+    segments or tombstones is ``"live"``, a single clean segment and a v1
+    directory ``"plaid"``.  Sharded layouts (``n_shards``, a
+    ``"sharding"`` stamp) are not ported and are refused; so are an
+    unknown storage layout and an unknown version."""
     manifest = os.path.join(path, "manifest.json")
     if not os.path.exists(manifest):
         raise FileNotFoundError(
@@ -143,10 +185,15 @@ def _sniff_backend(path: str) -> str:
         )
     with open(manifest) as f:
         m = json.load(f)
-    if m.get("storage", "resident") != "resident":
+    # the storage stamp first: a tiered directory's arrays.npz lacks the
+    # payload fields, so a resident loader would misread it
+    storage = m.get("storage", "resident")
+    if storage == "tiered":
+        return "plaid-tiered"
+    if storage != "resident":
         raise ValueError(
-            f"{path!r} stamps storage={m.get('storage')!r}; the tiered index "
-            "is not ported yet (ROADMAP Queue 1 item 5)"
+            f"{path!r} stamps an unknown storage layout {storage!r} (this "
+            "build knows 'resident' and 'tiered'); refusing to guess"
         )
     if "n_shards" in m or m.get("sharding"):
         raise ValueError(

@@ -41,8 +41,9 @@ class SearchParams:
     stage1_dtype: str = "float32"
     #: stage 3-5 tail through the fused gather->decompress->maxsim kernel
     fused: bool = False
-    #: host-resident payloads (the tiered index); not ported yet, so the
-    #: backends refuse ``True``.  Kept so reference-written params load.
+    #: host-resident payloads (the tiered index, ``repro_torch.core.tiered``):
+    #: ``True`` routes ``plaid`` / ``plaid-cuda`` to ``plaid-tiered`` /
+    #: ``plaid-tiered-cuda`` when a retriever is made
     tiered: bool = False
     t_cs: float = 0.5
 
@@ -84,11 +85,14 @@ class RetrieverConfig:
     (``num_centroids``, ``nbits``, ``kmeans_iters``, ``seed``,
     ``ivf_list_cap``, frozen ``centroids``/``codec``, ``prune_fraction``)
     plus the streaming geometry (``chunk_docs``, ``sample_size``,
-    ``stat_blocks``).
+    ``stat_blocks``).  ``n_shards`` sets the tiered backends' partition
+    count; the others refuse ``n_shards > 1`` (the device-sharded backends
+    belong to the multi-GPU slice).
     """
 
     backend: str = "plaid"
     params: SearchParams = SearchParams()
+    n_shards: int | None = None
     index: dict = dataclasses.field(default_factory=dict)
 
     def replace(self, **changes) -> "RetrieverConfig":

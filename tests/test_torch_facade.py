@@ -109,7 +109,9 @@ def test_from_index_and_a_bare_index_directory(saved, tmp_path):
     loaded = tret.load(bare, device="cpu", params=tret.SearchParams(**PARAMS))
     assert loaded.backend_name == "plaid"
     assert torch.equal(loaded.search_batch(qs).pids, r.search_batch(qs).pids)
-    assert tret.list_backends() == sorted(BACKENDS + ["vanilla", "live", "live-cuda"])
+    assert tret.list_backends() == sorted(
+        BACKENDS + ["vanilla", "live", "live-cuda", "plaid-tiered", "plaid-tiered-cuda"]
+    )
 
 
 def test_default_device_is_the_card(saved):
@@ -137,9 +139,14 @@ def test_unported_features_are_refused(saved, backend):
     fields = set(ref.search_batch(qs, with_funnel=True).funnel)
     assert set(r.search_batch(qs, with_funnel=True).funnel) == fields
     assert all(np.ndim(v) == 0 for v in r.search(qs[0], with_funnel=True).funnel.values())
-    with pytest.raises(NotImplementedError, match="tiered"):
-        tret.load(path, backend=backend, device="cpu",
-                  params=tret.SearchParams(tiered=True))
+    # the tiered index is ported (it was refused until then):
+    # SearchParams(tiered=True) routes the backend to its tiered twin, whose
+    # results are held against the reference in tests/test_torch_tiered.py
+    tiered = tret.from_index(r.index, backend=backend,
+                             params=r.params.replace(tiered=True))
+    assert tiered.backend_name == {"plaid": "plaid-tiered",
+                                   "plaid-cuda": "plaid-tiered-cuda"}[backend]
+    assert torch.equal(tiered.search_batch(qs).pids, r.search_batch(qs).pids)
     # the streaming build is ported: retrieval.build runs on the CPU when
     # asked (here over the queries as a 3-passage corpus, against r's
     # frozen centroids), on the card by default (no silent fallback)
@@ -152,3 +159,23 @@ def test_unported_features_are_refused(saved, backend):
             tret.build(list(qs), backend=backend)
     with pytest.raises(KeyError, match="unknown retrieval backend"):
         tret.load(path, backend="plaid-pallas", device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["plaid", "plaid-cuda", "vanilla", "live", "live-cuda"])
+def test_n_shards_is_refused_by_a_backend_that_does_not_partition(saved, backend):
+    """``n_shards > 1`` names the device-sharded backends (the multi-GPU
+    slice): a backend that does not partition refuses it instead of running
+    unsharded; one shard is the unsharded index, and the tiered twins take
+    it as their partition count."""
+    path, _, qs = saved
+    r = tret.load(path, device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        tret.from_index(r.index, backend=backend, n_shards=2)
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        tret.build(list(qs), backend=backend, n_shards=2, device="cpu",
+                   index=dict(centroids=r.index.centroids))
+    assert tret.from_index(r.index, backend=backend, n_shards=1).backend_name == backend
+    if backend.startswith("plaid"):
+        tiered = tret.from_index(r.index, backend=backend, n_shards=2,
+                                 params=r.params.replace(tiered=True))
+        assert tiered.n_partitions == 2  # its results: tests/test_torch_tiered.py

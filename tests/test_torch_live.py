@@ -351,7 +351,8 @@ def test_save_within_a_lineage_skips_segments_on_disk(corpus, tmp_path, monkeypa
     written = []
     real = tman.write_segment
     monkeypatch.setattr(tman, "write_segment",
-                        lambda d, seg: written.append(os.path.basename(d)) or real(d, seg))
+                        lambda d, seg, **kw: written.append(os.path.basename(d))
+                        or real(d, seg, **kw))
     lv.add_passages(docs[80:90])
     lv.save(path)
     assert written == ["seg_000002"]  # the base and the first delta stay
@@ -491,9 +492,13 @@ def test_live_cuda_equals_live_on_card():
 
 @pytest.mark.gpu
 def test_stream_compaction_waits_for_work_queued_on_the_readers_stream():
-    """A compaction on a stream of its own, issued while the default stream
-    still has the work that writes its segments queued (no host sync in
-    between), merges the finished segments."""
+    """A compaction on a stream of its own, queued while the readers'
+    stream still has the work that writes its segments queued (no host
+    sync in between), merges the finished segments.  The readers run on
+    the default stream, then on a stream of their own: the merge begins
+    with a copy from pageable host memory, which waits for the default
+    stream's queued work anyway (a copy without ``wait_stream`` passes
+    the first case on an H100), but not for another stream's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
     docs, _ = syn.embedding_corpus(300, dim=64, min_len=6, max_len=40, seed=4)
@@ -503,18 +508,22 @@ def test_stream_compaction_waits_for_work_queued_on_the_readers_stream():
     lv.delete(np.arange(0, 300, 7))
     segs = lv.snapshot().segments
     want, want_map = tlive.compact_segments(segs, lv.tombstones())
-    # zeroed copies, written on the default stream behind a long sleep: a
-    # merge that does not wait for that stream reads the zeros
-    copies = [{f: torch.zeros_like(getattr(s, f)) for f in ti.ARRAY_FIELDS} for s in segs]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    for s, c in zip(segs, copies):
-        for f, t in c.items():
-            t.copy_(getattr(s, f))
-    racing = tlive.LiveIndex(*(dataclasses.replace(s, **c) for s, c in zip(segs[:1], copies[:1])),
-                             [dataclasses.replace(s, **c) for s, c in zip(segs[1:], copies[1:])],
-                             tombstones=lv.tombstones())
-    pid_map = racing.compact(stream=torch.cuda.Stream())
-    np.testing.assert_array_equal(pid_map, want_map)
-    for f in ti.ARRAY_FIELDS:
-        assert torch.equal(getattr(racing.base, f), getattr(want, f)), f
+    for readers in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        # zeroed copies, written on the readers' stream behind a long
+        # sleep: a merge that does not wait for that stream reads the zeros
+        copies = [{f: torch.zeros_like(getattr(s, f)) for f in ti.ARRAY_FIELDS} for s in segs]
+        torch.cuda.synchronize()
+        with torch.cuda.stream(readers):
+            torch.cuda._sleep(200_000_000)
+            for s, c in zip(segs, copies):
+                for f, t in c.items():
+                    t.copy_(getattr(s, f))
+            racing = tlive.LiveIndex(
+                *(dataclasses.replace(s, **c) for s, c in zip(segs[:1], copies[:1])),
+                [dataclasses.replace(s, **c) for s, c in zip(segs[1:], copies[1:])],
+                tombstones=lv.tombstones())
+            pid_map = racing.compact(stream=torch.cuda.Stream())
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(pid_map, want_map)
+        for f in ti.ARRAY_FIELDS:
+            assert torch.equal(getattr(racing.base, f), getattr(want, f)), f
