@@ -67,6 +67,33 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                per-partition resident oracle plus ``merge_topk``; and the
                staging ring under a device sleep queued on its copy stream
                (its save / load round trip runs in phase ``quality``);
+8c. serve      the serving tier (``repro_torch.serving``) over the main
+               index at Table 2's k=10, ``batch_size=32``,
+               ``max_wait_ms=2``: (1) ``plaid-cuda`` handed coalesced
+               batches of 1 / 3 / 5 / 17 / 32 queries (buckets 1 / 4 / 8 /
+               32 / 32) with mixed per-request ``t_cs`` and ``k``, each
+               lane equal to a direct ``search_batch`` of the padded
+               bucket (``np.array_equal``) and with a direct single-query
+               ``search``'s pids; (2) 64 client threads, 2,048 distinct
+               queries, cache off, in two rounds each after direct B=32
+               batches of the same queries: q/s, p50/p99, the bucket
+               histogram and occupancy, the median host ms of each
+               ``serve.*`` span, beside the direct p50 and ``32 / p50``;
+               K1 = 2 x dispatches and K2 = dispatches; (3) one
+               closed-loop client beside direct B=1 searches; (4) the
+               cache: hits identical to their misses, hit rate, hit p50;
+               (5) ``live-cuda`` served to 8 client threads while a
+               mutator adds 333 passages, deletes half and compacts, 3
+               times: typed errors only, no hang, then every (query,
+               ``t_cs``) served equals a direct search and a cached entry
+               goes stale across one more add; (6) ``plaid-tiered-cuda``:
+               ``stats()["transfer"]`` equals the engine's totals; (7) a
+               ``ReplicaPool`` of two ``live-cuda`` retrievers over one
+               ``LiveIndex``: one add bumps the generation once, both
+               serve the new corpus.  Launches are counted around the runs
+               that have one dispatcher thread (the kernel wrappers'
+               counters are plain ints, so the pool's two dispatchers are
+               not counted);
 9. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
@@ -136,6 +163,7 @@ Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -143,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -153,7 +182,7 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
-from repro_torch import build, live, retrieval  # noqa: E402
+from repro_torch import build, live, retrieval, serving  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import indexer  # noqa: E402
@@ -170,6 +199,10 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.models import colbert  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
+from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
+from repro_torch.serving import buckets as serve_buckets_mod  # noqa: E402
+from repro_torch.serving import server as serve_server  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -233,6 +266,19 @@ LIVE_PAIRS = 4
 TIERED_KS = (10, 100, 1000)
 TIERED_PAIRS, TIERED_SPLITS = 4, 3
 RING_SLEEP_CYCLES = 200_000_000
+#: phase serve: the server's cap and wait, coalesced batches of these sizes
+#: (buckets 1 / 4 / 8 / 32 / 32) with per-request t_cs and k from these
+#: grids; the load (client threads, distinct seeded queries, requests,
+#: rounds), the lone client's requests, the cache's queries, the live
+#: stress (client threads, their query pool, the least requests a client
+#: makes, mutator cycles) and the tiered requests
+SERVE_BATCH, SERVE_WAIT_MS = 32, 2.0
+SERVE_BUCKET_NS = (1, 3, 5, 17, 32)
+SERVE_T_CS, SERVE_KS = (0.4, 0.5, 0.6), (1, 5, 10)
+SERVE_CLIENTS, SERVE_POOL, SERVE_REQUESTS, SERVE_ROUNDS = 64, 2048, 2048, 2
+SERVE_LONE, SERVE_CACHE = 64, 256
+SERVE_LIVE_CLIENTS, SERVE_LIVE_QUERIES, SERVE_LIVE_MIN, SERVE_LIVE_CYCLES = 8, 16, 8, 3
+SERVE_TIERED = 40
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -726,6 +772,13 @@ def main(argv=None) -> int:
         info["launches"] = tiered_counts
         assert all(tiered_counts[name] > 0 for name in SEARCH_KERNELS), tiered_counts
 
+    # ---- 8c. the serving tier over plaid-cuda, live-cuda, plaid-tiered-cuda -
+    with Phase("serve") as info:
+        # counted around the served runs with one dispatcher thread
+        serve_counts = serve_phase(index, args.seed, info)
+        info["launches"] = serve_counts
+        assert all(serve_counts[name] > 0 for name in SEARCH_KERNELS[:2]), serve_counts
+
     # ---- 9. the vanilla ColBERTv2 baseline (K4) ---------------------------
     ops.reset_launch_counts()
     with Phase("vanilla") as info:
@@ -804,11 +857,12 @@ def main(argv=None) -> int:
         info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
     # launches: each kernel's from the paths that run it, its counts zeroed
-    # just before each path (tiered: taken around each tiered call): K1-K3
-    # in search, live and tiered, K4 in vanilla, K5/K6 in oracle, K7 in
-    # encode and stream_build
+    # just before each path (tiered: taken around each tiered call; serve:
+    # around the served runs with one dispatcher): K1-K3 in search, live,
+    # tiered and serve, K4 in vanilla, K5/K6 in oracle, K7 in encode and
+    # stream_build
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
-                for name in SEARCH_KERNELS}
+                + serve_counts[name] for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
@@ -1929,6 +1983,348 @@ def tiered_phase(index, batches, info: dict) -> dict:
     del eng, resident, tiered
     return counts
 
+
+# --------------------------------------------------------------------------
+# phase serve: the serving tier over plaid-cuda, live-cuda, plaid-tiered-cuda
+# --------------------------------------------------------------------------
+def served_pending(q, t_cs, k):
+    return serve_server._Pending(q=q, t_cs=t_cs, k=k, t0=time.perf_counter(), deadline=None,
+                                 future=serve_server.ResultFuture(), cache_key=None)
+
+
+def span_ms(tracer) -> dict:
+    """Median host ms of each ``serve.*`` span the tracer holds."""
+    names = sorted({s.name for s in tracer.spans() if s.name.startswith("serve.")})
+    return {n: statistics.median(tracer.durations_ms(n)) for n in names}
+
+
+def run_clients(n_threads, fn, timeout_s):
+    """``fn(tid)`` on ``n_threads`` threads started together; raises the
+    first error any raised, and fails if a thread is still running after
+    ``timeout_s``.  Returns the wall seconds."""
+    errors, start = [], threading.Barrier(n_threads + 1)
+
+    def body(tid):
+        try:
+            start.wait(timeout=60)
+            fn(tid)
+        except BaseException as exc:  # re-raised on the main thread below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True) for i in range(n_threads)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=max(timeout_s - (time.perf_counter() - t0), 1.0))
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client thread hung"
+    if errors:
+        raise errors[0]
+    return wall
+
+
+def assert_served_launches(per: dict, dispatches: int, where) -> None:
+    """A ``plaid-cuda`` (or single-partition tiered) batch at k=10 unfused
+    launches K1 twice (stages 2 and 3) and K2 once, and nothing else."""
+    k1, k2, k3 = (per[n] for n in SEARCH_KERNELS)
+    others = {n: c for n, c in per.items() if n not in SEARCH_KERNELS and c}
+    assert dispatches > 0 and k1 == 2 * dispatches and k2 == dispatches and k3 == 0, \
+        (where, dispatches, per)
+    assert not others, (where, others)
+
+
+def serve_buckets(srv, r, pool, counts) -> list:
+    """Check 1: coalesced batches of SERVE_BUCKET_NS distinct queries with
+    mixed per-request ``t_cs`` and ``k`` through ``_dispatch``: each lane
+    equals the same lane of a direct ``search_batch`` of the padded bucket
+    (``np.array_equal``, scores and pids) and has a direct single-query
+    ``search``'s pids at its own ``t_cs``, scores within relative 1e-5."""
+    rows, at = [], 0
+    for n in SERVE_BUCKET_NS:
+        knobs = [(SERVE_T_CS[i % 3], SERVE_KS[(i // 3) % 3]) for i in range(n)]
+        qs = [pool[at + i] for i in range(n)]
+        at += n
+        batch = [served_pending(q, t, k) for q, (t, k) in zip(qs, knobs)]
+        _, per = counted(counts, srv._dispatch, batch)
+        assert_served_launches(per, 1, f"bucket n={n}")
+        bucket = serve_buckets_mod.bucket_batch_size(n, SERVE_BATCH)
+        pq, pt = serve_buckets_mod.pad_batch(qs, [t for t, _ in knobs], bucket)
+        direct = r.search_batch(pq, t_cs=pt)
+        d_s, d_p = direct.scores.cpu().numpy(), direct.pids.cpu().numpy()
+        for i, (p, (t, k)) in enumerate(zip(batch, knobs)):
+            res = p.future.get(timeout=60)
+            assert res.k == k and res.t_cs == t and res.pids.shape == (k,)
+            assert np.array_equal(res.pids, d_p[i, :k]), (n, i, "pids vs search_batch")
+            assert np.array_equal(res.scores, d_s[i, :k]), (n, i, "scores vs search_batch")
+            one = r.search(qs[i], t_cs=t)
+            assert np.array_equal(res.pids, one.pids.cpu().numpy()[:k]), (n, i, "pids vs search")
+            np.testing.assert_allclose(res.scores, one.scores.cpu().numpy()[:k], rtol=1e-5)
+        rows.append(dict(n=n, bucket=bucket, lanes_equal_search_batch=True,
+                         pids_equal_search=True))
+    return rows
+
+
+def serve_load(r, pool) -> tuple[dict, dict]:
+    """Check 2: SERVE_CLIENTS client threads, each submitting single
+    queries (closed loop) from ``pool`` with the cache off, in SERVE_ROUNDS
+    rounds of SERVE_REQUESTS // SERVE_ROUNDS requests, each round after
+    one of direct B=SERVE_BATCH ``search_batch`` calls over the same
+    queries.  Launches are counted around the rounds (one dispatcher
+    launches): K1 = 2 x dispatches, K2 = dispatches.  Returns the row and
+    the launches."""
+    tracer = Tracer(capacity=4 * SERVE_REQUESTS)
+    srv = serving.BatchingServer(r, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=None, latency_window=SERVE_REQUESTS,
+                                 tracer=tracer, registry=MetricsRegistry())
+    per_round = SERVE_REQUESTS // SERVE_ROUNDS
+    counts: dict = {}
+    direct_ms, load_s, qps = [], 0.0, []
+    try:
+        # the server's first dispatch, outside the counts; the latency
+        # window (SERVE_REQUESTS long) rotates it out
+        srv.search(pool[0], timeout=60)
+        d0 = srv.stats()["dispatches"]
+        tracer.clear()
+        for rnd in range(SERVE_ROUNDS):
+            lo = rnd * per_round
+            for b in range(lo, lo + per_round, SERVE_BATCH):
+                direct_ms.append(r.search_batch(pool[b:b + SERVE_BATCH]).latency_ms)
+
+            def client(tid, lo=lo):
+                for j in range(tid, per_round, SERVE_CLIENTS):
+                    res = srv.search(pool[lo + j], timeout=120)
+                    assert res.pids.shape == (10,) and not res.cached
+
+            wall, _ = counted(counts, run_clients, SERVE_CLIENTS, client, 300)
+            load_s += wall
+            qps.append(per_round / wall)
+        st = srv.stats()
+    finally:
+        srv.shutdown()
+    dispatches = st["dispatches"] - d0
+    assert_served_launches(counts, dispatches, "load")
+    assert st["completed"] == SERVE_REQUESTS + 1 and st["errors"] == 0, st
+    spans = tracer.spans("serve.dispatch")
+    assert len(spans) == dispatches and sum(s.attrs["n"] for s in spans) == SERVE_REQUESTS
+    p50_direct = statistics.median(direct_ms)
+    row = dict(
+        clients=SERVE_CLIENTS, requests=SERVE_REQUESTS, rounds=SERVE_ROUNDS,
+        qps=SERVE_REQUESTS / load_s, qps_rounds=qps, p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
+        mean_ms=st["mean_ms"], dispatches=dispatches,
+        buckets=dict(collections.Counter(s.attrs["bucket"] for s in spans)),
+        mean_requests_a_dispatch=SERVE_REQUESTS / dispatches,
+        mean_occupancy=statistics.mean(s.attrs["n"] / s.attrs["bucket"] for s in spans),
+        direct_b32_p50_ms=p50_direct, direct_b32_qps=SERVE_BATCH / p50_direct * 1e3,
+        direct_batches=len(direct_ms),
+        served_over_direct_qps=SERVE_REQUESTS / load_s / (SERVE_BATCH / p50_direct * 1e3),
+        span_median_ms=span_ms(tracer), launches=counts,
+    )
+    return row, counts
+
+
+def serve_lone_and_cache(r, pool) -> tuple[dict, dict]:
+    """Check 3: one closed-loop client (bucket 1 every time), its p50
+    beside a direct B=1 ``search``, interleaved.  Check 4: SERVE_CACHE
+    queries submitted twice through a cached server: every hit equals the
+    miss it repeats (``np.array_equal``), hit_rate, p50 of a hit."""
+    srv = serving.BatchingServer(r, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=None, tracer=Tracer(), registry=MetricsRegistry())
+    served, direct = [], []
+    try:
+        for i in range(SERVE_LONE):
+            served.append(srv.search(pool[i], timeout=60).latency_ms)
+            direct.append(r.search(pool[i]).latency_ms)
+        lone_st = srv.stats()
+    finally:
+        srv.shutdown()
+    assert set(lone_st["buckets"]) == {1}, lone_st["buckets"]
+    lone = dict(requests=SERVE_LONE, served_p50_ms=statistics.median(served),
+                direct_b1_p50_ms=statistics.median(direct), buckets=lone_st["buckets"])
+
+    srv = serving.BatchingServer(r, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=2 * SERVE_CACHE, tracer=Tracer(),
+                                 registry=MetricsRegistry())
+    try:
+        misses = [f.get(timeout=120) for f in [srv.submit(pool[i]) for i in range(SERVE_CACHE)]]
+        hits = [f.get(timeout=120) for f in [srv.submit(pool[i]) for i in range(SERVE_CACHE)]]
+        cache = srv.stats()["cache"]
+    finally:
+        srv.shutdown()
+    for m, h in zip(misses, hits):
+        assert not m.cached and h.cached
+        assert np.array_equal(m.pids, h.pids) and np.array_equal(m.scores, h.scores)
+    assert cache["hits"] == SERVE_CACHE and cache["hit_rate"] == 0.5, cache
+    return lone, dict(queries=SERVE_CACHE, hit_rate=cache["hit_rate"], hits=cache["hits"],
+                      hit_p50_ms=statistics.median(h.latency_ms for h in hits),
+                      miss_p50_ms=statistics.median(m.latency_ms for m in misses),
+                      hits_identical=True)
+
+
+def serve_live(index, pool, seed, counts) -> dict:
+    """Check 5: ``live-cuda`` over the main index (shared as its base)
+    served to SERVE_LIVE_CLIENTS threads while a mutator thread runs
+    SERVE_LIVE_CYCLES cycles of ``add_passages`` (LIVE_DELTAS[-1]
+    passages), a delete of half of them and ``compact()``.  Only typed
+    errors are allowed and no thread may hang; once quiet every (query,
+    t_cs) served equals a direct ``live-cuda`` search (pids identical,
+    scores within relative 1e-5); then an entry goes stale across one more
+    ``add_passages`` and ``invalidations`` rises by one."""
+    live_idx = live.LiveIndex(index)
+    lr = retrieval.from_index(live_idx, backend="live-cuda", params=retrieval.params_for_k(10))
+    srv = serving.BatchingServer(lr, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=1024, tracer=Tracer(), registry=MetricsRegistry())
+    queries = [pool[i] for i in range(SERVE_LIVE_QUERIES)]
+    done, mutations = threading.Event(), []
+    delta = [delta_passages(index, LIVE_DELTAS[-1], seed + 300 + c)
+             for c in range(SERVE_LIVE_CYCLES + 1)]
+    torch.cuda.synchronize()
+
+    def timed(op, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        mutations.append(dict(op=op, seconds=time.perf_counter() - t0))
+        return out
+
+    def mutator():
+        try:
+            for c in range(SERVE_LIVE_CYCLES):
+                emb, lens = delta[c]
+                added = timed("add_passages", srv.add_passages, emb, doc_lens=lens)
+                timed("delete_passages", srv.delete_passages, added[: added.size // 2])
+                timed("compact", srv.compact)
+        finally:
+            done.set()
+
+    def client(tid):
+        if tid == SERVE_LIVE_CLIENTS:
+            return mutator()
+        rng = np.random.default_rng(seed + tid)
+        i = 0
+        while not done.is_set() or i < SERVE_LIVE_MIN:
+            i += 1
+            q = queries[rng.integers(len(queries))]
+            t = SERVE_T_CS[rng.integers(len(SERVE_T_CS))]
+            try:
+                res = srv.search(q, t_cs=t, timeout=120)
+            except (serving.QueueFull, serving.DeadlineExceeded):
+                continue  # typed shedding is allowed
+            assert res.pids.shape == (10,)
+
+    try:
+        _, per = counted(counts, run_clients, SERVE_LIVE_CLIENTS + 1, client, 300)
+        assert per["centroid_interaction_batched"] > 0 and per["decompress_and_score_batched"] > 0
+        st = srv.stats()
+        assert st["errors"] == 0 and st["completed"] > 0, st
+        assert live_idx.num_deltas == 0 and live_idx.generation == 3 * SERVE_LIVE_CYCLES
+        for q in queries:
+            for t in SERVE_T_CS:
+                served = srv.search(q, t_cs=t, timeout=120)
+                direct = lr.search(q, t_cs=t)
+                assert np.array_equal(served.pids, direct.pids.cpu().numpy()), "live served pids"
+                np.testing.assert_allclose(served.scores, direct.scores.cpu().numpy(), rtol=1e-5)
+        assert srv.search(queries[0], t_cs=SERVE_T_CS[0], timeout=120).cached
+        inval0 = srv.cache.stats()["invalidations"]
+        emb, lens = delta[-1]
+        srv.add_passages(emb, doc_lens=lens)
+        assert not srv.search(queries[0], t_cs=SERVE_T_CS[0], timeout=120).cached
+        assert srv.cache.stats()["invalidations"] == inval0 + 1
+    finally:
+        srv.shutdown()
+    by_op = {op: [m["seconds"] for m in mutations if m["op"] == op]
+             for op in ("add_passages", "delete_passages", "compact")}
+    return dict(clients=SERVE_LIVE_CLIENTS, cycles=SERVE_LIVE_CYCLES,
+                completed=st["completed"], p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
+                buckets=st["buckets"], shed=st["shed"], expired=st["expired"],
+                mutation_seconds=by_op, quiet_identical=True, stale_invalidated=True)
+
+
+def serve_tiered(index, pool, counts) -> dict:
+    """Check 6: ``plaid-tiered-cuda`` served: ``stats()["transfer"]`` equals
+    the engine's ``transfer_totals`` after the requests, one transfer batch
+    a dispatch, K1 twice and K2 once a dispatch, and each lane's pids equal
+    a direct ``plaid-cuda`` search of its query."""
+    p = retrieval.params_for_k(10)
+    tr = retrieval.from_index(index, backend="plaid-cuda", params=p.replace(tiered=True))
+    assert tr.backend_name == "plaid-tiered-cuda"
+    r = retrieval.from_index(index, backend="plaid-cuda", params=p)
+    srv = serving.BatchingServer(tr, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=None, tracer=Tracer(), registry=MetricsRegistry())
+    try:
+        futs, per = counted(counts, lambda: [f.get(timeout=120) for f in
+                                             [srv.submit(pool[i]) for i in range(SERVE_TIERED)]])
+        st = srv.stats()
+    finally:
+        srv.shutdown()
+    assert_served_launches(per, st["dispatches"], "tiered")
+    assert st["transfer"] == tr.transfer_totals, (st["transfer"], tr.transfer_totals)
+    assert st["transfer"]["batches"] == st["dispatches"]
+    want = r.search_batch(pool[:SERVE_TIERED]).pids.cpu().numpy()
+    for i, res in enumerate(futs):
+        assert np.array_equal(res.pids, want[i]), ("tiered served pids", i)
+    return dict(requests=SERVE_TIERED, dispatches=st["dispatches"], buckets=st["buckets"],
+                transfer=st["transfer"], transfer_equals_engine=True,
+                pids_equal_plaid_cuda=True)
+
+
+def serve_replicas(index, pool, seed) -> dict:
+    """Check 7: a ``ReplicaPool`` of two ``live-cuda`` retrievers over one
+    ``LiveIndex``: one ``add_passages`` bumps the generation once, and both
+    replicas serve the mutated corpus (each equal to a direct search, an
+    added passage found by a query made of its own tokens)."""
+    live_idx = live.LiveIndex(index)
+    p = retrieval.params_for_k(10)
+    reps = [retrieval.from_index(live_idx, backend="live-cuda", params=p) for _ in range(2)]
+    rpool = serving.ReplicaPool(reps, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                tracer=Tracer(), registry=MetricsRegistry())
+    try:
+        emb, lens = delta_passages(index, LIVE_DELTAS[-1], seed + 400)
+        gen0 = live_idx.generation
+        pids = rpool.add_passages(emb, doc_lens=lens)
+        assert live_idx.generation == gen0 + 1 and pids.size == LIVE_DELTAS[-1]
+        # a query of the first added passage's tokens, cycled to NQ rows
+        probe = emb[np.arange(NQ) % int(lens[0])].cpu().numpy()
+        for s in rpool.servers:
+            for q in (pool[0], probe):
+                got, want = s.search(q, timeout=120), reps[0].search(q)
+                assert np.array_equal(got.pids, want.pids.cpu().numpy()), "replica pids"
+        assert int(pids[0]) in s.search(probe, timeout=120).pids.tolist()
+        st = rpool.stats()
+    finally:
+        rpool.shutdown()
+    assert st["n_replicas"] == 2 and all(r["completed"] > 0 for r in st["replicas"])
+    return dict(replicas=2, generation_bumps=1, served_by_each=[r["completed"] for r in st["replicas"]],
+                added_found=True)
+
+
+def serve_phase(index, seed, info: dict) -> dict:
+    """Phase ``serve`` (see the module docstring).  Returns the kernel
+    launches of the served batches, counted around the runs that have one
+    dispatcher thread (the replica pool's two are not counted: the
+    wrappers' counters are plain ints)."""
+    pool_t, _ = synth_queries(index, SERVE_POOL, seed + 11)
+    pool = pool_t.cpu().numpy()
+    del pool_t
+    counts: dict = {n: 0 for n in ops.launch_counts()}
+    r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
+    srv = serving.BatchingServer(r, batch_size=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                                 cache_size=None, tracer=Tracer(), registry=MetricsRegistry())
+    try:
+        info["buckets"] = serve_buckets(srv, r, pool, counts)
+    finally:
+        srv.shutdown()
+    info["load"], load_counts = serve_load(r, pool)
+    for n, c in load_counts.items():
+        counts[n] += c
+    emit({"serve_load": info["load"]})
+    info["lone"], info["cache"] = serve_lone_and_cache(r, pool)
+    info["live"] = serve_live(index, pool, seed, counts)
+    emit({"serve_live": info["live"]})
+    info["tiered"] = serve_tiered(index, pool, counts)
+    info["replicas"] = serve_replicas(index, pool, seed)
+    return counts
 
 def quality_phase(seed, dev, info: dict) -> None:
     """The quality harness (``repro_torch.eval``) on the card.

@@ -6,6 +6,10 @@ repository root, a directory ``.gitignore`` lists), and loaded with
 ``ctypes``.  ``<hash>`` covers every source and header and the flags, so an
 edited kernel is rebuilt and a stale library is never loaded.  All sources
 compile in parallel, one ``nvcc`` each.  A failed build or load raises.
+A process builds and loads each library once, whichever thread asks first
+(the serving tier launches kernels from its dispatcher threads): the miss
+path of :func:`load` runs under one lock, and every ``nvcc`` writes a
+temporary file of its own before the rename.
 
 Nothing is built at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -17,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import uuid
 from pathlib import Path
 
 import torch
@@ -29,6 +35,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: held while a library is built and loaded (``load``'s miss path)
+_LOAD_LOCK = threading.Lock()
 #: declared C launchers by (library, function name)
 _FUNCS: dict[tuple, ctypes._CFuncPtr] = {}
 #: ``nvcc`` output (``-Xptxas -v``: registers, shared memory, spills) of the
@@ -64,8 +72,8 @@ def build_dir() -> Path:
 def build_all() -> dict[str, Path]:
     """Compile every ``csrc/*.cu`` not yet built; returns {name: library}.
 
-    The compilers run in parallel; each writes a temporary file that is
-    renamed into place only when it succeeded.
+    The compilers run in parallel; each writes a temporary file, unique to
+    the call, that is renamed into place only when it succeeded.
     """
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
@@ -76,7 +84,7 @@ def build_all() -> dict[str, Path]:
     nvcc = _nvcc()
     procs = []
     for src, lib in todo:
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        tmp = lib.with_suffix(f".{os.getpid()}.{uuid.uuid4().hex}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
         procs.append((src, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -99,9 +107,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = build_all()[name]
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)  # another thread may have loaded it
+            if lib is None:
+                path = build_all()[name]
+                lib = ctypes.CDLL(str(path))
+                _LIBS[name] = lib
     return lib
 
 

@@ -101,13 +101,33 @@ class RetrieverConfig:
 
 @dataclasses.dataclass
 class SearchRequest:
-    """One search call: a query (or batch) plus per-request knobs."""
+    """One search call: a query (or batch) plus per-request knobs.
+
+    ``t_cs`` and ``k`` are the per-request latency/quality knobs the
+    serving tier (``repro_torch.serving``) exposes: ``t_cs`` rides through
+    a coalesced batch as a per-lane threshold, and ``k`` is served by
+    max-``k`` dispatch plus per-request truncation (the batch runs at the
+    retriever's ``params.k``; a request's ``k`` must not exceed it).
+    ``priority`` / ``deadline_ms`` feed the serving tier's admission
+    control: two-level priority queues ("interactive" ahead of "batch")
+    and expiry before dispatch.  Direct ``Retriever.search*`` calls ignore
+    the serving-only fields.
+    """
 
     q: Any  # (nq, dim) single query matrix, or (B, nq, dim) batch
     q_mask: Any | None = None  # (nq,) / (B, nq); None = all tokens valid
     t_cs: float | None = None
     with_diagnostics: bool = False  # per-stage survivor counts
     with_funnel: bool = False  # attach obs.FunnelStats funnel telemetry
+    # --- serving-tier per-request knobs (repro_torch.serving) ------------
+    k: int | None = None  # truncate the result to k <= retriever params.k
+    priority: str = "interactive"  # admission class: "interactive" | "batch"
+    deadline_ms: float | None = None  # relative deadline; expired requests
+    # are failed with DeadlineExceeded instead of dispatched
+
+    @property
+    def batched(self) -> bool:
+        return getattr(self.q, "ndim", 0) == 3
 
 
 @dataclasses.dataclass
