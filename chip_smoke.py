@@ -94,6 +94,28 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                that have one dispatcher thread (the kernel wrappers'
                counters are plain ints, so the pool's two dispatchers are
                not counted);
+8d. sharded    document sharding (``repro_torch.exec.sharded``) with the
+               shards sharing the one card through an explicit ``Mesh``:
+               (1) ``plaid-sharded`` (``impl="cuda"``) at one shard equal
+               to ``plaid-cuda`` under ``torch.equal`` for k in {10, 100,
+               1000}, fused and not (scores; pids once ``plaid-cuda``'s
+               equal scores are put in pid order, the merge's order); (2) ``shard_index`` of the main index
+               into two shards of 1M passages on the card (seconds), the
+               two-shard result equal, bit for bit, to the shards run one
+               by one through ``plaid-cuda`` with ``local_to_global_pids``
+               and a local ``merge_topk``, pids equal to ``impl="ref"``
+               (scores to 1e-5), K1 = 4 and K2 = 2 launches a batch (K3 =
+               2 fused), p50 of 4 interleaved pairs and device ms beside
+               ``plaid-cuda``; (3) ``live-sharded-cuda`` over the live
+               phase's base, deltas and tombstones equal to
+               ``live-sharded`` and to its per-shard composition under
+               ``torch.equal``, and re-sharded after ``compact()``; (4) a
+               trained 2^16-passage, K = 2^12 build on a 2-device mesh
+               ``torch.equal`` to the 1-device build, array for array; (5)
+               two gloo ranks spawned on ``cuda:0`` (kernels built here
+               first) whose ``search_batch`` equals the in-process
+               2-shard result.  Launches are counted around the sharded
+               calls alone;
 9. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
@@ -185,18 +207,21 @@ sys.path.insert(0, str(SRC))
 from repro_torch import build, live, retrieval, serving  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
-from repro_torch.core import indexer  # noqa: E402
+from repro_torch.core import engine_sharded, indexer  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.core import tiered as tiered_mod  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.distributed.topk import merge_topk  # noqa: E402
+from repro_torch.distributed.topk import local_to_global_pids, merge_topk  # noqa: E402
 from repro_torch.eval import qrels as eval_qrels, sweep as eval_sweep  # noqa: E402
+from repro_torch.exec import segments as seg_exec  # noqa: E402
 from repro_torch.exec.segments import pow2_bucket  # noqa: E402
+from repro_torch.exec.sharded import clamp_to_shard, place_shards  # noqa: E402
 from repro_torch.exec.tiered import partition_tiered  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.models import colbert  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
@@ -279,6 +304,11 @@ SERVE_CLIENTS, SERVE_POOL, SERVE_REQUESTS, SERVE_ROUNDS = 64, 2048, 2048, 2
 SERVE_LONE, SERVE_CACHE = 64, 256
 SERVE_LIVE_CLIENTS, SERVE_LIVE_QUERIES, SERVE_LIVE_MIN, SERVE_LIVE_CYCLES = 8, 16, 8, 3
 SERVE_TIERED = 40
+#: phase sharded: plaid-sharded vs plaid-cuda timing pairs, the reduced
+#: build (passages, centroids, chunk), the gloo ranks and their join limit
+SHARD_PAIRS = 4
+SHARD_BUILD_PASSAGES, SHARD_BUILD_K, SHARD_BUILD_CHUNK = 1 << 16, 1 << 12, 8192
+GLOO_RANKS, GLOO_JOIN_S = 2, 300
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -779,6 +809,15 @@ def main(argv=None) -> int:
         info["launches"] = serve_counts
         assert all(serve_counts[name] > 0 for name in SEARCH_KERNELS[:2]), serve_counts
 
+    # ---- 8d. document sharding: shards sharing the card, gloo ranks -------
+    with Phase("sharded") as info:
+        # counted around the sharded calls alone (the phase also runs
+        # plaid-cuda and live-cuda as its oracles)
+        info["card"] = smi  # beside every number of the phase's lines
+        sharded_counts = sharded_phase(index, batches, args.seed, info)
+        info["launches"] = sharded_counts
+        assert all(sharded_counts[name] > 0 for name in SEARCH_KERNELS), sharded_counts
+
     # ---- 9. the vanilla ColBERTv2 baseline (K4) ---------------------------
     ops.reset_launch_counts()
     with Phase("vanilla") as info:
@@ -858,11 +897,11 @@ def main(argv=None) -> int:
 
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
-    # around the served runs with one dispatcher): K1-K3 in search, live,
-    # tiered and serve, K4 in vanilla, K5/K6 in oracle, K7 in encode and
-    # stream_build
+    # around the served runs with one dispatcher; sharded: around each
+    # sharded call): K1-K3 in search, live, tiered, serve and sharded, K4 in
+    # vanilla, K5/K6 in oracle, K7 in encode and stream_build
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
-                + serve_counts[name] for name in SEARCH_KERNELS}
+                + serve_counts[name] + sharded_counts[name] for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
@@ -2325,6 +2364,275 @@ def serve_phase(index, seed, info: dict) -> dict:
     info["tiered"] = serve_tiered(index, pool, counts)
     info["replicas"] = serve_replicas(index, pool, seed)
     return counts
+
+# --------------------------------------------------------------------------
+# phase sharded: document shards sharing the card, and gloo ranks
+# --------------------------------------------------------------------------
+def card_mesh(n: int):
+    """``n`` shards sharing ``cuda:0``: an explicit Mesh may repeat a device."""
+    return mesh_mod.Mesh(("cuda:0",) * n)
+
+
+def sharded_retriever(shards, params, mesh, impl="cuda"):
+    """``plaid-sharded`` over a ``shard_index`` output ``(dict, meta, per)``."""
+    d, meta, per = shards
+    return retrieval.get_backend("plaid-sharded")(
+        d, meta, docs_per_shard=per, n_shards=mesh.n_shards, params=params, mesh=mesh,
+        impl=impl)
+
+
+def assert_sharded_launches(per: dict, n_shards: int, fused: bool, where) -> None:
+    """A sharded batch's launches: K1 twice a shard (stages 2 and 3), K2 once
+    a shard, or K3 once a shard fused, and no other kernel of the port."""
+    want = dict(centroid_interaction_batched=2 * n_shards,
+                decompress_and_score_batched=0 if fused else n_shards,
+                gather_decompress_maxsim=n_shards if fused else 0)
+    got = {n: c for n, c in per.items() if c}
+    assert got == {n: c for n, c in want.items() if c}, (where, per)
+
+
+def composed(shards, qb, p, k):
+    """The oracle of a sharded batch: every shard searched alone through
+    ``plaid-cuda`` at the per-shard cap, its pids offset, one local merge."""
+    d, meta, per = shards
+    pc = clamp_to_shard(p, per)
+    parts = [retrieval.from_index(s, backend="plaid-cuda", params=pc).search_batch(qb)
+             for s in place_shards(card_mesh(2), d, meta)]
+    return merge_topk(torch.cat([o.scores for o in parts], 1),
+                      torch.cat([local_to_global_pids(o.pids, s, per)
+                                 for s, o in enumerate(parts)], 1), k)
+
+
+def timed_shard_index(index, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine_sharded.shard_index(index, n)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_live_composition(live_idx, shards, qb, p):
+    """``live-sharded-cuda``'s oracle: each base shard through the pipeline
+    (K1-K3) with its slice of the padded tombstones, the deltas through
+    the stacked group, one local merge of every tuple."""
+    d, meta, per = shards
+    snap = live_idx.snapshot()
+    ep = clamp_to_shard(retrieval.backends.to_engine_params(p, "cuda"), per)
+    qm = torch.ones(qb.shape[:2], device=qb.device)
+    alive = torch.zeros(2 * per, dtype=torch.bool, device=qb.device)
+    alive[: snap.alive[0].shape[0]] = snap.alive[0]
+    scores, pids = [], []
+    for s, shard in enumerate(place_shards(card_mesh(2), d, meta)):
+        sc, pid = pipeline.run_pipeline(shard, qb, qm, p.t_cs, ep,
+                                        alive=alive[s * per : (s + 1) * per])
+        scores.append(sc)
+        pids.append(local_to_global_pids(pid, s, per))
+    deltas = list(snap.segments[1:])
+    bucket = seg_exec.bucket_for(deltas)
+    dp = retrieval.backends.to_engine_params(p, "cuda")
+    ds, dpid = seg_exec.make_stacked_search(dp, bucket)(
+        deltas, qb, qm, p.t_cs, seg_exec.pack_offsets(snap.offsets[1:], bucket, qb.device),
+        snap.alive[1:])
+    return merge_topk(torch.cat([*scores, ds], 1), torch.cat([*pids, dpid], 1), p.k)
+
+
+def gloo_rank(rank: int, tmp: str) -> None:
+    """One of GLOO_RANKS processes sharing ``cuda:0`` over gloo: loads its
+    own shard of the saved index and searches the saved batch."""
+    mesh_mod.init_distributed(f"file://{tmp}/rendezvous", GLOO_RANKS, rank, backend="gloo")
+    try:
+        qb = torch.load(f"{tmp}/queries.pt").cuda()
+        r = retrieval.load(f"{tmp}/index", params=retrieval.params_for_k(10), device="cuda")
+        assert r.impl == "cuda", r.impl  # the kernels by default on the card
+        assert list(r.mesh.shard_ids()) == [rank], r.mesh
+        res = r.search_batch(qb)
+        torch.save(dict(scores=res.scores.cpu(), pids=res.pids.cpu()), f"{tmp}/rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_gloo_ranks(tmp: str) -> list:
+    """GLOO_RANKS spawned ranks, joined within GLOO_JOIN_S; none outlives the
+    call.  Returns each rank's result."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=gloo_rank, args=(r, tmp)) for r in range(GLOO_RANKS)]
+    for pr in procs:
+        pr.start()
+    try:
+        for pr in procs:
+            pr.join(GLOO_JOIN_S)
+    finally:
+        for pr in procs:
+            if pr.is_alive():
+                pr.terminate()
+                pr.join(10)
+    codes = [pr.exitcode for pr in procs]
+    assert codes == [0] * GLOO_RANKS, f"gloo ranks exited {codes}"
+    return [torch.load(f"{tmp}/rank{r}.pt") for r in range(GLOO_RANKS)]
+
+
+def sharded_phase(index, batches, seed, info: dict) -> dict:
+    """Phase ``sharded`` (see the module docstring, 8d).  Returns the port's
+    kernel launches of the sharded calls."""
+    counts = {}
+    qb = batches[1][0]
+    # ---- (1) one shard: plaid-cuda's results
+    one, info["shard_index_1_s"] = timed_shard_index(index, 1)
+    rows = []
+    for k in (10, 100, 1000):
+        for fused in (False, True):
+            p = retrieval.params_for_k(k).replace(fused=fused)
+            got, per = counted(counts, sharded_retriever(one, p, card_mesh(1)).search_batch, qb)
+            want = retrieval.from_index(index, backend="plaid-cuda", params=p).search_batch(qb)
+            check_result(got, k)
+            # the shard merge orders equal scores by pid (the reference's
+            # jax.lax.sort does too); plaid-cuda's top-k keeps them in
+            # finalist order: its pids are compared in the merge's order
+            merged_s, merged_p = merge_topk(want.scores, want.pids, k)
+            assert torch.equal(got.scores, want.scores), f"one shard vs plaid-cuda k={k}"
+            assert torch.equal(merged_s, want.scores)
+            assert torch.equal(got.pids, merged_p), f"one shard vs plaid-cuda pids k={k}"
+            assert_sharded_launches(per, 1, fused, ("one shard", k))
+            rows.append(dict(k=k, fused=fused, identical=True,
+                             tie_slots_reordered=int((merged_p != want.pids).sum())))
+    info["one_shard_equals_plaid_cuda"] = rows
+    del one
+
+    # ---- (2) two shards of 1M passages sharing the card
+    two, info["shard_index_2_s"] = timed_shard_index(index, 2)
+    info["docs_per_shard"] = two[2]
+    rows = []
+    for k, fused in ((10, False), (1000, False), (1000, True)):
+        p = retrieval.params_for_k(k).replace(fused=fused)
+        r2 = sharded_retriever(two, p, card_mesh(2))
+        got, per = counted(counts, r2.search_batch, qb)
+        check_result(got, k)
+        ws, wp = composed(two, qb, p, k)
+        assert torch.equal(got.pids, wp) and torch.equal(got.scores, ws), f"2 shards k={k}"
+        assert_sharded_launches(per, 2, fused, ("two shards", k))
+        ref_res = sharded_retriever(two, p, card_mesh(2), impl="ref").search_batch(qb)
+        assert torch.equal(got.pids, ref_res.pids), f"2 shards vs impl=ref k={k}"
+        assert torch.allclose(got.scores, ref_res.scores, rtol=1e-5, atol=1e-5)
+        row = dict(k=k, fused=fused, composition_identical=True, ref_pids_identical=True,
+                   launches_a_batch={n: c for n, c in per.items() if c})
+        if not fused:
+            bare = retrieval.from_index(index, backend="plaid-cuda", params=p)
+            times = {"plaid-sharded": [], "plaid-cuda": []}
+            for i in range(SHARD_PAIRS):
+                for r in ((r2, bare) if i % 2 == 0 else (bare, r2)):
+                    if r is r2:
+                        res, _ = counted(counts, r.search_batch, qb)
+                    else:
+                        res = r.search_batch(qb)
+                    times[r.backend_name].append(res.latency_ms)
+            prof_s, _ = counted(counts, profile_batch, r2, qb)
+            prof_b = profile_batch(bare, qb)
+            p50 = {n: statistics.median(xs) for n, xs in times.items()}
+            row.update(pairs=SHARD_PAIRS, sharded_p50_ms=p50["plaid-sharded"],
+                       plaid_cuda_p50_ms=p50["plaid-cuda"],
+                       p50_ratio=p50["plaid-sharded"] / p50["plaid-cuda"], ms=times,
+                       device_ms=dict(sharded=prof_s["device_ms"], plaid_cuda=prof_b["device_ms"]),
+                       launches_profiled=dict(sharded=prof_s["launches"],
+                                              plaid_cuda=prof_b["launches"]),
+                       launches_whole=prof_s["launches_whole"] and prof_b["launches_whole"],
+                       busy_share=dict(sharded=prof_s["busy_share"],
+                                       plaid_cuda=prof_b["busy_share"]))
+        emit({"sharded": row, "card": info["card"]})
+        rows.append(row)
+    info["two_shards"] = rows
+
+    # ---- (3) live-sharded-cuda over the live phase's base, deltas, tombstones
+    live_idx = live.LiveIndex(index)
+    for i, n in enumerate(LIVE_DELTAS):
+        emb, lens = delta_passages(index, n, seed + 100 + i)
+        live_idx.add_passages(emb, doc_lens=lens)
+        del emb
+    g = np.random.default_rng(seed + 5)
+    dead = np.concatenate([
+        g.choice(index.num_passages, LIVE_BASE_DELETES, replace=False),
+        index.num_passages + g.choice(LIVE_DELTAS[0], LIVE_DELTA_DELETES, replace=False)])
+    assert live_idx.delete(dead) == dead.size
+    dead_t = torch.zeros(live_idx.num_passages, dtype=torch.bool, device=index.device)
+    dead_t[torch.from_numpy(dead).to(index.device)] = True
+    LiveSharded = retrieval.get_backend("live-sharded")
+    LiveShardedCuda = retrieval.get_backend("live-sharded-cuda")
+    rows = []
+    for k, fused in ((10, False), (1000, True)):
+        p = retrieval.params_for_k(k).replace(fused=fused)
+        lc = LiveShardedCuda(live_idx, p, mesh=card_mesh(2))
+        got, per = counted(counts, lc.search_batch, qb)
+        want = LiveSharded(live_idx, p, mesh=card_mesh(2)).search_batch(qb)
+        check_result(got, k)
+        assert torch.equal(got.pids, want.pids), f"live-sharded-cuda vs live-sharded k={k}"
+        assert torch.equal(got.scores, want.scores), f"live-sharded-cuda vs live-sharded k={k}"
+        assert not bool(dead_t[got.pids.long()].any()), "a tombstoned pid came back"
+        ws, wp = sharded_live_composition(live_idx, two, qb, p)
+        assert torch.equal(got.pids, wp) and torch.equal(got.scores, ws), f"live composition k={k}"
+        rows.append(dict(k=k, fused=fused, identical=True, composition_identical=True,
+                         launches_a_batch={n: c for n, c in per.items() if c},
+                         pids_from_deltas=int((got.pids >= index.num_passages).sum())))
+        emit({"sharded_live": rows[-1], "card": info["card"]})
+    del two
+    p = retrieval.params_for_k(10)
+    lc = LiveShardedCuda(live_idx, p, mesh=card_mesh(2))
+    counted(counts, lc.search_batch, qb)
+    sid = lc._engine._base_shards["sid"]
+    live_idx.compact()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, _ = counted(counts, lc.search_batch, qb)  # re-shards the compacted base
+    reshard_batch_s = time.perf_counter() - t0
+    assert lc._engine._base_shards["sid"] != sid, "no re-shard after compact()"
+    new_two, _ = timed_shard_index(live_idx.base, 2)
+    want, _ = counted(counts, sharded_retriever(new_two, p, card_mesh(2)).search_batch, qb)
+    assert torch.equal(got.pids, want.pids) and torch.equal(got.scores, want.scores)
+    info.update(live=rows, live_tombstones=int(dead.size),
+                compacted_resharded=True, reshard_first_batch_s=reshard_batch_s)
+    del lc, live_idx, new_two
+
+    # ---- (4) the build on a 2-device mesh at reduced depth
+    factory, n_tok = stream_corpus(SHARD_BUILD_PASSAGES, seed + 40, SHARD_BUILD_CHUNK)
+    builds, stats = [], []
+    for mesh in (card_mesh(1), card_mesh(2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b, st = build.build_index_streaming(
+            factory, num_centroids=SHARD_BUILD_K, chunk_docs=SHARD_BUILD_CHUNK, mesh=mesh,
+            return_stats=True, device="cuda")
+        torch.cuda.synchronize()
+        builds.append(b)
+        stats.append(dict(n_devices=st.n_devices, seconds=time.perf_counter() - t0,
+                          pass1_s=st.pass1_s, pass2_s=st.pass2_s, kmeans_s=st.kmeans_s))
+    diff = same_index(*builds)
+    assert not diff, f"2-device build differs from the 1-device build: {diff}"
+    info["build"] = dict(passages=SHARD_BUILD_PASSAGES, tokens=n_tok, centroids=SHARD_BUILD_K,
+                         identical=True, runs=stats)
+
+    # ---- (5) two gloo ranks on the card against the in-process 2 shards
+    small = builds[0]
+    del builds
+    qs_small, _ = synth_queries(small, BATCH, seed + 41)
+    p = retrieval.params_for_k(10)
+    with tempfile.TemporaryDirectory() as tmp:
+        r2 = retrieval.get_backend("plaid-sharded").from_index(
+            small, retrieval.RetrieverConfig(params=p, n_shards=2), mesh=card_mesh(2), impl="cuda")
+        want, _ = counted(counts, r2.search_batch, qs_small)
+        r2.save(f"{tmp}/index")
+        torch.save(qs_small.cpu(), f"{tmp}/queries.pt")
+        _build.build_all()  # built already: the ranks only load the libraries
+        t0 = time.perf_counter()
+        ranks = spawn_gloo_ranks(tmp)
+        gloo_s = time.perf_counter() - t0
+    for got in ranks:
+        assert torch.equal(got["pids"], want.pids.cpu()), "gloo rank pids"
+        assert torch.equal(got["scores"], want.scores.cpu()), "gloo rank scores"
+    info["gloo"] = dict(ranks=GLOO_RANKS, identical=True, seconds=gloo_s,
+                        backend="gloo", device="cuda:0")
+    return {name: counts.get(name, 0) for name in ops.launch_counts()}
+
 
 def quality_phase(seed, dev, info: dict) -> None:
     """The quality harness (``repro_torch.eval``) on the card.

@@ -5,8 +5,8 @@
 ``"v2"``        single-base-segment v2 segment-manifest directory — loads
                 via ``core.indexer.load_index`` / the ``"plaid"`` backends
                 of either package
-``"sharded"``   per-shard directory layout: needs the document-sharded
-                engine (``repro_torch.core.engine_sharded``), not ported
+``"sharded"``   per-shard directory layout (``core.indexer.save_sharded``)
+                for the ``"plaid-sharded"`` backend of either package
 ``"live"``      v2 directory stamped with a LiveIndex lineage uuid, so a
                 bare save sniffs back to the ``"live"`` backend (the
                 build seeds the live index's BASE segment)
@@ -27,11 +27,10 @@ def save_v2(path: str, index: PlaidIndex) -> None:
 
 
 def save_sharded(path: str, index: PlaidIndex, n_shards: int) -> None:
-    """Per-shard deploy layout: not ported."""
-    raise NotImplementedError(
-        "layout='sharded': the document-sharded engine "
-        "(repro_torch.core.engine_sharded) and its multi-GPU build are not ported"
-    )
+    """Per-shard deploy layout for the document-sharded engine."""
+    from repro_torch.core import indexer
+
+    indexer.save_sharded(path, index, n_shards)
 
 
 def to_live_index(index: PlaidIndex):

@@ -1,4 +1,4 @@
-"""Two-pass, bounded-memory PLAID index construction on one device (the
+"""Two-pass, bounded-memory, mesh-parallel PLAID index construction (the
 counterpart of ``repro.build.streaming``).
 
 The monolithic ``core.index.build_index`` holds every token embedding in
@@ -9,15 +9,21 @@ holds more than ``sample_size + chunk`` float32 rows:
 * **pass 1** — stream chunks (through the encoder, if the stream has
   one), reservoir-sample tokens by order-invariant priorities
   (``build.sampling``), train centroids with block-ordered Lloyd
-  iterations (``build.kmeans_mesh``) and fit the residual codec on the
-  sample's residuals.  Skipped entirely when both ``centroids`` and
-  ``codec`` are frozen (the online-ingest path).
+  iterations over the build mesh's devices (``build.kmeans_mesh``) and
+  fit the residual codec on the sample's residuals.  Skipped entirely
+  when both ``centroids`` and ``codec`` are frozen (the online-ingest
+  path).
 * **pass 2** — re-stream chunks; each runs encode → assign → residual →
-  compress on the build device, and only the compact payloads (codes i32 +
-  packed residuals u8) are kept, folded into the CSR by
+  compress, its rows split evenly over the build mesh's devices, and only
+  the compact payloads (codes i32 + packed residuals u8) are kept,
+  reassembled in row order and folded into the CSR by
   ``core.index.IndexAssembler``.
 
-Everything stays on the build device: the sample, each chunk, the
+The build mesh (``n_devices=``, default the most visible cards whose count
+divides ``stat_blocks``; or an explicit ``launch.mesh.Mesh`` as ``mesh=``,
+whose devices may repeat) only spreads the work: every step is row-wise or
+block-ordered, so the index is the same bits for 1, 2 and 4 devices.
+Everything else stays on the build device: the sample, each chunk, the
 payloads.  The host holds the sample's priorities (8 bytes a token) and,
 when pruning, one chunk's copy for scoring (``build.prune``).
 
@@ -50,6 +56,7 @@ from repro_torch.core import index as index_mod
 from repro_torch.core import kmeans as _kmeans
 from repro_torch.core import residual_codec as rc
 from repro_torch.core.index import PlaidIndex
+from repro_torch.launch.mesh import Mesh
 from repro_torch.obs.trace import get_tracer
 
 DEFAULT_SAMPLE_SIZE = 1 << 18  # matches core.kmeans.train_centroids
@@ -89,6 +96,29 @@ def quantize_rows(emb: torch.Tensor, centroids: torch.Tensor, codec: rc.Residual
     return codes, rc.compress_residuals(codec, emb - centroids[codes.long()])
 
 
+def quantize_rows_mesh(emb: torch.Tensor, mesh: Mesh, tables: list):
+    """:func:`quantize_rows` with the rows split over the mesh's devices
+    (``ceil(rows / devices)`` each, so the last slices may be shorter) and
+    the results reassembled in row order on ``emb``'s device;
+    ``tables[i]`` is ``(centroids, codec)`` on device ``i``.  The math is
+    row-wise, so the result is the one-device result."""
+    n_dev = len(mesh.devices)
+    if n_dev == 1 and mesh.devices[0] == emb.device:
+        return quantize_rows(emb, *tables[0])
+    per = -(-emb.shape[0] // n_dev)
+    parts = [quantize_rows(emb[i * per : (i + 1) * per].to(dev), *tables[i])
+             for i, dev in enumerate(mesh.devices)]
+    return (torch.cat([c.to(emb.device) for c, _ in parts]),
+            torch.cat([p.to(emb.device) for _, p in parts]))
+
+
+def default_n_devices(device: torch.device, stat_blocks: int) -> int:
+    """The most visible cards whose count divides ``stat_blocks`` (an odd
+    card count must not make a build fail); one on the host."""
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(d for d in range(1, visible + 1) if stat_blocks % d == 0)
+
+
 class StreamingIndexBuilder:
     """Two-pass streaming builder on ``device``; see module docstring.
 
@@ -96,7 +126,7 @@ class StreamingIndexBuilder:
 
         builder = StreamingIndexBuilder(num_centroids=4096)
         index = builder.build(corpus)          # or a ChunkStream / callable
-        builder.save(path)
+        builder.save(path, layout="sharded", n_shards=4)
 
     or drive the passes yourself: ``train(stream)`` then ``quantize(stream)``.
     """
@@ -118,9 +148,16 @@ class StreamingIndexBuilder:
         prune_fraction: float = 0.0,
         prune_method: str = "attention",
         device: str | torch.device = "cuda",
+        mesh: Mesh | None = None,
     ):
-        kmeans_mesh.check_single_device(n_devices)
         self.device = resolve_device(device)
+        if mesh is None:
+            if n_devices is None:
+                n_devices = default_n_devices(self.device, stat_blocks)
+            mesh = kmeans_mesh.build_mesh(n_devices, self.device)
+        elif n_devices is not None and n_devices != mesh.n_shards:
+            raise ValueError(f"n_devices={n_devices} but the mesh has {mesh.n_shards}")
+        self.mesh = mesh
         self.num_centroids = num_centroids
         self.nbits = nbits if codec is None else codec.nbits
         self.seed = seed
@@ -142,7 +179,7 @@ class StreamingIndexBuilder:
                 f"unknown prune method {prune_method!r}; use {prune_mod.METHODS}"
             )
         self.prune_method = prune_method
-        self.stats = BuildStats()
+        self.stats = BuildStats(n_devices=mesh.n_shards)
         self.index: PlaidIndex | None = None
 
     # ---- pass 1: sample + train --------------------------------------
@@ -185,7 +222,7 @@ class StreamingIndexBuilder:
             with tracer.span("build.kmeans", k=int(k), sample_tokens=reservoir.n_kept):
                 self.centroids = kmeans_mesh.kmeans_fit_mesh(
                     sample, k, generator=g_fit, iters=self.kmeans_iters,
-                    stat_blocks=self.stat_blocks,
+                    mesh=self.mesh, stat_blocks=self.stat_blocks,
                 )
                 self._sync()
             self.stats.kmeans_s = time.perf_counter() - t1
@@ -220,11 +257,13 @@ class StreamingIndexBuilder:
             device=self.device,
         )
         tracer = get_tracer()
+        tables = [(self.centroids.to(d), index_mod.codec_to(self.codec, d))
+                  for d in self.mesh.devices]
         n_chunks = 0
         for payload, doc_lens in stream.chunks():
             with tracer.span("build.quantize_chunk", chunk=n_chunks):
                 emb, doc_lens = self._chunk(stream, payload, doc_lens)
-                codes, packed = quantize_rows(emb, self.centroids, self.codec)
+                codes, packed = quantize_rows_mesh(emb, self.mesh, tables)
                 del emb  # freed before the stream makes the next chunk
                 assembler.add_chunk(codes, packed, doc_lens)
                 n_chunks += 1
@@ -304,6 +343,7 @@ def build_index_streaming(
     prune_method: str = "attention",
     return_stats: bool = False,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ):
     """Build a PLAID index with the streaming two-pass pipeline on
     ``device``.
@@ -329,6 +369,7 @@ def build_index_streaming(
         prune_fraction=prune_fraction,
         prune_method=prune_method,
         device=device,
+        mesh=mesh,
     )
     index = builder.build(corpus, doc_lens)
     return (index, builder.stats) if return_stats else index

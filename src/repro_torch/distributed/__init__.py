@@ -1,4 +1,6 @@
 """``repro_torch.distributed`` — partitioned retrieval (the counterpart of
-``repro.distributed``).  Only the local top-k merge is ported
-(:mod:`repro_torch.distributed.topk`); sharding, the collective merge and
-the reductions belong to the multi-GPU slice."""
+``repro.distributed``): THE top-k merge, local and collective
+(:mod:`repro_torch.distributed.topk`), and the build's deterministic
+cross-device sums (:mod:`repro_torch.distributed.reduce`).  The reference's
+``sharding`` (logical-axis rules) and ``compression`` (int8 gradients)
+serve only its training loop and come with the training slice."""

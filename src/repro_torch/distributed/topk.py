@@ -1,12 +1,14 @@
 """THE top-k merge for partitioned retrieval (the counterpart of
 ``repro.distributed.topk``).
 
-Every partitioned search of the port — live-index segments searched one
-after another, and the cross-group merge in ``repro_torch.exec.plan`` —
-funnels through :func:`merge_topk`.  Only the local case is ported: the
-caller has already concatenated the partitions' ``(score, pid)`` tuples.
-The collective case (``axis_name``, an all-gather across devices) and
-``local_to_global_pids`` belong to the multi-GPU slice.
+Every partitioned search of the port — device shards
+(``repro_torch.exec.sharded``), live-index segments searched one after
+another, and the cross-group merge in ``repro_torch.exec.plan`` — funnels
+through :func:`merge_topk`.  In the local case the caller has already
+concatenated the partitions' ``(score, pid)`` tuples; in the collective
+case (``mesh=``) each shard's tuples are gathered through
+``launch.mesh.gather_shards`` first, so the bytes moved are
+``n_shards * k * 8`` a query, independent of the corpus size.
 
 Determinism: ties are broken by ascending pid (the key is ``(-score,
 pid)``), NOT by position, so a ranking does not depend on how the corpus
@@ -25,19 +27,22 @@ import torch
 _PAD_PID_KEY = torch.iinfo(torch.int32).max
 
 
-def merge_topk(scores: torch.Tensor, pids: torch.Tensor, k: int, axis_name=None):
+def merge_topk(scores, pids, k: int, mesh=None):
     """Merge partition top-k tuples into the global top-k.
 
     ``scores``/``pids``: ``(..., m)`` tuples concatenated over the
-    partitions along the last axis; ``pids`` are GLOBAL ids, ``-1`` marking
-    padded slots.  Returns the top ``min(k, m)`` by ``(-score, pid)``: the
-    scores as given (a ``-0.0`` stays ``-0.0``) and their pids.
+    partitions along the last axis; ``pids`` are GLOBAL ids (offset
+    shard-local ids with :func:`local_to_global_pids` first), ``-1``
+    marking padded slots.  With ``mesh`` (a ``launch.mesh.Mesh``) they are
+    instead sequences of this process's per-shard tuples, in shard order,
+    gathered along the last axis across the mesh first.  Returns the top
+    ``min(k, m)`` by ``(-score, pid)``: the scores as given (a ``-0.0``
+    stays ``-0.0``) and their pids, on the mesh's first device.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "merge_topk(axis_name=...): the collective merge across devices "
-            "belongs to the multi-GPU slice (ROADMAP Queue 1 item 7)"
-        )
+    if mesh is not None:
+        from repro_torch.launch.mesh import gather_shards
+
+        scores, pids = gather_shards(mesh, scores), gather_shards(mesh, pids)
     m = scores.shape[-1]
     # + 0.0 turns -0.0 into +0.0, so both map to one ordered int below
     bits = (scores.float() + 0.0).contiguous().view(torch.int32)
@@ -49,3 +54,9 @@ def merge_topk(scores: torch.Tensor, pids: torch.Tensor, k: int, axis_name=None)
     key = ordered.long() * (1 << 32) + (_PAD_PID_KEY - pid_key)
     idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[..., : min(k, m)]
     return scores.gather(-1, idx), pids.gather(-1, idx)
+
+
+def local_to_global_pids(local_pids: torch.Tensor, shard: int, shard_size: int) -> torch.Tensor:
+    """Offset shard ``shard``'s local passage ids into the global id space
+    (``-1`` pads stay ``-1``)."""
+    return torch.where(local_pids >= 0, local_pids + shard * shard_size, local_pids)

@@ -13,8 +13,9 @@ tombstone deletes, background compaction (the counterpart of
 Design notes live in the submodules: ``live.index`` (segments, pid space,
 concurrency), ``live.engine`` (search through ``repro_torch.exec``),
 ``live.manifest`` (on-disk format v2), ``live.compactor`` (background
-merge).  The ``"live"`` / ``"live-cuda"`` backends register on
-``import repro_torch.retrieval``.
+merge).  The ``"live"`` / ``"live-cuda"`` backends and their
+document-sharded twins ``"live-sharded"`` / ``"live-sharded-cuda"``
+register on ``import repro_torch.retrieval``.
 """
 from repro_torch.live import manifest
 from repro_torch.live.compactor import Compactor

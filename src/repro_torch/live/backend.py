@@ -1,21 +1,29 @@
 """Mutable-corpus retrieval backends: the ``"live"`` family behind the facade
 (the counterpart of ``repro.live.backend``).
 
-=============  ===========================================================
-``live``       Segmented mutable index on one device, plain PyTorch ops
-``live-cuda``  The same through the Hopper kernels (the counterpart of
-               ``live-pallas``): K1 for stages 2/3 and K2, or K3 when
-               ``fused=True``, for stage 4, on every segment; on CPU
-               tensors the kernels' plain versions run
-=============  ===========================================================
+=====================  ===================================================
+``live``               Segmented mutable index on one device, plain
+                       PyTorch ops
+``live-cuda``          The same through the Hopper kernels (the
+                       counterpart of ``live-pallas``): K1 for stages 2/3
+                       and K2, or K3 when ``fused=True``, for stage 4, on
+                       every segment; on CPU tensors the kernels' plain
+                       versions run
+``live-sharded``       The base segment document-sharded over a
+                       ``launch.mesh.Mesh`` (``shard_index``), the delta
+                       segments replicated, tombstones in both groups
+``live-sharded-cuda``  The same through the Hopper kernels on every shard
+                       and delta (the counterpart of
+                       ``live-sharded-pallas``)
+=====================  ===================================================
 
 On top of the facade's search / save / describe, each implements the
 ``MutableRetriever`` surface: ``add_passages``, ``delete_passages``,
 ``writer(flush_every=...)``, ``compactor(...)``, ``compact()`` and the
 ``generation`` counter.  ``retrieval.load`` restores a live retriever from
-v2 (segment manifest) and v1 directories.  The device-sharded
-``live-sharded`` backends belong to the multi-GPU slice: a directory
-stamped ``"sharding"`` is refused.
+v2 (segment manifest) and v1 directories; a ``live-sharded`` save stamps
+the manifest with its shard count (``"sharding"``), so a bare directory
+sniffs back to ``live-sharded``.
 """
 from __future__ import annotations
 
@@ -51,7 +59,10 @@ class LiveRetriever:
     def __init__(self, live_index: LiveIndex, params: SearchParams | None = None):
         self.index = live_index
         self.params = params or SearchParams()
-        self._engine = LiveEngine(self.index, to_engine_params(self.params, self.impl))
+        self._engine = self._make_engine()
+
+    def _make_engine(self) -> LiveEngine:
+        return LiveEngine(self.index, to_engine_params(self.params, self.impl))
 
     # ---- construction ----------------------------------------------------
     @classmethod
@@ -66,12 +77,6 @@ class LiveRetriever:
 
     @classmethod
     def load(cls, path: str, params: SearchParams | None = None, *, device="cuda"):
-        if manifest_mod.read_manifest(path).get("sharding"):
-            raise NotImplementedError(
-                f"{path!r} is a sharded live index (a 'sharding' stamp): the "
-                "live-sharded backends belong to the multi-GPU slice (ROADMAP "
-                "Queue 1 item 7)"
-            )
         return cls(LiveIndex.load(path, device), params)
 
     def save(self, path: str) -> None:
@@ -161,5 +166,88 @@ class LiveRetriever:
 class LiveCudaRetriever(LiveRetriever):
     """The live backend through the Hopper kernels (the counterpart of
     ``live-pallas``)."""
+
+    impl = "cuda"
+
+
+@registry.register("live-sharded")
+class ShardedLiveRetriever(LiveRetriever):
+    """Mutable index whose base segment is document-sharded over a mesh.
+
+    The base shards over the mesh's devices (the ``shard_index`` layout of
+    ``"plaid-sharded"``); the delta segments stay replicated (small by
+    construction, and folded into the sharded base at compaction, which
+    the executor notices and re-shards); tombstones ride through both
+    partition groups.  Mutations go through the ``MutableRetriever``
+    surface and the ``BatchingServer`` unchanged.  ``n_shards`` defaults
+    to every visible card (one shard a process on the host); ``mesh=``
+    places the shards explicitly (several on one card).
+    """
+
+    impl = "ref"
+    partitions = True  # honours RetrieverConfig.n_shards
+
+    def __init__(self, live_index: LiveIndex, params: SearchParams | None = None, *,
+                 n_shards: int | None = None, mesh=None):
+        from repro_torch.retrieval.backends import default_n_shards
+
+        if mesh is not None and n_shards is not None and n_shards != mesh.n_shards:
+            raise ValueError(f"n_shards={n_shards} but the mesh has {mesh.n_shards} shards")
+        self.mesh = mesh
+        if n_shards is None:
+            n_shards = mesh.n_shards if mesh is not None else default_n_shards(live_index.device)
+        self.n_shards = n_shards
+        super().__init__(live_index, params)
+
+    def _make_engine(self) -> LiveEngine:
+        return LiveEngine(self.index, to_engine_params(self.params, self.impl),
+                          mesh=self.mesh, n_shards=self.n_shards)
+
+    @classmethod
+    def build(cls, corpus_embs, cfg: RetrieverConfig, doc_lens=None, *, device="cuda", mesh=None):
+        base = _build_index(corpus_embs, cfg, doc_lens, device)
+        return cls(LiveIndex(base), cfg.params, n_shards=cfg.n_shards, mesh=mesh)
+
+    @classmethod
+    def from_index(cls, index, cfg: RetrieverConfig, *, mesh=None):
+        if not isinstance(index, LiveIndex):
+            index = LiveIndex(index)
+        return cls(index, cfg.params, n_shards=cfg.n_shards, mesh=mesh)
+
+    @classmethod
+    def load(cls, path: str, params: SearchParams | None = None, *, device="cuda", mesh=None):
+        """The ``"sharding"`` stamp is a placement hint, not data: the
+        segments do not depend on the devices, so a process with fewer
+        cards than the stamp re-shards to what it has (as the reference
+        does) instead of refusing to serve."""
+        from repro_torch.launch.mesh import visible_shards
+
+        live = LiveIndex.load(path, device)
+        n_shards = (manifest_mod.read_manifest(path).get("sharding") or {}).get("n_shards")
+        if mesh is not None:
+            n_shards = mesh.n_shards
+        elif n_shards is not None and visible_shards(device) is not None:
+            n_shards = min(n_shards, visible_shards(device))
+        return cls(live, params, n_shards=n_shards, mesh=mesh)
+
+    def save(self, path: str) -> None:
+        self.index.save(path, extra_manifest=dict(sharding=dict(n_shards=self.n_shards)))
+        registry.write_meta(path, self)
+
+    def describe(self) -> dict:
+        d = super().describe()
+        mesh = self._engine.mesh
+        d["sharding"] = dict(
+            n_shards=self.n_shards,
+            mesh=mesh.shape if mesh is not None else None,
+            deltas="replicated",
+        )
+        return d
+
+
+@registry.register("live-sharded-cuda")
+class ShardedLiveCudaRetriever(ShardedLiveRetriever):
+    """The sharded live index through the Hopper kernels on every shard and
+    delta (the counterpart of ``live-sharded-pallas``)."""
 
     impl = "cuda"

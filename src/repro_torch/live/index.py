@@ -321,13 +321,15 @@ class LiveIndex:
             return self._cached_snapshot
 
     # ---- persistence -----------------------------------------------------
-    def save(self, path: str) -> None:
+    def save(self, path: str, *, extra_manifest: dict | None = None) -> None:
         """Write the v2 segment-manifest layout (atomic manifest swap).
 
         Saves of one LiveIndex serialize on their own lock, held across
         the snapshot AND the write, so generations reach disk in order even
         when a Compactor spill races a user save, without blocking
-        mutations or readers."""
+        mutations or readers.  ``extra_manifest`` entries are recorded in
+        the manifest as given (the ``"sharding"`` stamp of
+        ``"live-sharded"``)."""
         with self._save_lock:
             with self._lock:
                 segments = list(self._segments)
@@ -336,7 +338,7 @@ class LiveIndex:
                 generation = self._generation
             manifest_mod.save_segmented(
                 path, segments, seg_ids, tombstones, generation,
-                index_uuid=self._uuid,
+                index_uuid=self._uuid, extra_manifest=extra_manifest,
             )
 
     @classmethod

@@ -221,6 +221,7 @@ def save_segmented(
     generation: int,
     index_uuid: str | None = None,
     storage: str = "resident",
+    extra_manifest: dict | None = None,
 ) -> None:
     """Write a v2 index directory (payloads first, manifest swap last).
 
@@ -229,7 +230,8 @@ def save_segmented(
     the CURRENT on-disk manifest (same uuid) already references are
     skipped — a save after a delta flush writes the delta, not the base.
     ``storage="tiered"`` stamps the manifest and writes the payloads as
-    mmap-able ``.npy`` files (:func:`write_segment`).
+    mmap-able ``.npy`` files (:func:`write_segment`).  ``extra_manifest``
+    entries merge into the manifest; they may not override a layout key.
     """
     if storage not in ("resident", "tiered"):
         raise ValueError(f"unknown storage layout: {storage!r}")
@@ -255,7 +257,14 @@ def save_segmented(
             lambda f: np.save(f, np.asarray(tombstones, bool)),
         )
     base = segments[0]
-    stamp = {} if storage == "resident" else dict(storage=storage)
+    stamp = dict(extra_manifest or {})
+    clash = set(stamp) & {"format_version", "generation", "index_uuid", "segments",
+                          "tombstones", "num_passages", "num_centroids", "dim", "nbits",
+                          "storage"}
+    if clash:
+        raise ValueError(f"extra_manifest may not override {sorted(clash)}")
+    if storage != "resident":
+        stamp["storage"] = storage
     manifest = dict(
         stamp,
         format_version=FORMAT_VERSION,

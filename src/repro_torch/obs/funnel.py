@@ -22,8 +22,9 @@ All fields are per-lane ``(B,)`` int32 counts:
 Merge semantics, for partitioned execution: documents are partitioned and
 centroids replicated, so the doc-space counts ADD across partitions while
 the centroid-space counts are identical per partition and merge by MAX.
-The mesh merge (the reference's ``psum_partitions``) belongs to the
-multi-GPU slice and is not ported.
+Across device shards (:func:`psum_partitions`) the doc-space counts are
+summed over every shard of the mesh and the centroid-space counts pass
+through.
 """
 from __future__ import annotations
 
@@ -70,6 +71,24 @@ def reduce_stacked(stats: FunnelStats) -> FunnelStats:
         stats,
         additive=lambda a: a.sum(dim=0, dtype=torch.int32),
         replicated=lambda a: a.amax(dim=0),
+    )
+
+
+def psum_partitions(stats_list, mesh) -> FunnelStats:
+    """The mesh merge of this process's per-shard ``FunnelStats`` (in
+    shard order): the doc-space counts summed over every shard of the mesh
+    (one gather through ``launch.mesh.gather_shards``), the centroid-space
+    counts passed through (they are the same on every shard: the centroids
+    replicate).  Fields land on the mesh's first device."""
+    from repro_torch.launch.mesh import gather_shards
+
+    stats_list = list(stats_list)
+    parts = [torch.stack([getattr(s, f) for f in ADDITIVE_FIELDS])[None] for s in stats_list]
+    summed = gather_shards(mesh, parts, dim=0).sum(dim=0, dtype=torch.int32)
+    home = mesh.devices[0]
+    return FunnelStats(
+        **dict(zip(ADDITIVE_FIELDS, summed)),
+        **{f: getattr(stats_list[0], f).to(home) for f in REPLICATED_FIELDS},
     )
 
 

@@ -14,6 +14,10 @@ of the ``plaid`` / ``plaid-pallas`` part of ``repro.retrieval.backends``).
                 ``SearchParams(tiered=True)`` routes the plaid family here.
 ``plaid-tiered-cuda``  The tiered index through the Hopper kernels (K1 in
                 phase A; K2, or K3 fused, over the compacted slices).
+``plaid-sharded``  Document-sharded PLAID: one shard a mesh device
+                (``launch.mesh.Mesh``), centroids replicated, one gathered
+                top-k merge; ``impl="cuda"`` runs the Hopper kernels on
+                every shard.
 ==============  =========================================================
 
 ``SearchParams.candidate_cap`` is the stage-1 bound in each engine's own
@@ -29,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import indexer
+from repro_torch.core import indexer, pipeline
 from repro_torch.core import plaid as plaid_mod
 from repro_torch.core import vanilla as vanilla_mod
 from repro_torch.obs import funnel as funnel_mod
@@ -416,3 +420,192 @@ class TieredCudaRetriever(TieredRetriever):
     slice arrays in phase B."""
 
     impl = "cuda"
+
+
+# --------------------------------------------------------------------------
+# Document-sharded PLAID
+# --------------------------------------------------------------------------
+def default_n_shards(device) -> int:
+    """The reference's default, every visible device: the cards of every
+    process, or one shard a process on the host."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    n = mesh_mod.visible_shards(device)
+    if n is None:  # the host: one shard a process
+        mesh = mesh_mod.make_multihost_mesh(device)
+        return mesh.n_shards
+    return n
+
+
+@registry.register("plaid-sharded")
+class ShardedRetriever:
+    """Document-sharded PLAID: one shard a mesh device, replicated
+    centroids, one all-gather top-k merge (``exec.sharded``).
+
+    Holds this process's shards (``engine_sharded.shard_index`` layout,
+    placed on the mesh's devices), not a ``PlaidIndex``.  ``impl`` picks the
+    plain path (``"ref"``) or the Hopper kernels (``"cuda"``) on every
+    shard; by default the kernels where the mesh is on the cards, the plain
+    path on the host (so a loaded index keeps its path).  The mesh defaults to ``mesh_for_shards(n_shards)`` on the
+    index's device: one card a shard, the host repeated on the CPU; pass
+    ``mesh=`` to place several shards on one card.
+    """
+
+    partitions = True  # honours RetrieverConfig.n_shards
+
+    def __init__(
+        self,
+        idx_dict,
+        meta: dict,
+        *,
+        docs_per_shard: int,
+        n_shards: int,
+        params: SearchParams | None = None,
+        mesh=None,
+        impl: str | None = None,
+        device="cuda",
+    ):
+        from repro_torch.exec import sharded as shard_exec
+        from repro_torch.launch.mesh import mesh_for_shards
+
+        self.params = params or SearchParams()
+        self.mesh = mesh if mesh is not None else mesh_for_shards(n_shards, device)
+        if impl is None:
+            impl = "cuda" if self.mesh.devices[0].type == "cuda" else "ref"
+        self.impl = impl
+        if n_shards != self.mesh.n_shards:
+            raise ValueError(
+                f"n_shards={n_shards} must equal the mesh's shard count "
+                f"({self.mesh.n_shards}); build the mesh to match the shard layout"
+            )
+        self._shards = shard_exec.place_shards(self.mesh, idx_dict, meta)
+        self._meta = dict(meta)
+        self.docs_per_shard = int(docs_per_shard)
+        self.n_shards = n_shards
+        self._engine_params = shard_exec.clamp_to_shard(
+            to_engine_params(self.params, impl), self.docs_per_shard
+        )
+        self._search_fns: dict = {}  # funnel flag -> search
+
+    def _search_fn(self, funnel: bool):
+        from repro_torch.exec.sharded import make_sharded_search
+
+        if funnel not in self._search_fns:
+            self._search_fns[funnel] = make_sharded_search(
+                self.mesh, self._engine_params, docs_per_shard=self.docs_per_shard,
+                static_meta=self._meta, funnel=funnel,
+            )
+        return self._search_fns[funnel]
+
+    # ---- construction ----------------------------------------------------
+    @classmethod
+    def build(cls, corpus_embs, cfg: RetrieverConfig, doc_lens=None, *, device="cuda",
+              mesh=None, impl: str | None = None):
+        return cls.from_index(_build_index(corpus_embs, cfg, doc_lens, device), cfg,
+                              mesh=mesh, impl=impl)
+
+    @classmethod
+    def from_index(cls, index, cfg: RetrieverConfig, *, mesh=None, impl: str | None = None):
+        from repro_torch.core import engine_sharded
+
+        n_shards = cfg.n_shards or (mesh.n_shards if mesh is not None
+                                    else default_n_shards(index.device))
+        idx_dict, meta, per = engine_sharded.shard_index(index, n_shards)
+        return cls(idx_dict, meta, docs_per_shard=per, n_shards=n_shards,
+                   params=cfg.params, mesh=mesh, impl=impl, device=index.device)
+
+    @classmethod
+    def load(cls, path: str, params: SearchParams | None = None, *, device="cuda",
+             mesh=None, impl: str | None = None):
+        """Each process reads only its own shards."""
+        from repro_torch.launch.mesh import mesh_for_shards
+
+        n_shards = indexer.read_sharded_manifest(path)["n_shards"]
+        if mesh is None:
+            mesh = mesh_for_shards(n_shards, device)
+        idx_dict, meta, per = indexer.load_sharded(
+            path, mesh.devices[0], shard_ids=list(mesh.shard_ids()))
+        return cls(idx_dict, meta, docs_per_shard=per, n_shards=n_shards, params=params,
+                   mesh=mesh, impl=impl)
+
+    def save(self, path: str) -> None:
+        """Each process writes its own shards; the one holding shard 0 the
+        manifest and ``retriever.json``."""
+        from repro_torch.core.index import ARRAY_FIELDS
+
+        idx_dict = {
+            f: torch.cat([getattr(s, f).cpu() for s in self._shards])
+            if f not in indexer._REPLICATED else getattr(self._shards[0], f)
+            for f in ARRAY_FIELDS
+        }
+        ids = list(self.mesh.shard_ids())
+        indexer.save_sharded_arrays(path, idx_dict, self._meta, n_shards=self.n_shards,
+                                    docs_per_shard=self.docs_per_shard, shard_ids=ids)
+        if 0 in ids:
+            registry.write_meta(path, self)
+
+    # ---- search ----------------------------------------------------------
+    def _run(self, qs, q_masks, t_cs, funnel=False):
+        dev = self.mesh.devices[0]
+        qs = plaid_mod._as_queries(qs, dev, 3)
+        if q_masks is None:
+            q_masks = torch.ones(qs.shape[:2], dtype=torch.float32, device=dev)
+        else:
+            q_masks = plaid_mod._as_queries(q_masks, dev, 2)
+        if isinstance(t_cs, np.ndarray):
+            t_cs = torch.from_numpy(t_cs)
+        return self._search_fn(funnel)(self._shards, qs, q_masks, t_cs)
+
+    def search(self, q, q_mask=None, *, t_cs=None, with_diagnostics=False,
+               with_funnel=False):
+        """One query matrix (nq, dim) -> top-k SearchResult (global pids)."""
+        req = _as_request(q, q_mask, t_cs, with_diagnostics, with_funnel)
+        _reject_diagnostics(req, self.backend_name)
+        t = self.params.t_cs if req.t_cs is None else req.t_cs
+        dev = self.mesh.devices[0]
+        mask = None if req.q_mask is None else plaid_mod._as_queries(req.q_mask, dev, 1)[None]
+        t0 = time.perf_counter()
+        scores, pids, *aux = self._run(plaid_mod._as_queries(req.q, dev, 2)[None], mask, t,
+                                       funnel=req.with_funnel)
+        out = (scores[0], pids[0])
+        if req.with_funnel:
+            fs = aux[0]
+            out = (*out, type(fs)(*(v[0] for v in fs)))
+        return _finish(out, backend=self.backend_name, k=self.params.k, t_cs=t, t0=t0,
+                       funnel=req.with_funnel)
+
+    def search_batch(self, qs, q_masks=None, *, t_cs=None, with_diagnostics=False,
+                     with_funnel=False):
+        """Query batch (B, nq, dim) -> batched top-k SearchResult."""
+        req = _as_request(qs, q_masks, t_cs, with_diagnostics, with_funnel)
+        _reject_diagnostics(req, self.backend_name)
+        t = self.params.t_cs if req.t_cs is None else req.t_cs
+        t0 = time.perf_counter()
+        out = self._run(req.q, req.q_mask, t, funnel=req.with_funnel)
+        return _finish(out, backend=self.backend_name, k=self.params.k, t_cs=t, t0=t0,
+                       funnel=req.with_funnel)
+
+    # ---- introspection ---------------------------------------------------
+    def describe(self) -> dict:
+        return dict(
+            backend=self.backend_name,
+            impl=self.impl,
+            device=[str(d) for d in self.mesh.devices],
+            static=self.params.static_dict(),
+            dynamic=self.params.dynamic_dict(),
+            static_fields=STATIC_FIELDS,
+            dynamic_fields=DYNAMIC_FIELDS,
+            sharding=dict(
+                n_shards=self.n_shards,
+                docs_per_shard=self.docs_per_shard,
+                mesh=self.mesh.shape,
+                candidate_cap_per_shard=self._engine_params.candidate_cap,
+            ),
+            index=dict(
+                num_passages=self.n_shards * self.docs_per_shard,
+                dim=self._meta["dim"],
+                nbits=self._meta["nbits"],
+                doc_maxlen=self._meta["doc_maxlen"],
+            ),
+            compile=dict(trace_count=pipeline.trace_count()),
+        )

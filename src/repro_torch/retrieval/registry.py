@@ -7,8 +7,9 @@
     r = retrieval.load(path)              # backend recorded on disk
 
 ``retriever.json`` has the reference's format, so a ``"plaid"``,
-``"vanilla"``, ``"live"`` or ``"plaid-tiered"`` directory moves between the
-packages with its backend and params.
+``"vanilla"``, ``"live"``, ``"plaid-tiered"``, ``"plaid-sharded"`` or
+``"live-sharded"`` directory moves between the packages with its backend
+and params.
 """
 from __future__ import annotations
 
@@ -75,15 +76,14 @@ def _resolve_tiered(cfg: RetrieverConfig) -> RetrieverConfig:
 
 def _resolve(cfg: RetrieverConfig) -> RetrieverConfig:
     """``_resolve_tiered``, then refuse ``n_shards > 1`` for a backend that
-    does not partition its index (``partitions`` unset): the
-    device-sharded backends belong to the multi-GPU slice, and running
-    unsharded instead would ignore the request."""
+    neither shards nor partitions its index (``partitions`` unset):
+    running unsharded instead would ignore the request."""
     cfg = _resolve_tiered(cfg)
     if (cfg.n_shards or 1) > 1 and not getattr(get_backend(cfg.backend), "partitions", False):
-        raise NotImplementedError(
+        raise ValueError(
             f"backend {cfg.backend!r} does not partition its index "
-            f"(n_shards={cfg.n_shards}): the device-sharded backends belong to "
-            "the multi-GPU slice (ROADMAP Queue 1 item 7)"
+            f"(n_shards={cfg.n_shards}); use 'plaid-sharded' or 'live-sharded' "
+            "for a document-sharded index"
         )
     return cfg
 
@@ -139,8 +139,8 @@ def load(
     """Restore a Retriever saved with ``.save(path)`` onto ``device``.
 
     Backend and params come from ``retriever.json``; a bare directory is
-    sniffed from its manifest (``"plaid"``, ``"live"`` or
-    ``"plaid-tiered"``).  Both can be overridden.
+    sniffed from its manifest (``"plaid"``, ``"live"``, ``"plaid-tiered"``,
+    ``"plaid-sharded"`` or ``"live-sharded"``).  Both can be overridden.
     """
     meta = read_meta(path)
     if backend is None:
@@ -173,11 +173,12 @@ def read_meta(path: str) -> dict | None:
 def _sniff_backend(path: str) -> str:
     """Identify the backend of a bare index directory from its manifest,
     as the reference does: a ``storage: "tiered"`` stamp is
-    ``"plaid-tiered"``; a v2 segment manifest with a lineage uuid, several
-    segments or tombstones is ``"live"``, a single clean segment and a v1
-    directory ``"plaid"``.  Sharded layouts (``n_shards``, a
-    ``"sharding"`` stamp) are not ported and are refused; so are an
-    unknown storage layout and an unknown version."""
+    ``"plaid-tiered"``; a shard layout (top-level ``n_shards``) is
+    ``"plaid-sharded"``; a v2 segment manifest stamped ``"sharding"`` is
+    ``"live-sharded"``, one with a lineage uuid, several segments or
+    tombstones ``"live"``, a single clean segment and a v1 directory
+    ``"plaid"``.  A manifest with both ``n_shards`` and ``segments``, an
+    unknown storage layout and an unknown version are refused."""
     manifest = os.path.join(path, "manifest.json")
     if not os.path.exists(manifest):
         raise FileNotFoundError(
@@ -195,11 +196,15 @@ def _sniff_backend(path: str) -> str:
             f"{path!r} stamps an unknown storage layout {storage!r} (this "
             "build knows 'resident' and 'tiered'); refusing to guess"
         )
-    if "n_shards" in m or m.get("sharding"):
+    if "n_shards" in m and "segments" in m:
         raise ValueError(
-            f"{path!r} is a sharded index directory; the sharded backends "
-            "are not ported yet (ROADMAP Queue 1 item 7)"
+            f"{path!r} has a mixed manifest layout: both 'n_shards' (shard "
+            "directory) and 'segments' (segment manifest) are present; the "
+            "directory is corrupt or half-migrated: re-save it, or pass "
+            "backend= to retrieval.load"
         )
+    if "n_shards" in m:
+        return "plaid-sharded"
     version = m.get("format_version", 1)
     if version not in (1, 2):
         raise ValueError(
@@ -207,6 +212,8 @@ def _sniff_backend(path: str) -> str:
             "refusing to guess"
         )
     if "segments" in m:
+        if m.get("sharding"):
+            return "live-sharded"
         if m.get("index_uuid") or len(m["segments"]) > 1 or m.get("tombstones"):
             return "live"
         return "plaid"

@@ -85,9 +85,10 @@ class RetrieverConfig:
     (``num_centroids``, ``nbits``, ``kmeans_iters``, ``seed``,
     ``ivf_list_cap``, frozen ``centroids``/``codec``, ``prune_fraction``)
     plus the streaming geometry (``chunk_docs``, ``sample_size``,
-    ``stat_blocks``).  ``n_shards`` sets the tiered backends' partition
-    count; the others refuse ``n_shards > 1`` (the device-sharded backends
-    belong to the multi-GPU slice).
+    ``stat_blocks``).  ``n_shards`` sets the document shards of the
+    device-sharded backends (``plaid-sharded``, ``live-sharded[-cuda]``)
+    and the tiered backends' partition count; the others refuse
+    ``n_shards > 1``.
     """
 
     backend: str = "plaid"
@@ -152,7 +153,8 @@ class SearchResult:
 @runtime_checkable
 class MutableRetriever(Protocol):
     """A retriever whose corpus can change at serving time: the ``"live"``
-    and ``"live-cuda"`` backends (``repro_torch.live``).  Mutations are
+    ``"live-cuda"``, ``"live-sharded"`` and ``"live-sharded-cuda"`` backends
+    (``repro_torch.live``).  Mutations are
     snapshot-consistent with in-flight searches, and ``generation`` (the
     LiveIndex mutation counter) lets a result cache invalidate on them."""
 

@@ -180,10 +180,102 @@ def test_block_lloyd_step_matches_reference(reference, stat_blocks):
 
 
 def test_multi_gpu_build_is_refused(corpus):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tb.StreamingIndexBuilder(n_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tb.kmeans_fit_mesh(torch.zeros(8, 4), 2, generator=torch.Generator(), n_devices=4)
+    """A multi-device build is refused only where the reference refuses it:
+    a mesh whose device count does not divide ``stat_blocks`` (the block
+    decomposition would change with it), and more devices than are
+    visible; a mesh of the host repeated is taken."""
+    with pytest.raises(ValueError, match="divisible by the mesh device count"):
+        tb.kmeans_fit_mesh(torch.zeros(8, 4), 2, generator=torch.Generator(),
+                           mesh=tb.build_mesh(3, "cpu"))
+    with pytest.raises(ValueError, match="divisible"):
+        tb.StreamingIndexBuilder(n_devices=3, num_centroids=8, device="cpu").build(corpus[:20])
+    with pytest.raises(ValueError, match="but the mesh has"):
+        tb.StreamingIndexBuilder(n_devices=2, mesh=tb.build_mesh(4, "cpu"), device="cpu")
+    assert tb.StreamingIndexBuilder(n_devices=4, device="cpu").stats.n_devices == 4
+    assert tb.StreamingIndexBuilder(device="cpu").mesh.n_shards == 1  # the host: one
+
+
+def test_build_mesh_takes_the_visible_cards_and_no_more(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert tb.build_mesh(None).devices == tuple(torch.device("cuda", i) for i in range(4))
+    assert tb.build_mesh(2).devices == (torch.device("cuda", 0), torch.device("cuda", 1))
+    with pytest.raises(ValueError, match="exceeds the 4 visible"):
+        tb.build_mesh(8)
+    from repro_torch.build.streaming import default_n_devices
+
+    assert default_n_devices(torch.device("cuda"), 8) == 4
+    assert default_n_devices(torch.device("cuda"), 6) == 3  # divides the blocks
+    assert default_n_devices(torch.device("cpu"), 8) == 1
+
+
+def test_ordered_block_sum_is_one_chain_over_any_split():
+    """``ordered_block_sum`` adds block partials left to right from zero
+    whatever the split over devices: the sum the one-device build takes."""
+    from repro_torch.distributed.reduce import ordered_block_sum
+    from repro_torch.launch.mesh import Mesh
+
+    rng = np.random.default_rng(4)
+    blocks = torch.from_numpy((rng.standard_normal((8, 5, 3)) * 10.0 ** rng.integers(
+        -6, 6, (8, 5, 3))).astype(np.float32))
+    want = torch.zeros(5, 3)
+    for b in blocks:
+        want = want + b
+    assert torch.equal(ordered_block_sum(blocks), want)
+    for n in (1, 2, 4, 8):
+        parts = list(torch.split(blocks, 8 // n))
+        assert torch.equal(ordered_block_sum(parts, Mesh(("cpu",) * n)), want), n
+
+
+@pytest.mark.parametrize("n_devices", [2, 4])
+def test_trained_build_is_bit_identical_across_device_counts(corpus, n_devices):
+    """Mesh-parallel Lloyd (blocks over the devices, sums in block order)
+    and row-split quantization reproduce the one-device build bit for bit,
+    at another chunking too."""
+    kw = dict(num_centroids=64, kmeans_iters=3, sample_size=3000, device="cpu")
+    one, st1 = tb.build_index_streaming(corpus, chunk_docs=33, n_devices=1, return_stats=True,
+                                        **kw)
+    got, st = tb.build_index_streaming(corpus, chunk_docs=57, n_devices=n_devices,
+                                       return_stats=True, **kw)
+    assert (st1.n_devices, st.n_devices) == (1, n_devices)
+    assert_identical(got, one, f"n_devices={n_devices}")
+
+
+def test_four_device_frozen_build_equals_monolithic(corpus, ref_mono):
+    cents, codec = _tables(ref_mono)
+    got = tb.build_index_streaming(corpus, centroids=cents, codec=codec, chunk_docs=41,
+                                   n_devices=4, device="cpu")
+    assert_identical(got, ref_mono, "4 devices vs the reference's build_index")
+    assert_identical(got, ti.build_index(corpus, centroids=cents, codec=codec, device="cpu"),
+                     "4 devices vs the port's build_index")
+
+
+def test_emit_sharded_layout_equals_reference_files(corpus, ref_mono, tmp_path):
+    """``emit(layout="sharded")``: a frozen-table build's files equal the
+    reference's emit of its own build, array for array; a trained 4-device
+    build's equal the one-device build's (the reference's trained mesh
+    build raises under jax 0.9)."""
+    cents, codec = _tables(ref_mono)
+    got = tb.build_index_streaming(corpus, centroids=cents, codec=codec, n_devices=2,
+                                   device="cpu")
+    want = rb.build_index_streaming(corpus, centroids=cents, codec=ref_mono.codec)
+    tb.emit(got, str(tmp_path / "port"), layout="sharded", n_shards=4)
+    rb.emit(want, str(tmp_path / "ref"), layout="sharded", n_shards=4)
+    a, a_meta, a_per = rindexer.load_sharded(str(tmp_path / "port"))
+    b, b_meta, b_per = rindexer.load_sharded(str(tmp_path / "ref"))
+    assert (a_meta, a_per) == (b_meta, b_per)
+    for f in b:
+        np.testing.assert_array_equal(np.asarray(a[f]), np.asarray(b[f]), err_msg=f)
+    kw = dict(num_centroids=64, kmeans_iters=3, sample_size=3000, device="cpu")
+    builders = [tb.StreamingIndexBuilder(n_devices=n, **kw) for n in (1, 4)]
+    for name, bld in zip(("one", "four"), builders):
+        bld.build(corpus)
+        bld.save(str(tmp_path / name), layout="sharded", n_shards=3)
+    one, one_meta, one_per = tindexer.load_sharded(str(tmp_path / "one"), "cpu")
+    four, four_meta, four_per = tindexer.load_sharded(str(tmp_path / "four"), "cpu")
+    assert (one_meta, one_per) == (four_meta, four_per)
+    for f in one:
+        assert torch.equal(one[f], four[f]), f
 
 
 # --------------------------------------------------------------------------
@@ -350,8 +442,17 @@ def test_emit_v2_loads_in_reference_and_other_layouts_raise(corpus, ref_mono, tm
         assert_identical(idx, back, name)
         assert back.prune_fraction == 0.25
     assert_identical(tindexer.load_index(str(tmp_path / "v2"), device="cpu"), idx, "port load")
-    with pytest.raises(NotImplementedError, match="engine_sharded"):
-        tb.emit(idx, str(tmp_path / "s"), layout="sharded", n_shards=2)
+    # the sharded layout is ported with the sharded engine: the reference's
+    # shard_index of the same index, and it sniffs back to plaid-sharded
+    tb.emit(idx, str(tmp_path / "sh"), layout="sharded", n_shards=2)
+    loaded, meta, per = rindexer.load_sharded(str(tmp_path / "sh"))
+    from repro.core import engine_sharded as res
+
+    direct, meta2, per2 = res.shard_index(rindexer.load_index(str(tmp_path / "v2")), 2)
+    assert (meta, per) == (meta2, per2)
+    for f in direct:
+        np.testing.assert_array_equal(np.asarray(loaded[f]), np.asarray(direct[f]), err_msg=f)
+    assert tret.load(str(tmp_path / "sh"), device="cpu").backend_name == "plaid-sharded"
     # the live layout is ported with the live index: a lineage-stamped
     # directory that both packages read as a one-segment live index
     lv = tb.emit(idx, str(tmp_path / "l"), layout="live")
@@ -359,8 +460,6 @@ def test_emit_v2_loads_in_reference_and_other_layouts_raise(corpus, ref_mono, tm
     from repro.live import LiveIndex as RefLiveIndex
 
     assert_identical(idx, RefLiveIndex.load(str(tmp_path / "l")).base, "live layout")
-    from repro_torch import retrieval as tret
-
     assert tret.load(str(tmp_path / "l"), device="cpu").backend_name == "live"
     with pytest.raises(ValueError, match="n_shards"):
         tb.emit(idx, str(tmp_path / "s"), layout="sharded")

@@ -108,8 +108,24 @@ def test_merge_topk_invariant_under_partitioning_and_grouping(n_parts):
 
 
 def test_merge_topk_collective_case_is_left_to_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        ttopk.merge_topk(torch.zeros(1, 2), torch.zeros(1, 2, dtype=torch.int32), 1, "data")
+    """The collective case (``mesh=``) is ported: the per-shard tuples,
+    gathered in shard order, merge as their concatenation does, and
+    ``local_to_global_pids`` offsets shard-local ids, pads kept."""
+    from repro_torch.launch.mesh import Mesh
+
+    rng = np.random.default_rng(3)
+    scores = [torch.from_numpy(rng.choice([0.5, 1.0, -0.0, 0.0], (2, 4)).astype(np.float32))
+              for _ in range(3)]
+    local = [torch.from_numpy(rng.integers(-1, 4, (2, 4)).astype(np.int32)) for _ in range(3)]
+    pids = [ttopk.local_to_global_pids(p, s, 4) for s, p in enumerate(local)]
+    for s, (lp, gp) in enumerate(zip(local, pids)):
+        assert torch.equal(gp, torch.where(lp >= 0, lp + 4 * s, -1))
+    got = ttopk.merge_topk(scores, pids, 5, mesh=Mesh(("cpu",) * 3))
+    want = ttopk.merge_topk(torch.cat(scores, 1), torch.cat(pids, 1), 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ref = rtopk.merge_topk(jnp.asarray(torch.cat(scores, 1).numpy()),
+                           jnp.asarray(torch.cat(pids, 1).numpy()), 5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
 
 
 # --------------------------------------------------------------------------
@@ -289,12 +305,20 @@ def test_plan_with_one_group_returns_it_and_merges_several():
 
 
 def test_executor_refuses_a_sharded_base(segments):
+    """A sharded base is taken (``n_shards > 1`` builds a mesh of the
+    index's device, ``mesh=`` is used as given); the executor refuses only
+    an ``n_shards`` the mesh does not have."""
+    from repro_torch.launch.mesh import Mesh
+
     _, port_segs, _ = segments
     lv = tlive.LiveIndex(port_segs[0])
-    for kw in (dict(n_shards=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            LiveExecutor(lv, **kw)
-    assert LiveExecutor(lv, n_shards=1).n_shards == 1
+    ex = LiveExecutor(lv, n_shards=2)
+    assert ex.n_shards == 2 and ex.mesh.devices == (torch.device("cpu"),) * 2
+    assert LiveExecutor(lv, mesh=Mesh(("cpu",) * 3)).n_shards == 3
+    with pytest.raises(ValueError, match="must equal the mesh"):
+        LiveExecutor(lv, n_shards=2, mesh=Mesh(("cpu",) * 3))
+    one = LiveExecutor(lv, n_shards=1)
+    assert one.n_shards == 1 and one.mesh is None
 
 
 def test_deletes_and_t_cs_reuse_cached_per_segment_data(segments):

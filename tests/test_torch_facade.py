@@ -110,7 +110,8 @@ def test_from_index_and_a_bare_index_directory(saved, tmp_path):
     assert loaded.backend_name == "plaid"
     assert torch.equal(loaded.search_batch(qs).pids, r.search_batch(qs).pids)
     assert tret.list_backends() == sorted(
-        BACKENDS + ["vanilla", "live", "live-cuda", "plaid-tiered", "plaid-tiered-cuda"]
+        BACKENDS + ["vanilla", "live", "live-cuda", "plaid-tiered", "plaid-tiered-cuda",
+                    "plaid-sharded", "live-sharded", "live-sharded-cuda"]
     )
 
 
@@ -163,15 +164,15 @@ def test_unported_features_are_refused(saved, backend):
 
 @pytest.mark.parametrize("backend", ["plaid", "plaid-cuda", "vanilla", "live", "live-cuda"])
 def test_n_shards_is_refused_by_a_backend_that_does_not_partition(saved, backend):
-    """``n_shards > 1`` names the device-sharded backends (the multi-GPU
-    slice): a backend that does not partition refuses it instead of running
-    unsharded; one shard is the unsharded index, and the tiered twins take
-    it as their partition count."""
+    """A backend that neither shards nor partitions refuses ``n_shards >
+    1``, naming the sharded backends, instead of running unsharded; one
+    shard is the unsharded index, and the tiered twins take it as their
+    partition count."""
     path, _, qs = saved
     r = tret.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="plaid-sharded"):
         tret.from_index(r.index, backend=backend, n_shards=2)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="plaid-sharded"):
         tret.build(list(qs), backend=backend, n_shards=2, device="cpu",
                    index=dict(centroids=r.index.centroids))
     assert tret.from_index(r.index, backend=backend, n_shards=1).backend_name == backend

@@ -36,6 +36,7 @@ except ImportError:
 from repro_torch import live as tlive  # noqa: E402
 from repro_torch import retrieval as tret  # noqa: E402
 from repro_torch.core import index as ti  # noqa: E402
+from repro_torch.core import plaid as tplaid  # noqa: E402
 from repro_torch.core import indexer as tindexer  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.distributed.topk import merge_topk  # noqa: E402
@@ -410,16 +411,158 @@ def test_facade_build_from_index_describe_and_sniffing(corpus, tmp_path):
 
 
 def test_sharded_live_directory_is_refused(corpus, tmp_path):
+    """A directory stamped ``"sharding"`` is no longer refused: it sniffs
+    as ``live-sharded`` at the stamped shard count, and ``backend="live"``
+    reads the same segments unsharded, with the same ranking.  Only a
+    manifest that is both a shard layout and a segment manifest is."""
     _, t = _pair(corpus)
     path = str(tmp_path)
     t.save(path)
     manifest = json.loads((tmp_path / "manifest.json").read_text())
     (tmp_path / "manifest.json").write_text(json.dumps(dict(manifest, sharding=dict(n_shards=2))))
-    with pytest.raises(ValueError, match="sharded"):
+    sharded = tret.load(path, device="cpu")
+    assert sharded.backend_name == "live-sharded" and sharded.n_shards == 2
+    plain = tret.load(path, backend="live", device="cpu")
+    assert plain.backend_name == "live"
+    assert {"live-sharded", "live-sharded-cuda"} <= set(tret.list_backends())
+    (tmp_path / "manifest.json").write_text(json.dumps(dict(manifest, n_shards=2)))
+    with pytest.raises(ValueError, match="mixed manifest"):
         tret.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tret.load(path, backend="live", device="cpu")
-    assert "live-sharded" not in tret.list_backends()
+
+
+# --------------------------------------------------------------------------
+# live-sharded: the base sharded over a mesh of the host, deltas replicated
+# --------------------------------------------------------------------------
+SHARD_CAPS = dict(nprobe=4, t_cs=0.3, ndocs=256, candidate_cap=256)
+
+
+@pytest.mark.parametrize("n_deltas", [0, 1, 3])
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_live_sharded_rank_identity_vs_rebuild(corpus, n_shards, n_deltas):
+    """A sharded base with stacked deltas ranks, under non-truncating caps,
+    as a one-shard rebuild of the surviving corpus against the frozen
+    tables (the reference's grid, ``tests/test_exec.py``)."""
+    docs, _, qs, base = corpus
+    t_base = _port(base)
+    lv = tlive.LiveIndex(t_base)
+    if n_deltas:
+        for chunk in np.array_split(np.arange(N_BASE, len(docs)), n_deltas):
+            lv.add_passages([docs[i] for i in chunk])
+        lv.delete([7, 40, 75, 110])
+    else:
+        lv.delete([7, 40])
+    used = docs[: lv.num_passages]
+    k = lv.num_alive  # the full ranking: the strictest comparison
+    params = tplaid.SearchParams(k=k, **SHARD_CAPS)
+    eng = tlive.LiveEngine(lv, params, n_shards=n_shards)
+    assert eng.n_shards == n_shards
+    got_s, got_p = eng.search_batch(qs)
+    alive = ~lv.tombstones()
+    rebuilt = ti.build_index([d for d, a in zip(used, alive) if a], centroids=t_base.centroids,
+                             codec=t_base.codec, device="cpu")
+    want_s, want_p = tplaid.PlaidEngine(rebuilt, params).search_batch(qs)
+    to_global = np.flatnonzero(alive)
+    want_p = want_p.numpy()
+    np.testing.assert_array_equal(got_p.numpy(), np.where(want_p >= 0, to_global[want_p], -1))
+    np.testing.assert_allclose(got_s.numpy(), want_s.numpy(), atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def ref_live_sharded(corpus):
+    """The reference's one-shard ``live-sharded`` results, searched once per
+    caps (each search compiles a program of its own)."""
+    _, _, qs, _ = corpus
+    done = {}
+
+    def get(caps):
+        if caps not in done:
+            r, _ = _pair(corpus)
+            want = rret.from_index(r, backend="live-sharded", n_shards=1,
+                                   params=rret.SearchParams(**CAPS[caps]))
+            done[caps] = want.search_batch(jnp.asarray(qs), with_funnel=True)
+        return done[caps]
+
+    return get
+
+
+@pytest.mark.parametrize("backend", ["live-sharded", "live-sharded-cuda"])
+@pytest.mark.parametrize("caps", sorted(CAPS))
+def test_live_sharded_one_shard_equals_reference(corpus, ref_live_sharded, caps, backend):
+    """At one shard the port's live-sharded backends give the reference's
+    ``live-sharded`` ranking over the same frozen-table base, deltas and
+    tombstones, and every funnel field."""
+    _, _, qs, _ = corpus
+    _, t = _pair(corpus)
+    got = tret.from_index(t, backend=backend, n_shards=1, params=tret.SearchParams(**CAPS[caps]))
+    assert got.n_shards == 1 and got.describe()["sharding"]["mesh"] is None
+    _same_results(got.search_batch(qs, with_funnel=True), ref_live_sharded(caps))
+
+
+@pytest.mark.parametrize("n_shards", [1, 2])
+def test_live_sharded_backend_roundtrip(corpus, tmp_path, n_shards):
+    docs, _, qs, _ = corpus
+    params = tret.SearchParams(k=5, **SHARD_CAPS)
+    r = tret.build(docs[:100], backend="live-sharded", n_shards=n_shards, device="cpu",
+                   params=params, index=dict(num_centroids=32, kmeans_iters=3))
+    assert isinstance(r, tret.MutableRetriever)
+    pids = r.add_passages(docs[100:120])
+    np.testing.assert_array_equal(pids, np.arange(100, 120))
+    assert r.delete_passages(pids[:2]) == 2
+    res = r.search_batch(qs)
+    assert res.backend == "live-sharded" and res.pids.shape == (qs.shape[0], 5)
+    d = r.describe()
+    assert d["sharding"]["n_shards"] == n_shards and d["index"]["num_deltas"] == 1
+    path = str(tmp_path)
+    r.save(path)
+    assert json.loads((tmp_path / "manifest.json").read_text())["sharding"] == {"n_shards": n_shards}
+    r2 = tret.load(path, device="cpu")  # with retriever.json
+    assert r2.backend_name == "live-sharded" and r2.n_shards == n_shards
+    os.unlink(os.path.join(path, "retriever.json"))
+    r3 = tret.load(path, params=r.params, device="cpu")  # sniffed from the stamp
+    assert r3.backend_name == "live-sharded" and r3.n_shards == n_shards
+    for again in (r2, r3):
+        got = again.search_batch(qs)
+        assert torch.equal(got.pids, res.pids) and torch.equal(got.scores, res.scores)
+    back = rlive.LiveIndex.load(path)  # the reference reads the same segments
+    assert back.num_passages == 120 and back.num_deleted == 2
+
+
+def test_live_sharded_through_batching_server(corpus):
+    from repro_torch.serving.server import BatchingServer
+
+    docs, _, qs, _ = corpus
+    r = tret.build(docs[:100], backend="live-sharded", n_shards=2, device="cpu",
+                   params=tret.SearchParams(k=5, **SHARD_CAPS),
+                   index=dict(num_centroids=32, kmeans_iters=3))
+    srv = BatchingServer(r, batch_size=4, max_wait_ms=1.0)
+    try:
+        pids = srv.add_passages(docs[100:110])
+        assert srv.delete_passages(pids[:2]) == 2
+        res = srv.search(qs[0])
+        assert res.pids.shape == (5,)
+        direct = r.search_batch(qs[:1])
+        np.testing.assert_array_equal(np.asarray(res.pids), direct.pids[0].numpy())
+    finally:
+        srv.shutdown()
+    assert r.describe()["index"]["num_deleted"] == 2
+
+
+def test_live_sharded_compaction_reshards(corpus):
+    """After ``compact()`` the executor re-shards the new base (a new
+    segment id) and the ranking is the old one through the pid map."""
+    docs, _, qs, base = corpus
+    lv = tlive.LiveIndex(_port(base))
+    lv.add_passages(docs[N_BASE:100])
+    lv.delete([3, 80])
+    eng = tlive.LiveEngine(lv, tplaid.SearchParams(k=10, **SHARD_CAPS), n_shards=2)
+    s0, p0 = eng.search_batch(qs)
+    sid0 = eng._base_shards["sid"]
+    pid_map = lv.compact()
+    s1, p1 = eng.search_batch(qs)  # a re-sharded base, no deltas
+    assert eng._base_shards["sid"] != sid0
+    assert eng._base_shards["per"] == -(-lv.base.num_passages // 2)
+    np.testing.assert_array_equal(np.where(p0.numpy() >= 0, pid_map[p0.numpy()], -1), p1.numpy())
+    np.testing.assert_allclose(s0.numpy(), s1.numpy(), atol=1e-5)
 
 
 def test_certify_live_delta_record_equals_reference(corpus):
