@@ -173,6 +173,32 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                over 2,048 passages through the encoder (K7) identical to
                ``build_index`` over the same output, and ``retrieval.build``
                identical to ``build_index_streaming``;
+13b. train     ColBERTv2 training (``repro_torch.training``): (i)
+               ``colbertv2.full_config()`` (12 layers, d 768, 12 heads
+               padded to 48, d_ff 3072, vocab 30528, bf16, f32 weights,
+               chunked attention, remat) on ``colbert_batches`` of B = 32
+               queries of 32 tokens and 4 passages of 180 each (24,064
+               tokens a step), AdamW on the cosine schedule: a warm-up
+               step, then 20 timed steps: step p50 ms, tokens/s, peak
+               device bytes, device / wall (torch.profiler), the first and
+               last loss, ``mfu`` (6 N tokens / step time / 989 TFLOP/s),
+               the mean loss over 4 held-out batches lower after the steps
+               than before, no port kernel launched; (ii) the
+               reduced config in f32 for 3 steps on the card and on the
+               CPU from one state, losses within rtol 1e-4; (iii)
+               ``n_micro`` 4 against 1 on one batch (in-batch negatives
+               off): losses within rtol 1e-5, parameters within rtol 1e-5
+               plus a thousandth of the step's lr; (iv) 20 full-width
+               steps at B = 8 with
+               int8 compression and error feedback: the held-out loss
+               falls, the feedback is nonzero; (v) ``run_supervised`` at full width
+               (B = 8) with a failure after the checkpoint at step 2: one
+               restart, the state restored from that checkpoint bit for
+               bit, the run completes; the seconds to save and to restore
+               the full-width state (weights, mu, nu); (vi) the
+               trained weights served: 4,096 passages and a B=32 query
+               batch encoded through K7, ``build_index``, ``plaid-cuda``'s
+               pids equal to ``plaid``'s at k 10 and 100 (K1, K2);
 14. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
 15. profile    device time of one plaid-cuda batch, one vanilla batch and
@@ -189,6 +215,7 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -222,12 +249,16 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
-from repro_torch.models import colbert  # noqa: E402
+from repro_torch.models import colbert, transformer  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serving import buckets as serve_buckets_mod  # noqa: E402
 from repro_torch.serving import server as serve_server  # noqa: E402
+from repro_torch.training import fault_tolerance as ft  # noqa: E402
+from repro_torch.training import loop as train_loop  # noqa: E402
+from repro_torch.training import optimizer as train_opt  # noqa: E402
+from repro_torch.training import tree as train_tree  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -309,6 +340,17 @@ SERVE_TIERED = 40
 SHARD_PAIRS = 4
 SHARD_BUILD_PASSAGES, SHARD_BUILD_K, SHARD_BUILD_CHUNK = 1 << 16, 1 << 12, 8192
 GLOO_RANKS, GLOO_JOIN_S = 2, 300
+#: phase train: ColBERTv2's training batch (B queries of NQ = 32 tokens and
+#: nway = 4 passages of DOC_MAXLEN = 180 a query: ColBERTv2's query and
+#: document max lengths) for one warm-up and TRAIN_STEPS timed steps on the
+#: cosine schedule (TRAIN_LR peak, 2 warm-up steps: at launch/train.py's
+#: 3e-4 the loss of this temperature-free MaxSim objective climbed far
+#: above its start before it settled); the int8 and restart runs' smaller batch and
+#: the int8 run's steps; the corpus the trained weights encode and serve
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 32, 20, 1e-5
+TRAIN_SMALL_BATCH, INT8_STEPS = 8, 20
+HELD_OUT_BATCHES = 4  # fixed B=32 batches the loss is judged on, before and after
+TRAIN_SERVE_PASSAGES = 4096
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -854,6 +896,13 @@ def main(argv=None) -> int:
         assert stream_counts["flash_attention"] > 0, stream_counts
     del enc_corpus
 
+    # ---- 13b. ColBERTv2 training on the card, then its weights served ------
+    with Phase("train") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        train_counts = train_phase(args.seed, dev, info)
+        info["launches"] = train_counts
+    torch.cuda.empty_cache()
+
     # ---- 14. persistence of the main index --------------------------------
     with Phase("persist") as info:
         r = retrieval.from_index(index, backend="plaid-cuda", params=retrieval.params_for_k(10))
@@ -898,15 +947,18 @@ def main(argv=None) -> int:
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
-    # sharded call): K1-K3 in search, live, tiered, serve and sharded, K4 in
-    # vanilla, K5/K6 in oracle, K7 in encode and stream_build
+    # sharded call; train: around the serving of the trained weights):
+    # K1-K3 in search, live, tiered, serve and sharded, K1/K2 in train too,
+    # K4 in vanilla, K5/K6 in oracle, K7 in encode, stream_build and train
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
-                + serve_counts[name] + sharded_counts[name] for name in SEARCH_KERNELS}
+                + serve_counts[name] + sharded_counts[name] + train_counts[name]
+                for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
     launches["flash_attention"] = (encode_counts["flash_attention"]
-                                   + stream_counts["flash_attention"])
+                                   + stream_counts["flash_attention"]
+                                   + train_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -1369,6 +1421,258 @@ def stream_build_phase(model, enc, seed, dev, info: dict):
         facade=dict(backend=r.backend_name, index=cfg_index, differing_fields=diff_facade))
     assert not diff, info["encoder"]
     assert not diff_facade, info["encoder"]
+
+
+def model_flops_params(cfg) -> int:
+    """N of the 6 N tokens rule: the parameters a token multiplies at the
+    published widths (12 heads, not the 48 padded ones; no embedding
+    table, whose lookup is no product), i.e. each layer's attention and
+    SwiGLU weights and the projection."""
+    bb = cfg.backbone
+    attn = 2 * bb.d_model * bb.n_heads * bb.d_head + 2 * bb.d_model * bb.n_kv_heads * bb.d_head
+    return bb.n_layers * (attn + 3 * bb.d_model * bb.d_ff) + bb.d_model * cfg.out_dim
+
+
+def train_batches(cfg, n, batch, seed, dev) -> list:
+    """``n`` ``colbert_batches`` batches of queries of NQ tokens and
+    passages of DOC_MAXLEN, moved to ``dev`` before any step is timed."""
+    it = synthetic.colbert_batches(cfg.backbone.vocab, batch, q_len=NQ, d_len=DOC_MAXLEN,
+                                   nway=cfg.nway, seed=seed)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in next(it).items()} for _ in range(n)]
+
+
+def held_out_loss(judge, params, batches) -> float:
+    """The mean ``train_loss`` of ``params`` over fixed batches no step
+    trained on, without a graph (``params`` copied into ``judge`` first).
+    Each step's own loss is on a new batch and swings by +-1 between
+    batches (in-batch negatives, scores up to 32), so whether training
+    lowered the loss is read here."""
+    colbert.assign_params(judge, params)
+    with torch.no_grad():
+        return statistics.mean(float(colbert.train_loss(judge, judge.cfg, b)[0]) for b in batches)
+
+
+def run_steps(step, params, opt_state, batches) -> tuple:
+    """``step`` over ``batches``, the card synchronised after each; returns
+    the state, the losses and each step's wall ms."""
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    return params, opt_state, [float(x) for x in losses], ms
+
+
+def reduced_steps(cfg, dev, steps, n_micro=1, batch=4) -> tuple:
+    """The reduced config trained from one seeded state (made on the host,
+    so both devices start from the same bits): losses and parameters."""
+    init = colbert.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    tree = colbert.numpy_train_state({"params": colbert.train_params(init)})
+    model, state = colbert.train_state_from_numpy(tree, cfg, device=dev)
+    opt = train_opt.adamw(train_opt.AdamWConfig(schedule=train_opt.cosine_schedule(1e-3, 1, 10)))
+    step = train_loop.make_train_step(colbert.loss_fn(model), opt, n_micro=n_micro)
+    p, o = state["params"], train_loop.init_opt_state(opt, state["params"])
+    it = synthetic.colbert_batches(cfg.backbone.vocab, batch, q_len=8, d_len=16, nway=cfg.nway,
+                                   seed=6)
+    losses = []
+    for _ in range(steps):
+        p, o, m = step(p, o, next(it))
+        losses.append(float(m["loss"]))
+    return losses, p
+
+
+def train_phase(seed, dev, info: dict) -> dict:
+    """ColBERTv2 training on the card: the full-width step's time, memory
+    and loss; card against CPU and microbatches at reduced width; int8
+    compression; a supervised restart; then the trained weights served
+    through K7, K1 and K2.  Returns the launch counts of the serving part
+    (the training steps launch none of the port's kernels)."""
+    cfg = colbert_cfg.full_config()
+    bb = cfg.backbone
+    model = colbert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 31), device=dev)
+    params0 = colbert.train_params(model)
+    opt = train_opt.adamw(train_opt.AdamWConfig(
+        schedule=train_opt.cosine_schedule(TRAIN_LR, 2, TRAIN_STEPS + 1)))
+    step = train_loop.make_train_step(colbert.loss_fn(model), opt)
+    tokens = TRAIN_BATCH * (NQ + cfg.nway * DOC_MAXLEN)
+    n_model = model_flops_params(cfg)
+
+    # (1) full width: one warm-up step, then TRAIN_STEPS timed
+    batches = train_batches(cfg, TRAIN_STEPS + 1, TRAIN_BATCH, seed, dev)
+    held_out = train_batches(cfg, HELD_OUT_BATCHES, TRAIN_BATCH, seed + 7, dev)
+    judge = colbert.ColBERT(cfg, transformer.Transformer(bb, dev))
+    before = held_out_loss(judge, params0, held_out)
+    ops.reset_launch_counts()
+    p, o = params0, train_loop.init_opt_state(opt, params0)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # earlier phases' index and models
+    torch.cuda.reset_peak_memory_stats()
+    p, o, losses, ms = run_steps(step, p, o, batches)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses), losses
+    assert not any(ops.launch_counts().values()), ops.launch_counts()  # no kernel trains
+    after = held_out_loss(judge, p, held_out)
+    p50 = statistics.median(ms[1:])
+    kern, wall_ms, whole, sessions = traced_kernels(lambda: step(p, o, batches[0]), reps=2)
+    device_ms = sum(e.self_device_time_total for e in kern) / 1e3 / 2
+    gemm_ms = sum(e.self_device_time_total for e in kern
+                  if any(t in e.key.lower() for t in ("gemm", "xmma", "nvjet", "cutlass"))) / 1e3 / 2
+    info["full_width"] = dict(
+        config=dict(n_layers=bb.n_layers, d_model=bb.d_model, heads=bb.n_heads,
+                    padded_heads=bb.padded_heads, d_ff=bb.d_ff, vocab=bb.vocab,
+                    dtype=str(bb.dtype), attn_impl=bb.attn_impl, remat=bb.remat,
+                    out_dim=cfg.out_dim, nway=cfg.nway),
+        batch=TRAIN_BATCH, q_len=NQ, d_len=DOC_MAXLEN, tokens_per_step=tokens,
+        params=sum(x.numel() for x in train_tree.leaves(params0)), model_flops_params=n_model,
+        steps=TRAIN_STEPS, warmup_step_ms=ms[0], step_p50_ms=p50,
+        step_ms_min_max=[min(ms[1:]), max(ms[1:])], tokens_per_s=tokens / p50 * 1e3,
+        peak_device_bytes=peak, resident_bytes=resident, peak_over_resident_bytes=peak - resident,
+        mfu=6 * n_model * tokens / (p50 / 1e3) / BF16_FLOPS,
+        first_loss=losses[0], last_loss=losses[-1], losses=losses,
+        held_out_loss_before=before, held_out_loss_after=after,
+        profiled=dict(wall_ms=wall_ms, device_ms=device_ms, device_over_wall=device_ms / wall_ms,
+                      gemm_ms=gemm_ms, launches=sum(e.count for e in kern) // 2,
+                      launches_whole=whole, sessions=sessions,
+                      top=[dict(kernel=e.key[:90], ms=e.self_device_time_total / 1e3 / 2,
+                                calls=e.count // 2) for e in kern[:8]]),
+    )
+    emit({"train_full_width": info["full_width"]})
+    assert after < before, (before, after)
+
+    # (2) card against CPU: the reduced config in f32, 3 steps from one state
+    rcfg = colbert_cfg.reduced_config()
+    on_card, _ = reduced_steps(rcfg, dev, 3)
+    on_cpu, _ = reduced_steps(rcfg, "cpu", 3)
+    rel = max(abs(a / b - 1) for a, b in zip(on_card, on_cpu))
+    info["card_vs_cpu"] = dict(losses_card=on_card, losses_cpu=on_cpu, max_rel=rel)
+    assert rel <= 1e-4, info["card_vs_cpu"]
+
+    # (3) microbatches: 4 against 1 on one batch; in-batch negatives off (a
+    # microbatch's loss would see only its own passages)
+    mcfg = dataclasses.replace(rcfg, use_ib_negatives=False)
+    (l1,), p1 = reduced_steps(mcfg, dev, 1, n_micro=1, batch=8)
+    (l4,), p4 = reduced_steps(mcfg, dev, 1, n_micro=4, batch=8)
+    diff = max(float((a - b).abs().max()) for a, b in zip(train_tree.leaves(p4), train_tree.leaves(p1)))
+    info["microbatches"] = dict(n_micro=(1, 4), loss=(l1, l4), loss_rel=abs(l4 / l1 - 1),
+                                max_param_abs_diff=diff)
+    assert abs(l4 / l1 - 1) <= 1e-5, info["microbatches"]
+    # a first AdamW step moves a weight by ~lr (1e-3) times g / (|g| + eps):
+    # where g is near 0 that ratio follows g's last bits, so the weights
+    # agree to a thousandth of a step
+    for a, b in zip(train_tree.leaves(p4), train_tree.leaves(p1)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+    # (4) int8 compression with error feedback at full width
+    small = train_batches(cfg, max(INT8_STEPS, 3), TRAIN_SMALL_BATCH, seed + 1, dev)
+    int8_opt = train_opt.adamw(train_opt.AdamWConfig(
+        schedule=train_opt.cosine_schedule(TRAIN_LR, 2, INT8_STEPS)))
+    int8_step = train_loop.make_train_step(colbert.loss_fn(model), int8_opt, compression="int8")
+    p8, o8, l8, ms8 = run_steps(int8_step, params0,
+                               train_loop.init_opt_state(int8_opt, params0, "int8"),
+                               small[:INT8_STEPS])
+    ef_max = max(float(e.abs().max()) for e in train_tree.leaves(o8["ef"]))
+    info["int8"] = dict(batch=TRAIN_SMALL_BATCH, steps=INT8_STEPS, step_p50_ms=statistics.median(ms8[1:]),
+                        first_loss=l8[0], last_loss=l8[-1], ef_max_abs=ef_max,
+                        held_out_loss_before=before,
+                        held_out_loss_after=held_out_loss(judge, p8, held_out))
+    assert info["int8"]["held_out_loss_after"] < before and ef_max > 0, info["int8"]
+    del p8, o8, judge
+
+    # (5) restart at full width: run_supervised over 3 steps at B = 8 with a
+    # checkpoint after step 2 and a failure injected as step 3 starts; the
+    # seconds of that save and of the restore come from the run's timeline
+    marks: dict = {"stepped": []}
+    restored, kept = [], {}
+
+    def step_fn(s, b):
+        p_, o_, _ = step(s["params"], s["opt"], b)
+        torch.cuda.synchronize()
+        marks["stepped"].append(time.perf_counter())
+        if int(o_["step"]) == 2:
+            kept["state"] = {"params": p_, "opt": o_}
+        return {"params": p_, "opt": o_}
+
+    def inject(n):
+        if n == 2 and not restored:
+            marks["failed"] = time.perf_counter()
+            raise RuntimeError("injected failure after the checkpoint at step 2")
+
+    def on_restore(s, st):
+        torch.cuda.synchronize()
+        marks["restored"] = time.perf_counter()
+        same = all(torch.equal(a, b) for a, b in zip(train_tree.leaves(s),
+                                                      train_tree.leaves(kept["state"])))
+        restored.append((st, int(s["opt"]["step"]), same))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        final, n_steps, restarts = ft.run_supervised(
+            step_fn, {"params": params0, "opt": train_loop.init_opt_state(opt, params0)},
+            small[:3], ckpt_dir=tmp, ckpt_every=2, failure_injector=inject,
+            on_restore=on_restore)
+        on_disk = sorted(os.listdir(tmp))
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp, on_disk[0]).rglob("*") if f.is_file())
+    info["restart"] = dict(save_s=marks["failed"] - marks["stepped"][1],
+                           restore_s=marks["restored"] - marks["failed"],
+                           checkpoint_bytes=ckpt_bytes, steps=n_steps, restarts=restarts,
+                           restored=restored, final_opt_step=int(final["opt"]["step"]),
+                           checkpoints=on_disk)
+    assert (n_steps, restarts, restored) == (3, 1, [(2, 2, True)]), info["restart"]
+    assert int(final["opt"]["step"]) == 2 and on_disk == ["step_00000002", "step_00000003"]
+    del final, kept, small
+
+    # (6) train, then serve: the trained weights through K7, K1 and K2
+    flash = dataclasses.replace(cfg, backbone=dataclasses.replace(bb, attn_impl="flash"))
+    served = colbert.assign_params(
+        colbert.ColBERT(flash, transformer.Transformer(flash.backbone, dev)), p)
+    g = torch.Generator(device=dev).manual_seed(seed + 32)
+    n = TRAIN_SERVE_PASSAGES
+    lens = torch.randint(8, DOC_MAXLEN + 1, (n,), generator=g, device=dev, dtype=torch.int32)
+    lens[0] = DOC_MAXLEN
+    toks = torch.randint(0, bb.vocab, (n, DOC_MAXLEN), generator=g, device=dev)
+    mask = torch.arange(DOC_MAXLEN, device=dev)[None, :] < lens[:, None]
+    src = torch.randint(0, n, (BATCH,), generator=g, device=dev)
+    q_toks = toks[src, :NQ]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    calls, chunks = 0, []
+    for i in range(0, n, ENCODE_BATCH):
+        e = colbert.encode(served, toks[i : i + ENCODE_BATCH], mask[i : i + ENCODE_BATCH])
+        chunks.append(e[mask[i : i + ENCODE_BATCH]])
+        calls += 1
+    doc_embs = torch.cat(chunks)
+    enc_index = index_mod.build_index(doc_embs, lens, seed=seed, device=dev)
+    qe = colbert.encode(served, q_toks)
+    calls += 1
+    pids = {}
+    for k in (10, 100):
+        p_k = retrieval.params_for_k(k)
+        got = retrieval.from_index(enc_index, backend="plaid-cuda", params=p_k).search_batch(qe)
+        want = retrieval.from_index(enc_index, backend="plaid", params=p_k).search_batch(qe)
+        check_result(got, k)
+        assert torch.equal(got.pids, want.pids), f"trained weights: pids differ at k={k}"
+        assert torch.allclose(got.scores, want.scores, rtol=1e-5, atol=1e-5)
+        pids[k] = dict(success_at_k=float((got.pids == src[:, None]).any(1).float().mean()),
+                       filled_share=float((got.pids >= 0).float().mean()))
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == bb.n_layers * calls, (counts, calls)
+    assert all(counts[name] > 0 for name in SEARCH_KERNELS[:2]), counts
+    # the served model computes the trained function: the same weights
+    # through the chunked attention, and unlike the untrained weights
+    untrained = colbert.encode(model, q_toks)
+    colbert.assign_params(model, p)
+    trained = colbert.encode(model, q_toks)
+    cos = lambda a, b: (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp(min=1e-12)
+    info["serve"] = dict(passages=n, tokens=int(doc_embs.shape[0]), centroids=enc_index.num_centroids,
+                         encode_calls=calls, launches=counts, search=pids,
+                         min_cos_k7_vs_chunked=float(cos(qe, trained).min()),
+                         mean_cos_trained_vs_untrained=float(cos(trained, untrained).mean()))
+    assert info["serve"]["min_cos_k7_vs_chunked"] >= 0.99, info["serve"]
+    # training moved the output further than the choice of attention does
+    assert (info["serve"]["mean_cos_trained_vs_untrained"]
+            < info["serve"]["min_cos_k7_vs_chunked"]), info["serve"]
+    return counts
 
 
 def profile_encode(model, toks, reps: int = 3) -> dict:

@@ -1,11 +1,13 @@
 """plaid-colbertv2: the paper's own encoder, a BERT-base-class
-late-interaction model (~110M parameters), with torch dtypes (the
-counterpart of ``repro/configs/colbertv2.py``; its dry-run cells and the
-training-only ``nway`` stay in the reference)."""
+late-interaction model (~110M parameters) trained with ColBERTv2
+supervision, with torch dtypes (the counterpart of
+``repro/configs/colbertv2.py``; its dry-run cells stay in the reference)."""
 import torch
 
 from repro_torch.models.colbert import ColBERTConfig
 from repro_torch.models.transformer import TransformerConfig
+
+FAMILY = "retrieval"
 
 
 def full_config() -> ColBERTConfig:
@@ -23,7 +25,7 @@ def full_config() -> ColBERTConfig:
         q_chunk=256,
         k_chunk=256,
     )
-    return ColBERTConfig(backbone=backbone, out_dim=128)
+    return ColBERTConfig(backbone=backbone, out_dim=128, nway=4)
 
 
 def reduced_config() -> ColBERTConfig:
@@ -40,4 +42,4 @@ def reduced_config() -> ColBERTConfig:
         q_chunk=8,
         k_chunk=8,
     )
-    return ColBERTConfig(backbone=backbone, out_dim=16)
+    return ColBERTConfig(backbone=backbone, out_dim=16, nway=2)

@@ -6,8 +6,9 @@ Corpora are generated with CLUSTER STRUCTURE (topic centers + within-topic
 noise, unit-normalized) so k-means centroids are meaningful and PLAID's
 centroid interaction behaves as it does on real embeddings; queries are
 derived from documents with noise so relevance is well-defined (the source
-doc is the gold passage).  The LM, ColBERT-training and recsys generators
-are not ported yet.
+doc is the gold passage).  ``colbert_batches`` gives ColBERT training
+triples.  The LM and recsys generators are not ported (ROADMAP Queue 1
+items 8 and 9).
 """
 from __future__ import annotations
 
@@ -82,3 +83,37 @@ def queries_from_docs(
         qs.append(q.astype(np.float32))
         golds.append(int(pid))
     return np.stack(qs), np.asarray(golds)
+
+
+def colbert_batches(
+    vocab: int,
+    batch: int,
+    *,
+    q_len: int = 32,
+    d_len: int = 64,
+    nway: int = 4,
+    seed: int = 0,
+):
+    """Training triples for the ColBERT loss: positives share tokens with
+    the query (lexical overlap => learnable relevance signal)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        q = rng.integers(0, vocab, (batch, q_len)).astype(np.int32)
+        d = rng.integers(0, vocab, (batch, nway, d_len)).astype(np.int32)
+        # positive (slot 0) copies query tokens into a random span
+        start = rng.integers(0, d_len - q_len, batch)
+        for i in range(batch):
+            d[i, 0, start[i] : start[i] + q_len] = q[i]
+        yield {
+            "q_tokens": q,
+            "q_mask": np.ones((batch, q_len), np.float32),
+            "d_tokens": d,
+            "d_mask": np.ones((batch, nway, d_len), np.float32),
+            "target_scores": np.concatenate(
+                [
+                    np.full((batch, 1), 4.0, np.float32),
+                    np.zeros((batch, nway - 1), np.float32),
+                ],
+                axis=1,
+            ),
+        }

@@ -1,10 +1,23 @@
-"""ColBERT late-interaction encoder in PyTorch (the counterpart of the
-encoder half of ``repro.models.colbert``).
+"""ColBERT late-interaction encoder in PyTorch (the counterpart of
+``repro.models.colbert``).
 
 A bidirectional transformer backbone (``models.transformer`` with
 ``causal=False``), a linear projection to ``out_dim`` and L2 normalisation:
-the token vectors PLAID indexes and searches.  ``train_loss`` waits for the
-training slice.
+the token vectors PLAID indexes and searches.  ``encode`` is the serving
+path (no graph); calling the model builds one when a weight requires grad.
+
+Training follows ColBERTv2 supervision (``train_loss``): per query one
+positive (slot 0) and ``nway - 1`` negatives scored with MaxSim, cross-
+entropy over the candidates (with in-batch negatives, every passage of the
+batch), and KL distillation against teacher scores.
+
+The training state is a tree in the reference's layout (``{"backbone":
+{"embed", "final_norm", "dense_layers", ...}, "proj"}``, each layer stack a
+list of per-layer tensors, see ``repro_torch.training.tree``);
+``loss_fn(model)`` runs the model on such a tree through
+``torch.func.functional_call``.  ``train_state_from_numpy`` /
+``numpy_train_state`` carry the whole state (``params`` and ``opt``) across
+as the reference's numpy trees.
 """
 from __future__ import annotations
 
@@ -18,6 +31,8 @@ from torch import nn
 from repro_torch import ieee_f32_matmul
 from repro_torch.models import transformer as T
 
+_STACK = "dense_layers"  # the reference's layer stack: leading L axis
+
 
 @dataclasses.dataclass(frozen=True)
 class ColBERTConfig:
@@ -25,6 +40,9 @@ class ColBERTConfig:
         default_factory=lambda: T.TransformerConfig(causal=False)
     )
     out_dim: int = 128
+    nway: int = 4  # passages scored per query in training (1 positive + negatives)
+    use_ib_negatives: bool = True
+    distill: bool = True
 
     @property
     def name(self):
@@ -47,30 +65,37 @@ class ColBERT(nn.Module):
     def device(self) -> torch.device:
         return self.backbone.device
 
+    def forward(self, tokens, mask=None) -> torch.Tensor:
+        """tokens (B, S) -> unit-norm token vectors (B, S, out_dim) f32, on
+        the model's device (tokens and mask are moved there).
+
+        The projection runs in the compute dtype, then ``.float()``; rows
+        are divided by ``max(norm, 1e-6)``; ``mask`` (B, S) zeroes padded
+        tokens.
+        """
+        dev = self.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        h = self.backbone(tokens)
+        dt = self.cfg.backbone.dtype
+        with ieee_f32_matmul():
+            e = (h.to(dt) @ self.backbone.cast(self.proj)).float()
+        e = e / e.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        if mask is not None:
+            e = e * torch.as_tensor(mask, device=dev).to(e.dtype)[..., None]
+        return e
+
     def numpy_params(self) -> dict:
         """The reference's ``colbert.init_params`` tree as numpy (``lm_head``
         excepted)."""
-        return {"backbone": self.backbone.numpy_params(), "proj": self.proj.cpu().numpy()}
+        return {"backbone": self.backbone.numpy_params(),
+                "proj": self.proj.detach().cpu().numpy()}
 
 
 @torch.no_grad()
 def encode(model: ColBERT, tokens, mask=None) -> torch.Tensor:
-    """tokens (B, S) -> unit-norm token vectors (B, S, out_dim) f32, on the
-    model's device (tokens and mask are moved there).
-
-    The projection runs in the compute dtype, then ``.float()``; rows are
-    divided by ``max(norm, 1e-6)``; ``mask`` (B, S) zeroes padded tokens.
-    """
-    dev = model.device
-    tokens = torch.as_tensor(tokens, device=dev)
-    h = model.backbone(tokens)
-    dt = model.cfg.backbone.dtype
-    with ieee_f32_matmul():
-        e = (h.to(dt) @ model.backbone.compute_weight(model.proj)).float()
-    e = e / e.norm(dim=-1, keepdim=True).clamp(min=1e-6)
-    if mask is not None:
-        e = e * torch.as_tensor(mask, device=dev).to(e.dtype)[..., None]
-    return e
+    """The serving encode: ``model(tokens, mask)`` without a graph (one
+    cached compute-dtype cast per weight)."""
+    return model(tokens, mask)
 
 
 def maxsim_scores(q_emb: torch.Tensor, d_emb: torch.Tensor, d_mask=None) -> torch.Tensor:
@@ -104,3 +129,149 @@ def init_params(
     scale = (2.0 / (cfg.backbone.d_model + cfg.out_dim)) ** 0.5
     model.proj.copy_(T._normal(tuple(model.proj.shape), scale, generator))
     return model
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+def train_loss(model: ColBERT, cfg: ColBERTConfig, batch: Mapping):
+    """batch: ``q_tokens`` (B, Lq), ``d_tokens`` (B, nway, Ld), ``d_mask``,
+    ``q_mask``, ``target_scores`` (B, nway) teacher scores (optional).
+    Returns ``(ce + kd, {"ce", "kd"})``."""
+    B, nway, Ld = batch["d_tokens"].shape
+    q = model(batch["q_tokens"], batch.get("q_mask"))
+    d_tok = batch["d_tokens"].reshape(B * nway, Ld)
+    d_msk = torch.as_tensor(batch["d_mask"], device=q.device).reshape(B * nway, Ld)
+    d = model(d_tok, d_msk)
+    all_scores = None  # (B, B * nway): every query against every passage
+    if cfg.use_ib_negatives:
+        scores = all_scores = maxsim_scores(q, d, d_msk)
+        labels = torch.arange(B, device=q.device) * nway  # positives in slot 0
+    else:
+        dg = d.reshape(B, nway, Ld, -1)
+        with ieee_f32_matmul():
+            s = torch.einsum("bqd,bntd->bnqt", q, dg)
+        s = torch.where(d_msk.reshape(B, nway, Ld)[:, :, None, :] > 0, s, -1e4)
+        scores = s.amax(dim=-1).sum(dim=-1)
+        labels = torch.zeros(B, dtype=torch.long, device=q.device)
+    logz = torch.logsumexp(scores, dim=-1)
+    pos = scores.gather(-1, labels[:, None])[:, 0]
+    ce = (logz - pos).mean()
+
+    kd = torch.zeros((), device=q.device)
+    if cfg.distill and "target_scores" in batch:
+        if all_scores is None:
+            all_scores = maxsim_scores(q, d, d_msk)
+        ar = torch.arange(B, device=q.device)
+        way = all_scores.reshape(B, B, nway)[ar, ar]  # (B, nway) own candidates
+        logp = torch.log_softmax(way, dim=-1)
+        tgt = torch.softmax(torch.as_tensor(batch["target_scores"], device=q.device).float(), dim=-1)
+        kd = -(tgt * logp).sum(dim=-1).mean()
+    return ce + kd, {"ce": ce, "kd": kd}
+
+
+def param_paths(cfg: ColBERTConfig) -> dict[str, tuple[tuple[str, ...], int | None]]:
+    """Each parameter's name in :class:`ColBERT` -> (its path in the
+    reference's tree, its index in the layer stack or None)."""
+    out = {f"backbone.{name}": (("backbone",) + path, layer)
+           for name, (path, layer) in T.param_paths(cfg.backbone).items()}
+    out["proj"] = (("proj",), None)
+    return out
+
+
+def train_params(model: ColBERT) -> dict:
+    """The model's parameters as a training tree (the reference's layout,
+    each layer stack a list): detached aliases, which a functional train
+    step reads and never writes (``assign_params`` into the same model
+    does)."""
+    named = dict(model.named_parameters())
+    tree: dict = {}
+    for name, (path, layer) in param_paths(model.cfg).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        p = named[name].detach()
+        if layer is None:
+            node[path[-1]] = p
+        else:
+            node.setdefault(path[-1], [None] * model.cfg.backbone.n_layers)[layer] = p
+    return tree
+
+
+def module_params(params: Mapping, cfg: ColBERTConfig) -> dict[str, torch.Tensor]:
+    """A training tree's tensors under the module's parameter names (leaves
+    the model does not read, such as the reference's ``lm_head``, are
+    left out)."""
+    out = {}
+    for name, (path, layer) in param_paths(cfg).items():
+        leaf = T._leaf(params, path)
+        out[name] = leaf if layer is None else leaf[layer]
+    return out
+
+
+class _Loss(nn.Module):
+    def __init__(self, model: ColBERT):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return train_loss(self.model, self.model.cfg, batch)
+
+
+def loss_fn(model: ColBERT):
+    """``(params, batch) -> train_loss(model with params, batch)``, the loss
+    function ``training.loop.make_train_step`` takes."""
+    bound = _Loss(model)
+
+    def fn(params, batch):
+        named = {f"model.{k}": v for k, v in module_params(params, model.cfg).items()}
+        return torch.func.functional_call(bound, named, (batch,))
+
+    return fn
+
+
+@torch.no_grad()
+def assign_params(model: ColBERT, params: Mapping) -> ColBERT:
+    """Copy a training tree's parameters into ``model`` (e.g. trained
+    weights into a model that serves); returns ``model``."""
+    named = dict(model.named_parameters())
+    for name, t in module_params(params, model.cfg).items():
+        if t.shape != named[name].shape:
+            raise ValueError(f"{name}: {tuple(t.shape)}, expected {tuple(named[name].shape)}")
+        named[name].copy_(t)
+    return model
+
+
+def _state_from_numpy(node, device, stacked: bool = False):
+    if isinstance(node, Mapping):
+        return {k: _state_from_numpy(v, device, stacked or k == _STACK) for k, v in node.items()}
+    a = np.asarray(node)
+    if stacked:
+        return [torch.from_numpy(np.array(x)).to(device) for x in a]
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def train_state_from_numpy(
+    tree: Mapping, cfg: ColBERTConfig, device: str | torch.device = "cuda"
+) -> tuple[ColBERT, dict]:
+    """The reference's training state ``{"params": ..., "opt": {"mu", "nu",
+    "step"[, "ef"]}}`` (as numpy) -> (a model holding ``params``, the port's
+    state with every leaf on ``device``).  Leaves the encoder does not read
+    (the reference's ``lm_head``) stay in the state, so the optimizer
+    updates them (weight decay) as the reference's does."""
+    model = params_from_numpy(tree["params"], cfg, device)
+    return model, _state_from_numpy(tree, model.device)
+
+
+def _state_to_numpy(node):
+    if isinstance(node, Mapping):
+        return {k: _state_to_numpy(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return np.stack([x.detach().cpu().numpy() for x in node])
+    return node.detach().cpu().numpy()
+
+
+def numpy_train_state(state: Mapping) -> dict:
+    """The port's training state (or any training tree) as the reference's
+    numpy tree: each layer list stacked on a leading ``L`` axis."""
+    return _state_to_numpy(state)

@@ -11,14 +11,27 @@ numpy (:func:`params_from_numpy` / :meth:`Transformer.numpy_params`):
 * the embedding table is padded to ``padded_vocab`` rows.
 
 Parameters are float32, as in the reference; each product runs in
-``cfg.dtype``.  The reference casts each weight at each use; the port
-keeps one cast per weight (:meth:`Transformer.compute_weight`), the same
-values.  ``attn_impl="flash"`` without a window runs the hand-written
-attention kernel (``kernels.flash_attention``, K7); everything else runs
-``layers.chunked_attention``.
+``cfg.dtype``.  The reference casts each weight at each use; on the serving
+path (no weight requires grad, or grad mode off) the port keeps one cast
+per weight (:meth:`Transformer.compute_weight`), the same values.  A
+forward pass that builds a graph (grad mode on and a weight that requires
+grad, e.g. the training state's tensors bound by ``torch.func.
+functional_call``) casts each weight inside the graph instead, so the
+compute-dtype gradient flows back into the f32 weight as the transpose of
+the reference's ``astype`` does; with ``cfg.remat`` each layer is then
+recomputed in the backward pass (``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` per layer).  Parameters are created frozen
+(``requires_grad=False``); ``requires_grad_()`` makes them trainable.
+
+``attn_impl="flash"`` without a window runs the hand-written attention
+kernel (``kernels.flash_attention``, K7); everything else runs
+``layers.chunked_attention``.  K7 has no backward (the reference's Pallas
+kernel defines none), so a forward pass that builds a graph through it
+raises.
 
 Not ported yet (later slices): MoE layers (``n_experts > 0`` raises),
-decode with a KV cache, ``prefill``, ``logits_fn`` and ``lm_loss``.
+decode with a KV cache, ``prefill``, ``logits_fn`` and ``lm_loss``
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ieee_f32_matmul, resolve_device
 from repro_torch.kernels import flash_attention as fa
@@ -57,6 +71,8 @@ class TransformerConfig:
     attn_impl: str = "chunked"
     q_chunk: int = 1024
     k_chunk: int = 1024
+    # recompute each layer in the backward pass (training only)
+    remat: bool = True
 
     @property
     def d_head(self) -> int:
@@ -100,6 +116,10 @@ def _param_name(path: tuple[str, ...]) -> str:
     return "_".join(p for p in path if p != "w")
 
 
+#: a layer's parameter names, in the order ``DenseLayer.block`` takes them
+LAYER_PARAMS = tuple(_param_name(p) for p in _layer_leaves(TransformerConfig()))
+
+
 class DenseLayer(nn.Module):
     """One pre-norm block: RMSNorm -> attention -> residual -> RMSNorm ->
     SwiGLU -> residual.  Parameter ``attn_wq`` is leaf ``attn/wq``, and so on."""
@@ -113,18 +133,24 @@ class DenseLayer(nn.Module):
                 nn.Parameter(torch.zeros(shape, device=device), requires_grad=False),
             )
 
-    def attention(self, x: torch.Tensor, positions: torch.Tensor, cast) -> torch.Tensor:
+    def attention(self, x, positions, cast, wq, wk, wv, wo) -> torch.Tensor:
         cfg = self.cfg
         B, S, d = x.shape
         hp, hkv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
         x = x.to(cfg.dtype)
         with ieee_f32_matmul():
-            q = (x @ cast(self.attn_wq).reshape(d, hp * dh)).view(B, S, hp, dh)
-            k = (x @ cast(self.attn_wk).reshape(d, hkv * dh)).view(B, S, hkv, dh)
-            v = (x @ cast(self.attn_wv).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+            q = (x @ cast(wq).reshape(d, hp * dh)).view(B, S, hp, dh)
+            k = (x @ cast(wk).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+            v = (x @ cast(wv).reshape(d, hkv * dh)).view(B, S, hkv, dh)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         if cfg.attn_impl == "flash" and cfg.window is None:
+            if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+                raise NotImplementedError(
+                    "attn_impl='flash' has no backward pass: the reference's Pallas "
+                    "flash_attention (K7) defines none, so the port adds none; train "
+                    "with attn_impl='chunked' (the reference's default)"
+                )
             # grouped: query head h reads KV head h // group_pad, no repeat
             o = fa.flash_attention(q, k, v, causal=cfg.causal)
         else:
@@ -135,14 +161,25 @@ class DenseLayer(nn.Module):
                 q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
             )
         with ieee_f32_matmul():
-            return o.reshape(B, S, hp * dh).to(cfg.dtype) @ cast(self.attn_wo).reshape(hp * dh, d)
+            return o.reshape(B, S, hp * dh).to(cfg.dtype) @ cast(wo).reshape(hp * dh, d)
+
+    def block(self, h, positions, cast, wq, wk, wv, wo, ln1, ln2, wi, wg, wo2) -> torch.Tensor:
+        """The layer as a function of its weights (passed in, so that a
+        recomputation in the backward pass reads the tensors the forward
+        pass read)."""
+        x1 = L.rmsnorm(ln1, h)
+        h = h + self.attention(x1, positions, cast, wq, wk, wv, wo).to(h.dtype)
+        x2 = L.rmsnorm(ln2, h)
+        ffn = L.swiglu(cast(wi), cast(wg), cast(wo2), x2, self.cfg.dtype)
+        return h + ffn.to(h.dtype)
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor, cast) -> torch.Tensor:
-        x1 = L.rmsnorm(self.ln1_g, h)
-        h = h + self.attention(x1, positions, cast).to(h.dtype)
-        x2 = L.rmsnorm(self.ln2_g, h)
-        ffn = L.swiglu(cast(self.ffn_wi), cast(self.ffn_wg), cast(self.ffn_wo), x2, self.cfg.dtype)
-        return h + ffn.to(h.dtype)
+        w = [getattr(self, n) for n in LAYER_PARAMS]
+        if (self.cfg.remat and torch.is_grad_enabled()
+                and (h.requires_grad or any(t.requires_grad for t in w))):
+            return checkpoint(self.block, h, positions, cast, *w,
+                              use_reentrant=False, preserve_rng_state=False)
+        return self.block(h, positions, cast, *w)
 
 
 class Transformer(nn.Module):
@@ -170,6 +207,13 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def cast(self, p: torch.Tensor) -> torch.Tensor:
+        """``p`` in the compute dtype: inside the graph when a forward pass
+        builds one through ``p``, else the cached :meth:`compute_weight`."""
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(self.cfg.dtype)
+        return self.compute_weight(p)
+
     def compute_weight(self, p: torch.Tensor) -> torch.Tensor:
         """``p`` in the compute dtype, cast once and reused until ``p``
         changes (in place, or by ``.to()``)."""
@@ -182,15 +226,14 @@ class Transformer(nn.Module):
             self._casts[id(p)] = hit
         return hit[1]
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
         """tokens (B, S) -> hidden states (B, S, d) in ``cfg.dtype``."""
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
-        h = self.compute_weight(self.embed)[tokens.long()]
+        h = self.cast(self.embed)[tokens.long()]
         for layer in self.layers:
-            h = layer(h, positions, self.compute_weight)
+            h = layer(h, positions, self.cast)
         return L.rmsnorm(self.final_norm_g, h)
 
     def numpy_params(self) -> dict:
@@ -198,16 +241,27 @@ class Transformer(nn.Module):
         each layer's leaves stacked on a leading ``L`` axis."""
         layers: dict = {}
         for path in _layer_leaves(self.cfg):
-            stacked = np.stack([getattr(lay, _param_name(path)).cpu().numpy() for lay in self.layers])
+            stacked = np.stack([getattr(lay, _param_name(path)).detach().cpu().numpy()
+                                for lay in self.layers])
             node = layers
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = stacked
         return {
-            "embed": self.embed.cpu().numpy(),
-            "final_norm": {"g": self.final_norm_g.cpu().numpy()},
+            "embed": self.embed.detach().cpu().numpy(),
+            "final_norm": {"g": self.final_norm_g.detach().cpu().numpy()},
             "dense_layers": layers,
         }
+
+
+def param_paths(cfg: TransformerConfig) -> dict[str, tuple[tuple[str, ...], int | None]]:
+    """Each parameter's name in :class:`Transformer` -> (its path in the
+    reference's tree, its index in the layer stack or None)."""
+    out = {"embed": (("embed",), None), "final_norm_g": (("final_norm", "g"), None)}
+    for i in range(cfg.n_layers):
+        for path in _layer_leaves(cfg):
+            out[f"layers.{i}.{_param_name(path)}"] = (("dense_layers",) + path, i)
+    return out
 
 
 def _leaf(tree: Mapping, path: tuple[str, ...]):

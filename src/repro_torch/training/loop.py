@@ -1,0 +1,127 @@
+"""The train step: microbatched gradient accumulation and the optimizer's
+update (the counterpart of ``repro.training.loop``).
+
+``make_train_step(loss_fn, optimizer, n_micro)`` returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``,
+functional as the reference's: it returns new tensors and changes none it
+was given.  ``loss_fn(params, batch) -> (loss, metrics)`` reads the
+parameters from the tree it is handed (``models.colbert.loss_fn`` binds a
+model to one), so gradients are taken with respect to that tree's leaves.
+
+* The global batch splits into ``n_micro`` microbatches along axis 0, run
+  one after the other: peak activation memory is one microbatch's.  Their
+  gradients are summed in f32 in microbatch order, then divided by
+  ``n_micro``; so is the loss, and the metrics then hold only ``loss`` and
+  ``step``, as the reference's do.
+* ``compression="int8"`` passes the gradients through
+  ``distributed.compression``'s quantize / dequantize with error feedback
+  between accumulation and the update; the feedback rides in
+  ``opt_state["ef"]``.
+* ``cast_dtype`` casts every floating parameter once before the forward
+  pass, and gradients are taken with respect to the cast (the reference's
+  bf16 C5 path).
+* The backward pass runs with TF32 off (``ieee_f32_matmul``), as the
+  forward's products do.
+
+Data-parallel training is not ported: ``param_axes`` (the reference's
+logical-axis constraints) raises (ROADMAP Queue 1 item 8).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import ieee_f32_matmul
+from repro_torch.distributed import compression as comp
+from repro_torch.training import tree as T
+from repro_torch.training.optimizer import Optimizer, apply_updates
+
+
+def _split_micro(batch: dict, n_micro: int) -> list[dict]:
+    out = [{} for _ in range(n_micro)]
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"batch {b} % n_micro {n_micro} != 0")
+        for i, part in enumerate(x.reshape(n_micro, b // n_micro, *x.shape[1:])):
+            out[i][k] = part
+    return out
+
+
+def value_and_grad(loss_fn, params, batch, cast_dtype=None):
+    """((loss, metrics), grads): the gradients of ``loss_fn(params, batch)``
+    with respect to ``params``' floating leaves (cast to ``cast_dtype``
+    first when it is given), zeros for a leaf the loss does not read."""
+    def leaf(p):
+        p = p.detach()
+        if p.is_floating_point():
+            if cast_dtype is not None:
+                p = p.to(cast_dtype)
+            p.requires_grad_(True)
+        return p
+
+    flat = [leaf(p) for p in T.leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(T.unflatten(params, flat), batch)
+        wrt = [p for p in flat if p.requires_grad]
+        with ieee_f32_matmul():
+            gs = iter(torch.autograd.grad(loss, wrt, allow_unused=True, materialize_grads=True))
+    grads = [next(gs) if p.requires_grad else torch.zeros_like(p) for p in flat]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), T.unflatten(params, grads)
+
+
+def make_train_step(
+    loss_fn,  # (params, batch) -> (loss, metrics)
+    optimizer: Optimizer,
+    n_micro: int = 1,
+    compression: str | None = None,
+    param_axes=None,
+    cast_dtype: torch.dtype | None = None,
+):
+    if param_axes is not None:
+        raise NotImplementedError(
+            "param_axes constrains a training mesh; data-parallel training is not "
+            "ported (ROADMAP Queue 1 item 8)"
+        )
+    if compression not in (None, "int8"):
+        raise ValueError(f"compression must be None or 'int8', got {compression!r}")
+
+    def train_step(params, opt_state, batch):
+        dev = T.leaves(params)[0].device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if n_micro == 1:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch, cast_dtype)
+        else:
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in T.leaves(params)]
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            for mb in _split_micro(batch, n_micro):
+                (l, _), g = value_and_grad(loss_fn, params, mb, cast_dtype)
+                torch._foreach_add_(acc, [x.float() for x in T.leaves(g)])
+                loss = loss + l
+            grads = T.unflatten(params, torch._foreach_div(acc, n_micro))
+            loss = loss / n_micro
+            metrics = {}
+
+        if compression == "int8":
+            grads, ef = comp.compress_decompress_with_feedback(grads, opt_state.get("ef"))
+            opt_state = dict(opt_state, ef=ef)
+
+        inner = {k: v for k, v in opt_state.items() if k != "ef"}
+        updates, inner = optimizer.update(grads, inner, params)
+        new_params = apply_updates(params, updates)
+        new_state = dict(inner)
+        if "ef" in opt_state:
+            new_state["ef"] = opt_state["ef"]
+        metrics = dict(metrics, loss=loss, step=new_state["step"])
+        return new_params, new_state, metrics
+
+    return train_step
+
+
+def init_opt_state(optimizer: Optimizer, params, compression: str | None = None):
+    state = optimizer.init(params)
+    if compression == "int8":
+        state["ef"] = T.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                       device=p.device), params)
+    return state

@@ -1,0 +1,126 @@
+"""AdamW and learning-rate schedules over trees of tensors (the counterpart
+of ``repro.training.optimizer``): ``Optimizer(init, update)`` pairs, as
+optax has them.
+
+The reference's semantics, in its f32 order:
+
+* the step is incremented before ``schedule(step)`` is read;
+* gradients are clipped to ``clip_norm`` by their global norm, with a
+  ``1e-9`` floor under the norm;
+* the decoupled weight decay sits inside the update,
+  ``-lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p)``;
+* updates are added in f32 and cast back to each parameter's dtype.
+
+``torch.optim.AdamW`` is not used: it applies the decay as a separate
+multiply and has no global-norm clip.  The arithmetic runs as
+``torch._foreach_*`` over all leaves (a few launches a step, not a few per
+tensor); ``update`` is functional and returns new tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import typing
+
+import torch
+
+from repro_torch.training import tree as T
+
+
+class Optimizer(typing.NamedTuple):
+    init: typing.Callable
+    update: typing.Callable  # (grads, state, params) -> (updates, state)
+
+
+# --------------------------------------------------------------------------
+# Schedules: step (an int tensor or number) -> f32 learning rate
+# --------------------------------------------------------------------------
+def _f32(step) -> torch.Tensor:
+    if isinstance(step, torch.Tensor):
+        return step.to(torch.float32)
+    return torch.tensor(float(step), dtype=torch.float32)
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int, floor: float = 0.1):
+    def lr(step):
+        step = _f32(step)
+        warm = peak_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = peak_lr * (floor + (1 - floor) * 0.5 * (1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup, warm, cos)
+
+    return lr
+
+
+def linear_schedule(peak_lr: float, warmup: int, total: int):
+    def lr(step):
+        step = _f32(step)
+        warm = peak_lr * step / max(warmup, 1)
+        dec = peak_lr * torch.clamp(1 - (step - warmup) / max(total - warmup, 1), 0, 1)
+        return torch.where(step < warmup, warm, dec)
+
+    return lr
+
+
+def constant_schedule(lr_val: float):
+    return lambda step: torch.full((), lr_val, dtype=torch.float32, device=_f32(step).device)
+
+
+# --------------------------------------------------------------------------
+# AdamW
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    schedule: typing.Callable = dataclasses.field(
+        default_factory=lambda: constant_schedule(1e-3)
+    )
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    sq = [torch.sum(torch.square(x.float())) for x in T.leaves(tree)]
+    return torch.sqrt(torch.stack(sq).sum())
+
+
+def adamw(cfg: AdamWConfig) -> Optimizer:
+    def init(params):
+        zeros = lambda: T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
+        first = T.leaves(params)[0]
+        return {"mu": zeros(), "nu": zeros(),
+                "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        g = [x.float() for x in T.leaves(grads)]
+        gn = global_norm(g)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+        g = torch._foreach_mul(g, scale)
+        mu = torch._foreach_add(torch._foreach_mul(T.leaves(state["mu"]), cfg.b1),
+                                torch._foreach_mul(g, 1 - cfg.b1))
+        nu = torch._foreach_add(torch._foreach_mul(T.leaves(state["nu"]), cfg.b2),
+                                torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
+        stepf = step.to(torch.float32)
+        bc1 = 1 - torch.pow(cfg.b1, stepf)
+        bc2 = 1 - torch.pow(cfg.b2, stepf)
+        neg_lr = -cfg.schedule(step)
+        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), cfg.eps)
+        adam = torch._foreach_div(torch._foreach_div(mu, bc1), den)
+        decay = torch._foreach_mul([p.float() for p in T.leaves(params)], cfg.weight_decay)
+        updates = torch._foreach_mul(torch._foreach_add(adam, decay), neg_lr)
+        return T.unflatten(params, updates), {
+            "mu": T.unflatten(params, mu), "nu": T.unflatten(params, nu), "step": step,
+        }
+
+    return Optimizer(init=init, update=update)
+
+
+def apply_updates(params, updates):
+    """``(p.float() + u).to(p.dtype)`` leaf by leaf."""
+    ps = T.leaves(params)
+    new = torch._foreach_add([p.float() for p in ps], T.leaves(updates))
+    return T.unflatten(params, [n.to(p.dtype) for n, p in zip(new, ps)])
