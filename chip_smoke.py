@@ -351,6 +351,11 @@ TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 32, 20, 1e-5
 TRAIN_SMALL_BATCH, INT8_STEPS = 8, 20
 HELD_OUT_BATCHES = 4  # fixed B=32 batches the loss is judged on, before and after
 TRAIN_SERVE_PASSAGES = 4096
+#: (k, nprobe) of the train phase's wide probes, and the share of result
+#: slots that must hold a pid there: the paper's nprobe (1, 2) fills few
+#: slots on these weights (see train_phase), so plaid-cuda is held to plaid
+#: on probes wide enough that stage 1 yields k passages a query
+WIDE_PROBES, WIDE_FILLED_MIN = ((10, 64), (100, 256)), 0.9
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -1645,16 +1650,24 @@ def train_phase(seed, dev, info: dict) -> dict:
     enc_index = index_mod.build_index(doc_embs, lens, seed=seed, device=dev)
     qe = colbert.encode(served, q_toks)
     calls += 1
+    # the paper's probes (nprobe 1 and 2) fill few result slots here: a
+    # random-weight encoder's token vectors sit together by sequence (the
+    # encode phase's untrained weights fill as few), so each probed
+    # centroid's list holds few passages.  The wide probes fill the slots,
+    # and there plaid-cuda's pids must equal plaid's on nearly every slot.
     pids = {}
-    for k in (10, 100):
+    for k, nprobe in [(10, None), (100, None), *WIDE_PROBES]:
         p_k = retrieval.params_for_k(k)
+        if nprobe is not None:
+            p_k = p_k.replace(nprobe=nprobe)
         got = retrieval.from_index(enc_index, backend="plaid-cuda", params=p_k).search_batch(qe)
         want = retrieval.from_index(enc_index, backend="plaid", params=p_k).search_batch(qe)
         check_result(got, k)
         assert torch.equal(got.pids, want.pids), f"trained weights: pids differ at k={k}"
         assert torch.allclose(got.scores, want.scores, rtol=1e-5, atol=1e-5)
-        pids[k] = dict(success_at_k=float((got.pids == src[:, None]).any(1).float().mean()),
-                       filled_share=float((got.pids >= 0).float().mean()))
+        pids[f"k{k}_nprobe{p_k.nprobe}"] = dict(
+            success_at_k=float((got.pids == src[:, None]).any(1).float().mean()),
+            filled_share=float((got.pids >= 0).float().mean()))
     counts = ops.launch_counts()
     assert counts["flash_attention"] == bb.n_layers * calls, (counts, calls)
     assert all(counts[name] > 0 for name in SEARCH_KERNELS[:2]), counts
@@ -1669,6 +1682,8 @@ def train_phase(seed, dev, info: dict) -> dict:
                          min_cos_k7_vs_chunked=float(cos(qe, trained).min()),
                          mean_cos_trained_vs_untrained=float(cos(trained, untrained).mean()))
     assert info["serve"]["min_cos_k7_vs_chunked"] >= 0.99, info["serve"]
+    assert all(pids[f"k{k}_nprobe{nprobe}"]["filled_share"] >= WIDE_FILLED_MIN
+               for k, nprobe in WIDE_PROBES), info["serve"]
     # training moved the output further than the choice of attention does
     assert (info["serve"]["mean_cos_trained_vs_untrained"]
             < info["serve"]["min_cos_k7_vs_chunked"]), info["serve"]

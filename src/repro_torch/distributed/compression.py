@@ -43,16 +43,24 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, n: int, shape) -> torch.Ten
 
 def compress_decompress_with_feedback(grads, ef_state):
     """Quantize and dequantize each leaf of ``grads`` plus its error
-    feedback; returns (the dequantized grads, the new error feedback)."""
+    feedback; returns (the dequantized grads, the new error feedback).
+
+    A layer stack (a list) is ONE leaf of the reference, quantized as one
+    flat array: its blocks of ``block`` values run across layer boundaries,
+    as they do over the reference's stacked array."""
     if ef_state is None:
         ef_state = T.tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
 
     def one(g, e):
+        if isinstance(g, dict):
+            out = {k: one(g[k], e[k]) for k in g}
+            return {k: o[0] for k, o in out.items()}, {k: o[1] for k, o in out.items()}
+        if isinstance(g, list):
+            deq, err = one(torch.stack(g), torch.stack(e))
+            return list(deq.unbind(0)), list(err.unbind(0))
         g32 = g.float() + e
         q, s, n = quantize(g32)
         deq = dequantize(q, s, n, g32.shape)
         return deq, g32 - deq
 
-    out = [one(g, e) for g, e in zip(T.leaves(grads), T.leaves(ef_state))]
-    return (T.unflatten(grads, [o[0] for o in out]),
-            T.unflatten(grads, [o[1] for o in out]))
+    return one(grads, ef_state)

@@ -24,15 +24,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
-import numpy as np
 import torch
 from torch import nn
 
 from repro_torch import ieee_f32_matmul
 from repro_torch.models import transformer as T
-
-_STACK = "dense_layers"  # the reference's layer stack: leading L axis
-
+from repro_torch.training import tree as tree_lib
 
 @dataclasses.dataclass(frozen=True)
 class ColBERTConfig:
@@ -87,8 +84,7 @@ class ColBERT(nn.Module):
     def numpy_params(self) -> dict:
         """The reference's ``colbert.init_params`` tree as numpy (``lm_head``
         excepted)."""
-        return {"backbone": self.backbone.numpy_params(),
-                "proj": self.proj.detach().cpu().numpy()}
+        return tree_lib.to_numpy(train_params(self))
 
 
 @torch.no_grad()
@@ -107,16 +103,14 @@ def maxsim_scores(q_emb: torch.Tensor, d_emb: torch.Tensor, d_mask=None) -> torc
     return s.amax(dim=-1).sum(dim=-1)  # max over doc tokens, sum over q
 
 
-@torch.no_grad()
 def params_from_numpy(
     tree: Mapping, cfg: ColBERTConfig, device: str | torch.device = "cuda"
 ) -> ColBERT:
     """A :class:`ColBERT` holding the reference's ``colbert.init_params``
     tree (converted to numpy) value for value; ``backbone/lm_head`` is
     dropped (``encode`` does not use it)."""
-    model = ColBERT(cfg, T.params_from_numpy(tree["backbone"], cfg.backbone, device))
-    T._fill(model.proj, np.asarray(tree["proj"]), "proj")
-    return model
+    model = ColBERT(cfg, T.Transformer(cfg.backbone, device))
+    return assign_params(model, tree_lib.from_numpy(tree, train_params(model)))
 
 
 @torch.no_grad()
@@ -184,29 +178,14 @@ def train_params(model: ColBERT) -> dict:
     each layer stack a list): detached aliases, which a functional train
     step reads and never writes (``assign_params`` into the same model
     does)."""
-    named = dict(model.named_parameters())
-    tree: dict = {}
-    for name, (path, layer) in param_paths(model.cfg).items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        p = named[name].detach()
-        if layer is None:
-            node[path[-1]] = p
-        else:
-            node.setdefault(path[-1], [None] * model.cfg.backbone.n_layers)[layer] = p
-    return tree
+    return T.params_tree(model, param_paths(model.cfg))
 
 
 def module_params(params: Mapping, cfg: ColBERTConfig) -> dict[str, torch.Tensor]:
     """A training tree's tensors under the module's parameter names (leaves
     the model does not read, such as the reference's ``lm_head``, are
     left out)."""
-    out = {}
-    for name, (path, layer) in param_paths(cfg).items():
-        leaf = T._leaf(params, path)
-        out[name] = leaf if layer is None else leaf[layer]
-    return out
+    return tree_lib.scatter(params, param_paths(cfg))
 
 
 class _Loss(nn.Module):
@@ -230,25 +209,11 @@ def loss_fn(model: ColBERT):
     return fn
 
 
-@torch.no_grad()
 def assign_params(model: ColBERT, params: Mapping) -> ColBERT:
     """Copy a training tree's parameters into ``model`` (e.g. trained
     weights into a model that serves); returns ``model``."""
-    named = dict(model.named_parameters())
-    for name, t in module_params(params, model.cfg).items():
-        if t.shape != named[name].shape:
-            raise ValueError(f"{name}: {tuple(t.shape)}, expected {tuple(named[name].shape)}")
-        named[name].copy_(t)
+    T.assign_params(model, param_paths(model.cfg), params)
     return model
-
-
-def _state_from_numpy(node, device, stacked: bool = False):
-    if isinstance(node, Mapping):
-        return {k: _state_from_numpy(v, device, stacked or k == _STACK) for k, v in node.items()}
-    a = np.asarray(node)
-    if stacked:
-        return [torch.from_numpy(np.array(x)).to(device) for x in a]
-    return torch.from_numpy(np.array(a)).to(device)
 
 
 def train_state_from_numpy(
@@ -260,18 +225,16 @@ def train_state_from_numpy(
     (the reference's ``lm_head``) stay in the state, so the optimizer
     updates them (weight decay) as the reference's does."""
     model = params_from_numpy(tree["params"], cfg, device)
-    return model, _state_from_numpy(tree, model.device)
-
-
-def _state_to_numpy(node):
-    if isinstance(node, Mapping):
-        return {k: _state_to_numpy(v) for k, v in node.items()}
-    if isinstance(node, list):
-        return np.stack([x.detach().cpu().numpy() for x in node])
-    return node.detach().cpu().numpy()
+    like = train_params(model)
+    if "lm_head" in tree["params"]["backbone"]:
+        like["backbone"]["lm_head"] = model.proj  # a plain leaf on the device
+    state = {"params": like}
+    if "opt" in tree:
+        state["opt"] = {k: (model.proj if k == "step" else like) for k in tree["opt"]}
+    return model, tree_lib.from_numpy(tree, state)
 
 
 def numpy_train_state(state: Mapping) -> dict:
     """The port's training state (or any training tree) as the reference's
     numpy tree: each layer list stacked on a leading ``L`` axis."""
-    return _state_to_numpy(state)
+    return tree_lib.to_numpy(state)

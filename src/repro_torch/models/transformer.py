@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
-import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -46,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import ieee_f32_matmul, resolve_device
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
+from repro_torch.training import tree as tree_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,19 +239,7 @@ class Transformer(nn.Module):
     def numpy_params(self) -> dict:
         """The reference's param tree as numpy (``lm_head`` excepted);
         each layer's leaves stacked on a leading ``L`` axis."""
-        layers: dict = {}
-        for path in _layer_leaves(self.cfg):
-            stacked = np.stack([getattr(lay, _param_name(path)).detach().cpu().numpy()
-                                for lay in self.layers])
-            node = layers
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = stacked
-        return {
-            "embed": self.embed.detach().cpu().numpy(),
-            "final_norm": {"g": self.final_norm_g.detach().cpu().numpy()},
-            "dense_layers": layers,
-        }
+        return tree_lib.to_numpy(params_tree(self, param_paths(self.cfg)))
 
 
 def param_paths(cfg: TransformerConfig) -> dict[str, tuple[tuple[str, ...], int | None]]:
@@ -264,21 +252,25 @@ def param_paths(cfg: TransformerConfig) -> dict[str, tuple[tuple[str, ...], int 
     return out
 
 
-def _leaf(tree: Mapping, path: tuple[str, ...]):
-    node = tree
-    for key in path:
-        node = node[key]
-    return node
-
-
-def _fill(p: torch.Tensor, value, name: str) -> None:
-    a = np.asarray(value)
-    if tuple(a.shape) != tuple(p.shape) or a.dtype != np.float32:
-        raise ValueError(f"{name}: {a.dtype}{tuple(a.shape)}, expected float32{tuple(p.shape)}")
-    p.copy_(torch.from_numpy(np.array(a)))  # a writable copy
+def params_tree(module: nn.Module, paths: Mapping) -> dict:
+    """``module``'s parameters as a tree in the reference's layout
+    (``paths`` as :func:`param_paths` gives them), each layer stack a list:
+    detached aliases, which share the parameters' storage."""
+    return tree_lib.gather({n: p.detach() for n, p in module.named_parameters()}, paths)
 
 
 @torch.no_grad()
+def assign_params(module: nn.Module, paths: Mapping, tree: Mapping) -> None:
+    """Copy the tree's leaves into ``module``'s parameters; a leaf whose
+    shape or dtype is not its parameter's raises, naming the parameter."""
+    named = dict(module.named_parameters())
+    for name, t in tree_lib.scatter(tree, paths).items():
+        p = named[name]
+        if tuple(t.shape) != tuple(p.shape) or t.dtype != p.dtype:
+            raise ValueError(f"{name}: {t.dtype}{tuple(t.shape)}, expected {p.dtype}{tuple(p.shape)}")
+        p.copy_(t)
+
+
 def params_from_numpy(
     tree: Mapping, cfg: TransformerConfig, device: str | torch.device = "cuda"
 ) -> Transformer:
@@ -286,15 +278,8 @@ def params_from_numpy(
     (converted to numpy) value for value.  ``lm_head`` is not used by the
     encoder and is dropped."""
     model = Transformer(cfg, device)
-    _fill(model.embed, tree["embed"], "embed")
-    _fill(model.final_norm_g, tree["final_norm"]["g"], "final_norm/g")
-    stacked = tree["dense_layers"]
-    for path in _layer_leaves(cfg):
-        arr = np.asarray(_leaf(stacked, path))
-        if arr.shape[0] != cfg.n_layers:
-            raise ValueError(f"dense_layers/{'/'.join(path)}: {arr.shape[0]} layers, expected {cfg.n_layers}")
-        for i, lay in enumerate(model.layers):
-            _fill(getattr(lay, _param_name(path)), arr[i], "/".join(path))
+    paths = param_paths(cfg)
+    assign_params(model, paths, tree_lib.from_numpy(tree, params_tree(model, paths)))
     return model
 
 

@@ -28,53 +28,33 @@ import shutil
 import threading
 
 import numpy as np
-import torch
+
+from repro_torch.training import tree as T
 
 _SEP = "/"
 
 
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def to_host(tree):
-    """``tree`` with every tensor copied to the host as numpy (lists stay
-    lists)."""
-    if isinstance(tree, dict):
-        return {k: to_host(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_host(x) for x in tree]
-    return _host(tree)
-
-
 def _flatten(tree, prefix: str = "", out: dict | None = None) -> dict:
+    """A numpy tree (:func:`tree.to_numpy`'s) as ``{"a/b/c": array}``."""
     out = {} if out is None else out
     if isinstance(tree, dict):
         for k in sorted(tree):
             _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k), out)
-    elif isinstance(tree, list):
-        out[prefix] = np.stack([_host(x) for x in tree])
     else:
-        out[prefix] = _host(tree)
+        out[prefix] = tree
     return out
 
 
-def _like(arr: np.ndarray, leaf):
-    if isinstance(leaf, torch.Tensor):
-        return torch.from_numpy(np.array(arr)).to(leaf.device)
-    return arr
-
-
-def _unflatten_into(template, flat: dict, prefix: str = ""):
-    if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, f"{prefix}{_SEP}{k}" if prefix else str(k))
-                for k, v in template.items()}
-    arr = flat[prefix]
-    if isinstance(template, list):
-        if arr.shape[0] != len(template):
-            raise ValueError(f"{prefix}: {arr.shape[0]} layers, expected {len(template)}")
-        return [_like(a, t) for a, t in zip(arr, template)]
-    return _like(arr, template)
+def _nest(flat: dict) -> dict:
+    """The inverse of :func:`_flatten`."""
+    tree: dict = {}
+    for key, arr in flat.items():
+        *path, last = key.split(_SEP)
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = arr
+    return tree
 
 
 def save(ckpt_dir: str, step: int, tree) -> str:
@@ -85,7 +65,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = _flatten(tree)
+    flat = _flatten(T.to_numpy(tree))
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump({"step": step, "keys": sorted(flat)}, f)
@@ -122,7 +102,7 @@ def restore(ckpt_dir: str, template, step: int | None = None):
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return _unflatten_into(template, flat), step
+    return T.from_numpy(_nest(flat), template), step
 
 
 class CheckpointManager:
@@ -161,7 +141,7 @@ class CheckpointManager:
     def save(self, step: int, tree):
         if self._err:
             raise self._err
-        host = to_host(tree)  # device -> host copy (waits for the device)
+        host = T.to_numpy(tree)  # device -> host copy (waits for the device)
         if self.async_write:
             self._q.put((step, host))
         else:

@@ -4,15 +4,23 @@ A tree is a dict of trees, a list of tensors or a leaf.  A list is a layer
 stack: the reference keeps it as ONE array with a leading ``L`` axis, the
 port as one tensor a layer, so that each layer's weight is a tensor of its
 own (no gather, no scatter of the stack in a step).  ``leaves`` counts each
-list element as a leaf; the checkpoint and the numpy carry-over stack a list
-back into the reference's one array.
+list element as a leaf.
+
+The layer-stack rule between the two layouts lives here and nowhere else:
+:func:`to_numpy` stacks each list into the reference's one array,
+:func:`from_numpy` splits it again; :func:`gather` / :func:`scatter` move
+between a module's named parameters and a tree.  The numpy carry-over of
+weights and training state and the checkpoint's arrays all go through them.
 
 Leaves come in ``jax.tree.leaves``' order: dict keys sorted, lists in
 order.  The optimizer's global norm sums them in that order.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
 
 
 def leaves(tree) -> list:
@@ -48,3 +56,71 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
     if any(len(c) != len(cols[0]) for c in cols):
         raise ValueError("trees of different shapes")
     return unflatten(tree, [fn(*xs) for xs in zip(*cols)])
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def to_numpy(tree):
+    """``tree`` in the reference's layout as numpy: every tensor copied to
+    the host, every list (a layer stack) stacked into one array with a
+    leading ``L`` axis."""
+    if isinstance(tree, Mapping):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return np.stack([_host(x) for x in tree])
+    return _host(tree)
+
+
+def _like(a, leaf):
+    if isinstance(leaf, torch.Tensor):
+        return torch.from_numpy(np.array(a)).to(leaf.device)  # a writable copy
+    return np.asarray(a)
+
+
+def from_numpy(arrays: Mapping, like, path: str = ""):
+    """The inverse of :func:`to_numpy`: the numpy tree ``arrays`` (the
+    reference's layout) in ``like``'s structure.  Where ``like`` holds a
+    list, the array splits along its leading axis into one tensor a layer;
+    a tensor leaf of ``like`` gives the device the array goes to; any
+    other leaf of ``like`` keeps the array as numpy.  Keys of ``arrays``
+    that ``like`` lacks are left out."""
+    if isinstance(like, Mapping):
+        return {k: from_numpy(arrays[k], v, f"{path}/{k}" if path else k) for k, v in like.items()}
+    if isinstance(like, list):
+        a = np.asarray(arrays)
+        if a.shape[0] != len(like):
+            raise ValueError(f"{path}: {a.shape[0]} layers, expected {len(like)}")
+        return [_like(x, leaf) for x, leaf in zip(a, like)]
+    return _like(arrays, like)
+
+
+def gather(named: Mapping[str, Any], paths: Mapping) -> dict:
+    """Named leaves (e.g. a module's parameters) as a tree.  ``paths`` maps
+    each name to ``(path in the tree, index in its layer stack or None)``."""
+    tree: dict = {}
+    for name, (path, layer) in paths.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if layer is None:
+            node[path[-1]] = named[name]
+        else:
+            stack = node.setdefault(path[-1], [])
+            stack.extend([None] * (layer + 1 - len(stack)))
+            stack[layer] = named[name]
+    return tree
+
+
+def scatter(tree: Mapping, paths: Mapping) -> dict:
+    """The inverse of :func:`gather`: ``{name: leaf}`` for each name of
+    ``paths`` (leaves of ``tree`` that ``paths`` does not name are left
+    out)."""
+    out = {}
+    for name, (path, layer) in paths.items():
+        node = tree
+        for key in path:
+            node = node[key]
+        out[name] = node if layer is None else node[layer]
+    return out

@@ -17,7 +17,12 @@ Tolerances, with their reasons:
   int8 each step starts from the reference's state carried over anew:
   the frameworks' gradients differ by ~1e-6, and int8 rounding turns an
   element near a half-step into a whole quantization step, so free-running
-  int8 losses drift apart by ~2e-4 within five steps.
+  int8 losses drift apart by ~2e-4 within five steps.  Each int8 step's
+  output is held to the reference's before the next carry: the error
+  feedback within one quantization step (its block's scale), and within a
+  thousandth of one in all but 1% of a leaf's elements, the weights
+  within rtol 1e-4 and 2.5 lr (an AdamW step moves a weight by at most
+  1.17 lr for b1 0.9, b2 0.95, whatever gradient one rounding changed).
 """
 import dataclasses
 import os
@@ -153,18 +158,26 @@ def test_quantize_bit_identical_to_reference(shape, scale):
 
 
 def test_error_feedback_matches_reference_over_three_steps():
+    """Bit for bit, with a layer stack (a list in the port, one stacked
+    array in the reference) whose layers' 300 values do not fill whole
+    blocks of 256: the stack is quantized as ONE leaf, its blocks running
+    across the layer boundary, as the reference's."""
     rng = np.random.default_rng(5)
-    shapes = {"a": (300,), "b": {"c": (17, 19)}}
     r_ef = t_ef = None
     for _ in range(3):
-        g = ttree.tree_map(lambda s: (rng.standard_normal(s) * 0.1).astype(np.float32), shapes)
-        r_out, r_ef = rcomp.compress_decompress_with_feedback(_j(g), r_ef)
+        g = {"a": rng.standard_normal(300), "b": {"c": rng.standard_normal((17, 19))},
+             "stack": [rng.standard_normal((3, 100)) for _ in range(2)]}
+        g = ttree.tree_map(lambda x: (x * 0.1).astype(np.float32), g)
+        r_out, r_ef = rcomp.compress_decompress_with_feedback(_j(ttree.to_numpy(g)), r_ef)
         t_out, t_ef = tcomp.compress_decompress_with_feedback(_t(g), t_ef)
+        assert isinstance(t_out["stack"], list) and isinstance(t_ef["stack"], list)
         for got, want in ((t_out, r_out), (t_ef, r_ef)):
-            for key in ("a", ("b", "c")):
-                gg, ww = (got[key], want[key]) if key == "a" else (got["b"]["c"], want["b"]["c"])
-                np.testing.assert_array_equal(gg.numpy().view(np.uint32),
-                                              np.asarray(ww).view(np.uint32))
+            for path, w in jax.tree_util.tree_leaves_with_path(want):
+                gg = ttree.to_numpy(got)
+                for k in path:
+                    gg = gg[k.key]
+                np.testing.assert_array_equal(gg.view(np.uint32), np.asarray(w).view(np.uint32),
+                                              err_msg=jax.tree_util.keystr(path))
     assert np.abs(t_ef["a"].numpy()).max() > 0
 
 
@@ -177,14 +190,32 @@ def reduced_tree():
     return jax.tree_util.tree_map(np.array, init(jax.random.PRNGKey(0), rcfgs.reduced_config()))
 
 
+SCHED = dict(peak_lr=1e-3, warmup=2, total=10)
+t_opt_lr = topt.cosine_schedule(**SCHED)
+
+
 def _steps(n_micro, compression):
     rcfg, tcfg = rcfgs.reduced_config(), tcfgs.reduced_config()
-    sched = dict(peak_lr=1e-3, warmup=2, total=10)
+    sched = SCHED
     r_opt = ropt.adamw(ropt.AdamWConfig(schedule=ropt.cosine_schedule(**sched)))
     t_opt = topt.adamw(topt.AdamWConfig(schedule=topt.cosine_schedule(**sched)))
     r_step = jax.jit(rloop.make_train_step(lambda p, b: rcol.train_loss(p, rcfg, b), r_opt,
                                            n_micro=n_micro, compression=compression))
     return rcfg, tcfg, r_opt, t_opt, r_step
+
+
+def _block_scales(deq: np.ndarray, block: int = 256) -> np.ndarray:
+    """Each element's quantization step, from the dequantized values: a
+    block's largest |value| quantizes to 127 exactly, so its step is that
+    value / 127."""
+    flat = deq.reshape(-1)
+    blocks = np.pad(flat, (0, (-flat.size) % block)).reshape(-1, block)
+    return np.repeat(np.abs(blocks).max(1) / 127, block)[: flat.size].reshape(deq.shape)
+
+
+def _by_path(tree) -> dict:
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_leaves_with_path(ttree.to_numpy(tree))}
 
 
 @pytest.mark.parametrize("compression", [None, "int8"])
@@ -195,8 +226,14 @@ def test_train_steps_track_reference(reduced_tree, n_micro, compression):
     rs = rloop.init_opt_state(r_opt, rp, compression)
     model, state = tcol.train_state_from_numpy(
         {"params": reduced_tree, "opt": jax.tree_util.tree_map(np.array, rs)}, tcfg, device="cpu")
-    t_step = tloop.make_train_step(tcol.loss_fn(model), t_opt, n_micro=n_micro,
-                                   compression=compression)
+    seen = {}
+
+    def update(grads, opt_state, params):  # the optimizer, seeing the dequantized gradients
+        seen["grads"] = grads
+        return t_opt.update(grads, opt_state, params)
+
+    t_step = tloop.make_train_step(tcol.loss_fn(model), topt.Optimizer(t_opt.init, update),
+                                   n_micro=n_micro, compression=compression)
     tp, ts = state["params"], state["opt"]
     assert set(ts) == set(rs)
     batches = rsyn.colbert_batches(rcfg.backbone.vocab, 4, q_len=8, d_len=16, nway=rcfg.nway, seed=3)
@@ -213,6 +250,18 @@ def test_train_steps_track_reference(reduced_tree, n_micro, compression):
         assert int(tm["step"]) == int(rm["step"])
         np.testing.assert_allclose(float(tm["loss"]), float(rm["loss"]), rtol=1e-4)
         losses.append(float(tm["loss"]))
+        if compression:  # this step's output against the reference's, before the next carry
+            lr = float(t_opt_lr(int(tm["step"])))
+            deq, got_ef, want_ef = _by_path(seen["grads"]), _by_path(ts["ef"]), _by_path(rs["ef"])
+            assert got_ef.keys() == want_ef.keys() == deq.keys()
+            for name, w in want_ef.items():
+                step = _block_scales(deq[name])
+                off = np.abs(got_ef[name] - w)
+                assert (off <= 1.01 * step).all(), name
+                assert (off > 1e-3 * step).mean() <= 0.01, name  # measured: one element a leaf
+            got_p, want_p = _by_path(tp), _by_path(rp)
+            for name, w in want_p.items():
+                np.testing.assert_allclose(got_p[name], w, rtol=1e-4, atol=2.5 * lr, err_msg=name)
     assert losses[-1] < losses[0]
     if compression:
         assert np.abs(ttree.leaves(ts["ef"])[0].numpy()).max() > 0
