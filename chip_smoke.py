@@ -116,6 +116,14 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                first) whose ``search_batch`` equals the in-process
                2-shard result.  Launches are counted around the sharded
                calls alone;
+8e. serve_driver  ``launch.serve`` (the reference's serving driver) at its
+               defaults (20,000 documents of ``embedding_corpus``, 256
+               queries in batches of 16, k 10) with ``--compare-vanilla
+               --sweep-t-cs``, once with ``--backend plaid`` and once with
+               ``--pallas`` (``plaid-cuda``): mean / p50 / p99 ms a query,
+               success@1, vanilla's speedup and the four ``t_cs`` rows of
+               each; the two builds identical, and plaid-cuda's pids (and
+               vanilla's) equal to plaid's on all 256 queries;
 9. vanilla     the ``vanilla`` backend (ColBERTv2's baseline, K4) at the
                reference's ``vanilla_p4_c8192`` settings for k in {10,
                1000} over a warm-up and 2 timed B=32 batches: pids
@@ -199,6 +207,23 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                trained weights served: 4,096 passages and a B=32 query
                batch encoded through K7, ``build_index``, ``plaid-cuda``'s
                pids equal to ``plaid``'s at k 10 and 100 (K1, K2);
+13c. train_dp  data-parallel training (``distributed.sharding``,
+               ``training.loop`` on a ``("data", "model")`` mesh of 2 x 1):
+               ``colbertv2.full_config()`` at B = 32 (24,064 tokens) over
+               two gloo ranks spawned once on ``cuda:0``, 16 rows each, from
+               the seeded weights: 3 steps in each case (``n_micro`` 1 and
+               2, int8), the first step's loss within 1e-3 of the
+               single-process step's on the same global batch, the replicas
+               bit-identical after every step (checksums of every leaf), the
+               held-out loss lower after the steps; step p50, the gradient
+               all-reduce's ms and bytes (one a step, f32, through the host:
+               gloo) and each rank's peak bytes; ``compressed_psum`` over a
+               gradient-sized tensor within 2.5 int8 steps of the mean;
+               the state rank 0 wrote restored at world 1 bit for bit
+               (``restore(shardings=)``) and stepped on; then those weights
+               served through K7, K1 and K2 as in phase train.  Two ranks
+               sharing one card measure correctness and host traffic, not a
+               speed-up;
 14. persist    the main index saved and loaded through the facade: every
                array identical, the same batch gives identical pids;
 15. profile    device time of one plaid-cuda batch, one vanilla batch and
@@ -239,6 +264,8 @@ from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: 
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.core import tiered as tiered_mod  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.distributed import compression as dist_comp  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.topk import local_to_global_pids, merge_topk  # noqa: E402
 from repro_torch.eval import qrels as eval_qrels, sweep as eval_sweep  # noqa: E402
 from repro_torch.exec import segments as seg_exec  # noqa: E402
@@ -249,12 +276,14 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import colbert, transformer  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.serving import buckets as serve_buckets_mod  # noqa: E402
 from repro_torch.serving import server as serve_server  # noqa: E402
+from repro_torch.training import checkpoint as train_ckpt  # noqa: E402
 from repro_torch.training import fault_tolerance as ft  # noqa: E402
 from repro_torch.training import loop as train_loop  # noqa: E402
 from repro_torch.training import optimizer as train_opt  # noqa: E402
@@ -356,6 +385,16 @@ TRAIN_SERVE_PASSAGES = 4096
 #: slots on these weights (see train_phase), so plaid-cuda is held to plaid
 #: on probes wide enough that stage 1 yields k passages a query
 WIDE_PROBES, WIDE_FILLED_MIN = ((10, 64), (100, 256)), 0.9
+#: phase serve_driver: launch.serve's flags beyond its defaults (20,000
+#: documents, 256 queries in batches of 16, k 10, d 128, nbits 2)
+SERVE_DRIVER_FLAGS = ["--compare-vanilla", "--sweep-t-cs", "--device", "cuda"]
+#: phase train_dp: the global batch (TRAIN_BATCH) over GLOO_RANKS ranks on
+#: the card, DP_STEPS steps a case at phase train's peak lr, the cases
+#: (n_micro, compression), and the bar of the first step's loss against the
+#: single-process step (bf16 products over half the rows round apart)
+DP_STEPS = 3
+DP_CASES = {"plain": (1, None), "micro2": (2, None), "int8": (1, "int8")}
+DP_LOSS_RTOL = 1e-3
 SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: K7 vs plain: f32 sums in another order (64-key tiles vs one tile); bf16
 #: outputs one bf16 ulp apart (both round an f32 result once)
@@ -865,6 +904,13 @@ def main(argv=None) -> int:
         info["launches"] = sharded_counts
         assert all(sharded_counts[name] > 0 for name in SEARCH_KERNELS), sharded_counts
 
+    # ---- 8e. launch.serve, the reference's serving driver ------------------
+    with Phase("serve_driver") as info:
+        # counted around the two driver runs (plaid, then --pallas)
+        info["card"] = smi  # beside every number of the phase's lines
+        driver_counts = serve_driver_phase(info)
+        info["launches"] = driver_counts
+
     # ---- 9. the vanilla ColBERTv2 baseline (K4) ---------------------------
     ops.reset_launch_counts()
     with Phase("vanilla") as info:
@@ -906,6 +952,13 @@ def main(argv=None) -> int:
         info["card"] = smi  # beside every number of the phase's lines
         train_counts = train_phase(args.seed, dev, info)
         info["launches"] = train_counts
+    torch.cuda.empty_cache()
+
+    # ---- 13c. data-parallel training over two gloo ranks, then served -------
+    with Phase("train_dp") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        dp_counts = train_dp_phase(args.seed, dev, info)
+        info["launches"] = dp_counts
     torch.cuda.empty_cache()
 
     # ---- 14. persistence of the main index --------------------------------
@@ -952,18 +1005,23 @@ def main(argv=None) -> int:
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
-    # sharded call; train: around the serving of the trained weights):
-    # K1-K3 in search, live, tiered, serve and sharded, K1/K2 in train too,
-    # K4 in vanilla, K5/K6 in oracle, K7 in encode, stream_build and train
+    # sharded call; serve_driver: around its two runs; train and train_dp:
+    # around the serving of the trained weights): K1-K3 in search, live,
+    # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
+    # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
+    # stream_build, train and train_dp
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
-                + serve_counts[name] + sharded_counts[name] + train_counts[name]
+                + serve_counts[name] + sharded_counts[name] + driver_counts[name]
+                + train_counts[name] + dp_counts[name]
                 for name in SEARCH_KERNELS}
-    launches["decompress_residuals"] = vanilla_counts["decompress_residuals"]
+    launches["decompress_residuals"] = (vanilla_counts["decompress_residuals"]
+                                        + driver_counts["decompress_residuals"])
     for name in ("centroid_interaction", "decompress_and_score"):
         launches[name] = oracle_counts[name]
     launches["flash_attention"] = (encode_counts["flash_attention"]
                                    + stream_counts["flash_attention"]
-                                   + train_counts["flash_attention"])
+                                   + train_counts["flash_attention"]
+                                   + dp_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -1628,6 +1686,22 @@ def train_phase(seed, dev, info: dict) -> dict:
     del final, kept, small
 
     # (6) train, then serve: the trained weights through K7, K1 and K2
+    counts, info["serve"] = serve_trained(cfg, model, p, seed, dev)
+    # training moved the output further than the choice of attention does
+    assert (info["serve"]["mean_cos_trained_vs_untrained"]
+            < info["serve"]["min_cos_k7_vs_chunked"]), info["serve"]
+    return counts
+
+
+def serve_trained(cfg, model, p, seed, dev) -> tuple[dict, dict]:
+    """The trained weights ``p`` served: TRAIN_SERVE_PASSAGES passages and a
+    B=32 query batch encoded through K7 (``attn_impl="flash"``),
+    ``build_index``, ``plaid-cuda``'s pids equal to ``plaid``'s at the
+    paper's probes and at WIDE_PROBES (K1, K2), the served weights ``p``
+    bit for bit.  ``model`` holds the untrained weights (it is given ``p``
+    here).  Returns the kernels' launches, counted around the serving
+    alone, and the phase's record."""
+    bb = cfg.backbone
     flash = dataclasses.replace(cfg, backbone=dataclasses.replace(bb, attn_impl="flash"))
     served = colbert.assign_params(
         colbert.ColBERT(flash, transformer.Transformer(flash.backbone, dev)), p)
@@ -1677,17 +1751,18 @@ def train_phase(seed, dev, info: dict) -> dict:
     colbert.assign_params(model, p)
     trained = colbert.encode(model, q_toks)
     cos = lambda a, b: (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1)).clamp(min=1e-12)
-    info["serve"] = dict(passages=n, tokens=int(doc_embs.shape[0]), centroids=enc_index.num_centroids,
-                         encode_calls=calls, launches=counts, search=pids,
-                         min_cos_k7_vs_chunked=float(cos(qe, trained).min()),
-                         mean_cos_trained_vs_untrained=float(cos(trained, untrained).mean()))
-    assert info["serve"]["min_cos_k7_vs_chunked"] >= 0.99, info["serve"]
+    served_info = dict(passages=n, tokens=int(doc_embs.shape[0]), centroids=enc_index.num_centroids,
+                       encode_calls=calls, launches=counts, search=pids,
+                       min_cos_k7_vs_chunked=float(cos(qe, trained).min()),
+                       mean_cos_trained_vs_untrained=float(cos(trained, untrained).mean()))
+    assert served_info["min_cos_k7_vs_chunked"] >= 0.99, served_info
     assert all(pids[f"k{k}_nprobe{nprobe}"]["filled_share"] >= WIDE_FILLED_MIN
-               for k, nprobe in WIDE_PROBES), info["serve"]
-    # training moved the output further than the choice of attention does
-    assert (info["serve"]["mean_cos_trained_vs_untrained"]
-            < info["serve"]["min_cos_k7_vs_chunked"]), info["serve"]
-    return counts
+               for k, nprobe in WIDE_PROBES), served_info
+    served_info["served_weights_are_trained"] = torch.equal(
+        train_loop.replica_checksums(colbert.train_params(served)),
+        train_loop.replica_checksums(p))
+    assert served_info["served_weights_are_trained"]
+    return counts, served_info
 
 
 def profile_encode(model, toks, reps: int = 3) -> dict:
@@ -2685,6 +2760,240 @@ def serve_phase(index, seed, info: dict) -> dict:
     return counts
 
 # --------------------------------------------------------------------------
+# phase serve_driver: launch.serve, the reference's serving driver
+# --------------------------------------------------------------------------
+def serve_driver_phase(info: dict) -> dict:
+    """``launch.serve`` at its defaults with ``--compare-vanilla
+    --sweep-t-cs``: ``--backend plaid``, then ``--pallas``
+    (``plaid-cuda``).  Both build the same index (the build is
+    deterministic), so the pids must be equal on every query.  Returns the
+    kernels' launches of the two runs (K1 / K2 from plaid-cuda, K4 from
+    each vanilla comparison)."""
+    runs = {}
+    ops.reset_launch_counts()
+    for name, flags in (("plaid", ["--backend", "plaid"]), ("plaid-cuda", ["--pallas"])):
+        out = serve_cli.run(serve_cli.parse_args(SERVE_DRIVER_FLAGS + flags),
+                            log=lambda line: print(f"serve_driver| {line}", flush=True))
+        runs[name] = out
+        row = dict(backend=out["backend"], queries=len(out["pids"]), k=out["k"],
+                   passages=out["num_passages"], tokens=out["num_tokens"],
+                   centroids=out["num_centroids"], build_s=out["build_s"],
+                   mean_ms_per_query=out["mean_ms"], p50_ms_per_query=out["p50_ms"],
+                   p99_ms_per_query=out["p99_ms"], success_at_1=out["success_at_1"],
+                   vanilla=dict(mean_ms_per_query=out["vanilla"]["mean_ms"],
+                                success_at_1=out["vanilla"]["success_at_1"],
+                                speedup=out["vanilla"]["speedup"]),
+                   sweep=out["sweep"], sweep_trace_count=out["sweep_trace_count"])
+        emit({"serve_driver": row, "card": info["card"]})
+        info[name] = row
+    counts = ops.launch_counts()
+    a, b = runs["plaid"], runs["plaid-cuda"]
+    diff = same_index(a["index"], b["index"])
+    assert not diff, f"the two builds differ: {diff}"
+    assert np.array_equal(a["pids"], b["pids"]), "plaid-cuda vs plaid pids"
+    assert np.array_equal(a["vanilla"]["pids"], b["vanilla"]["pids"]), "vanilla pids"
+    assert len(a["pids"]) == 256 and a["sweep_trace_count"] == 0
+    info["pids_identical_queries"] = len(a["pids"])
+    assert all(counts[name] > 0 for name in (*SEARCH_KERNELS[:2], "decompress_residuals")), counts
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase train_dp: data-parallel ColBERTv2 training over gloo ranks
+# --------------------------------------------------------------------------
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_optimizer():
+    return train_opt.adamw(train_opt.AdamWConfig(
+        schedule=train_opt.cosine_schedule(TRAIN_LR, 2, DP_STEPS + 1)))
+
+
+def dp_state_axes(cfg):
+    axes = colbert.param_axes(cfg)
+    return {"params": axes, "opt": train_opt.opt_state_axes(axes)}
+
+
+def train_dp_rank(rank: int, tmp: str, seed: int, cfg, device: str) -> None:
+    """One of GLOO_RANKS data-parallel ranks sharing ``device`` over gloo.
+    From the seeded initial weights, DP_STEPS steps on the global batches
+    in each of DP_CASES (the replicas compared after every step); rank 0
+    judges each case's held-out loss and writes the plain case's state;
+    then ``compressed_psum`` over a gradient-sized tensor.  Writes its
+    record to ``{tmp}/rank{rank}.pt``."""
+    mesh_mod.init_distributed(f"file://{tmp}/rendezvous", GLOO_RANKS, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        mesh = mesh_mod.make_production_mesh(device=device)
+        assert mesh.shape == {"data": GLOO_RANKS, "model": 1} and mesh.devices == (dev,)
+        reduced, plain_all_reduce = [], mesh_mod.all_reduce_sum
+
+        def timed_all_reduce(m, t):  # every all-reduce of the steps, timed
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = plain_all_reduce(m, t)
+            _sync(dev)
+            reduced.append((t.numel() * t.element_size(), (time.perf_counter() - t0) * 1e3))
+            return out
+
+        mesh_mod.all_reduce_sum = timed_all_reduce
+        model = colbert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 41),
+                                    device=dev)
+        params0 = colbert.train_params(model)
+        batches = train_batches(cfg, DP_STEPS, TRAIN_BATCH, seed + 43, dev)
+        held_out = train_batches(cfg, HELD_OUT_BATCHES, TRAIN_BATCH, seed + 7, dev)
+        judge = colbert.ColBERT(cfg, transformer.Transformer(cfg.backbone, dev)) if rank == 0 else None
+        out = {"checksums0": train_loop.replica_checksums(params0).cpu()}
+        if rank == 0:
+            out["held_out_before"] = held_out_loss(judge, params0, held_out)
+        for case, (n_micro, comp) in DP_CASES.items():
+            opt = dp_optimizer()
+            step = train_loop.make_train_step(colbert.loss_fn(model), opt, n_micro=n_micro,
+                                              compression=comp, param_axes=colbert.param_axes(cfg))
+            p, o = params0, train_loop.init_opt_state(opt, params0, comp)
+            losses, ms, n_reduced = [], [], len(reduced)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            with sharding.use_mesh(mesh):
+                train_loop.assert_replicas_agree(p, mesh)
+                for b in batches:
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    p, o, m = step(p, o, b)
+                    _sync(dev)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(float(m["loss"]))
+                    train_loop.assert_replicas_agree(p, mesh)  # raises if they parted
+            rec = dict(losses=losses, step_ms=ms, all_reduces=reduced[n_reduced:],
+                       checksums=train_loop.replica_checksums(p).cpu(), replicas_identical=True)
+            if dev.type == "cuda":
+                rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+            if comp:
+                rec["ef_max_abs"] = max(float(e.abs().max()) for e in train_tree.leaves(o["ef"]))
+            if rank == 0:
+                rec["held_out_after"] = held_out_loss(judge, p, held_out)
+                if case == "plain":
+                    t0 = time.perf_counter()
+                    train_ckpt.save(f"{tmp}/world2", DP_STEPS, {"params": p, "opt": o})
+                    rec["save_s"] = time.perf_counter() - t0
+            out[case] = rec
+            del p, o
+        # compressed_psum over a gradient-sized tensor against the mean
+        n = sum(x.numel() for x in train_tree.leaves(params0))
+        xs = [torch.randn(n, generator=torch.Generator(device=dev).manual_seed(seed + 50 + r),
+                          device=dev) for r in range(GLOO_RANKS)]
+        mean = torch.stack(xs).mean(0)
+        times = []
+        for _ in range(2):  # the first call warms the collectives up
+            _sync(dev)
+            t0 = time.perf_counter()
+            got = dist_comp.compressed_psum(xs[rank], mesh)
+            _sync(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        _sync(dev)
+        t0 = time.perf_counter()
+        plain_all_reduce(mesh, xs[rank])
+        _sync(dev)
+        scale = float(torch.stack(xs).abs().max()) / 127
+        out["psum"] = dict(values=n, ms=times[-1], f32_all_reduce_ms=(time.perf_counter() - t0) * 1e3,
+                           max_abs_err=float((got - mean).abs().max()), int8_step=scale,
+                           wire_bytes=2 * n, f32_bytes=4 * n)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train_dp_phase(seed, dev, info: dict, cfg=None) -> dict:
+    """Data-parallel training at full width: GLOO_RANKS gloo ranks sharing
+    the card, held against the single-process step on the same state and
+    global batches; the state the ranks wrote restored at world 1 and
+    stepped on; then those weights served through K7, K1 and K2.  Returns
+    the serving's launch counts (the training steps launch no kernel of
+    the port)."""
+    cfg = cfg or colbert_cfg.full_config()
+    model = colbert.init_params(cfg, torch.Generator(device=dev).manual_seed(seed + 41), device=dev)
+    params0 = colbert.train_params(model)
+    batches = train_batches(cfg, DP_STEPS, TRAIN_BATCH, seed + 43, dev)
+    single = {}  # the one-process step's losses: every step of the plain case
+    for case, (n_micro, comp) in DP_CASES.items():
+        opt = dp_optimizer()
+        step = train_loop.make_train_step(colbert.loss_fn(model), opt, n_micro=n_micro,
+                                          compression=comp)
+        p, o = params0, train_loop.init_opt_state(opt, params0, comp)
+        single[case] = []
+        for b in batches if case == "plain" else batches[:1]:
+            p, o, m = step(p, o, b)
+            single[case].append(float(m["loss"]))
+        del p, o
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn_gloo_ranks(tmp, train_dp_rank, seed, cfg, str(dev))
+        gloo_s = time.perf_counter() - t0
+        want0 = train_loop.replica_checksums(params0).cpu()
+        assert all(torch.equal(r["checksums0"], want0) for r in ranks), "initial replicas"
+        lead = ranks[0]
+        rows = {}
+        for case in DP_CASES:
+            recs = [r[case] for r in ranks]
+            assert all(torch.equal(r["checksums"], recs[0]["checksums"]) for r in recs)
+            assert all(r["losses"] == recs[0]["losses"] for r in recs)
+            rels = [abs(a / b - 1) for a, b in zip(recs[0]["losses"], single[case])]
+            # the step's one gradient all-reduce is the largest; the others
+            # are the passage gather's backward, one a microbatch
+            reduces = [x for r in recs for x in r["all_reduces"]]
+            grad_bytes = max(b for b, _ in reduces)
+            rows[case] = dict(
+                n_micro=DP_CASES[case][0], compression=DP_CASES[case][1],
+                losses=recs[0]["losses"], single_process_losses=single[case],
+                first_loss_rel=rels[0], max_loss_rel=max(rels), replicas_identical_every_step=True,
+                held_out_before=lead["held_out_before"], held_out_after=recs[0]["held_out_after"],
+                step_ms=[r["step_ms"] for r in recs],
+                step_p50_ms=statistics.median(x for r in recs for x in r["step_ms"]),
+                grad_all_reduce_ms=statistics.median(ms for b, ms in reduces if b == grad_bytes),
+                grad_all_reduce_bytes=grad_bytes,
+                gather_all_reduce_ms=statistics.median(ms for b, ms in reduces if b < grad_bytes),
+                gather_all_reduce_bytes=max(b for b, _ in reduces if b < grad_bytes),
+                all_reduces_a_step=len(recs[0]["all_reduces"]) / DP_STEPS,
+                peak_bytes=[r.get("peak_bytes") for r in recs])
+            if "ef_max_abs" in recs[0]:
+                rows[case]["ef_max_abs"] = recs[0]["ef_max_abs"]
+            emit({"train_dp": dict(case=case, **rows[case]), "card": info["card"]})
+            assert rels[0] <= DP_LOSS_RTOL, rows[case]
+            assert rows[case]["held_out_after"] < rows[case]["held_out_before"], rows[case]
+        info["cases"] = rows
+        info["psum"] = [r["psum"] for r in ranks]
+        for ps in info["psum"]:
+            assert ps["max_abs_err"] <= 2.5 * ps["int8_step"] + 1e-6, ps
+        # the state written at world 2, restored at world 1 (a re-mesh)
+        opt = dp_optimizer()
+        template = {"params": params0, "opt": train_loop.init_opt_state(opt, params0)}
+        t0 = time.perf_counter()
+        with sharding.use_mesh(mesh_mod.make_local_mesh(dev)):
+            state, at = train_ckpt.restore(f"{tmp}/world2", template, shardings=sharding.tree_shardings(
+                dp_state_axes(cfg)))
+        _sync(dev)
+        restore_s = time.perf_counter() - t0
+    assert at == DP_STEPS and torch.equal(train_loop.replica_checksums(state["params"]).cpu(),
+                                          lead["plain"]["checksums"]), "restored at world 1"
+    step = train_loop.make_train_step(colbert.loss_fn(model), opt)
+    p, o, m = step(state["params"], state["opt"], train_batches(cfg, 1, TRAIN_BATCH, seed + 44, dev)[0])
+    info["restart_world_1"] = dict(step=at, bit_identical=True, save_s=lead["plain"]["save_s"],
+                                   restore_s=restore_s, next_loss=float(m["loss"]),
+                                   next_step=int(o["step"]))
+    assert math.isfinite(info["restart_world_1"]["next_loss"]) and int(o["step"]) == DP_STEPS + 1
+    info["gloo"] = dict(ranks=GLOO_RANKS, seconds=gloo_s, backend="gloo", device=str(dev),
+                        note="two ranks sharing one card over gloo measure correctness and "
+                             "host traffic, not a speed-up; NCCL and several cards not reached")
+    emit({"train_dp_restart": info["restart_world_1"], "psum": info["psum"], "card": info["card"]})
+    del state, o, template
+    counts, info["serve"] = serve_trained(cfg, model, p, seed, dev)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase sharded: document shards sharing the card, and gloo ranks
 # --------------------------------------------------------------------------
 def card_mesh(n: int):
@@ -2771,13 +3080,14 @@ def gloo_rank(rank: int, tmp: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def spawn_gloo_ranks(tmp: str) -> list:
-    """GLOO_RANKS spawned ranks, joined within GLOO_JOIN_S; none outlives the
-    call.  Returns each rank's result."""
+def spawn_gloo_ranks(tmp: str, target=gloo_rank, *args) -> list:
+    """GLOO_RANKS spawned ranks running ``target(rank, tmp, *args)``, joined
+    within GLOO_JOIN_S; none outlives the call.  Returns each rank's result
+    (``{tmp}/rank{r}.pt``)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=gloo_rank, args=(r, tmp)) for r in range(GLOO_RANKS)]
+    procs = [ctx.Process(target=target, args=(r, tmp, *args)) for r in range(GLOO_RANKS)]
     for pr in procs:
         pr.start()
     try:

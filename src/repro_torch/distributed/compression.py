@@ -1,5 +1,4 @@
 """int8 gradient compression with error feedback (the counterpart of
-``quantize``, ``dequantize`` and ``compress_decompress_with_feedback`` in
 ``repro.distributed.compression``).
 
 * ``quantize`` / ``dequantize``: symmetric int8 in blocks of ``block``
@@ -11,8 +10,15 @@
   step; it quantizes each gradient leaf plus its carried error and carries
   the new quantization error to the next step.
 
-The collective ``compressed_psum`` (all-to-all of int8 blocks) belongs to
-data-parallel training, which is not ported (ROADMAP Queue 1 item 8).
+* ``compressed_psum``: the collective, an all-reduce-MEAN over a process
+  group with an int8 wire format, decomposed as the reference's: pad and
+  split into one chunk a process, quantize, all-to-all of the values and
+  the scales, dequantize and average each chunk over the processes,
+  quantize that chunk, all-gather, dequantize.  As in the reference, the
+  train step does not call it (its int8 path quantizes the already-reduced
+  gradients); it stands on its own.  On a gloo group the int8 buffers cross
+  to the host and back explicitly (``launch.mesh``'s collectives), NCCL
+  keeps them on the card; either way the result is the same.
 """
 from __future__ import annotations
 
@@ -64,3 +70,32 @@ def compress_decompress_with_feedback(grads, ef_state):
         return deq, g32 - deq
 
     return one(grads, ef_state)
+
+
+def compressed_psum(x: torch.Tensor, mesh, block: int = 256) -> torch.Tensor:
+    """The mean of ``x`` over the processes of ``mesh``'s group (a
+    ``launch.mesh.Mesh``) with int8 on the wire; ``x`` itself when the
+    group has one member.  Every process passes the same shape."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    n_dev = mesh.world_size
+    if n_dev == 1:
+        return x
+    shape = x.shape
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % (n_dev * block)
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    q, s, _ = quantize(flat, block)
+    q = q.view(n_dev, -1, block)
+    s = s.view(n_dev, -1)
+    # exchange: process i receives chunk i from every peer
+    q_x = mesh_mod.all_to_all(mesh, q)
+    s_x = mesh_mod.all_to_all(mesh, s)
+    vals = q_x.float() * s_x[..., None]  # (n_dev, blocks, block)
+    q2, s2, _ = quantize(vals.mean(dim=0), block)
+    q_all = mesh_mod.all_gather(mesh, q2)  # (n_dev, blocks, block)
+    s_all = mesh_mod.all_gather(mesh, s2)
+    out = (q_all.float() * s_all[..., None]).reshape(-1)
+    return out[:n].reshape(shape)

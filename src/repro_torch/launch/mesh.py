@@ -27,10 +27,24 @@ mesh with :func:`make_multihost_mesh` (or let a sharded backend build it
 from ``n_shards``).  Like the reference's, ``init_distributed`` is a
 no-op returning ``False`` when those variables are absent, and repeat
 calls are no-ops.
+
+Training meshes carry the reference's axis names in ``axes``:
+:func:`make_local_mesh` is its 1 x 1 ``("data", "model")`` mesh and
+:func:`make_production_mesh` lays every process of the group out as
+``("data", "model")`` or ``("pod", "data", "model")`` with a model extent
+of 1, one device a process: data parallelism over the whole group.  The
+reference's 16-way model axis (tensor parallelism) is not ported
+(``distributed.sharding`` refuses a model extent above 1).  Training's
+collectives are here too: :func:`all_reduce_sum`, :func:`all_gather_rows`
+(differentiable), :func:`all_to_all` and :func:`all_gather`.  On an NCCL
+group their tensors stay on the card; on a gloo group (the CPU, or two
+processes sharing one card) each crosses to the host and back explicitly,
+so no collective relies on gloo's support for CUDA tensors.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Sequence
 
@@ -46,12 +60,19 @@ class Mesh:
 
     devices: tuple
     group: Any = None  # torch.distributed ProcessGroup, or None
+    #: named axes ``((name, extent), ...)`` whose extents multiply to
+    #: ``n_shards``; empty for a document-sharding mesh (one ``"data"`` axis)
+    axes: tuple = ()
 
     def __post_init__(self):
         devs = tuple(torch.device(d) for d in self.devices)
         if not devs:
             raise ValueError("a Mesh needs at least one device")
         object.__setattr__(self, "devices", devs)
+        axes = tuple((str(a), int(n)) for a, n in self.axes)
+        if axes and math.prod(n for _, n in axes) != self.n_shards:
+            raise ValueError(f"mesh axes {axes} do not multiply to {self.n_shards} shard(s)")
+        object.__setattr__(self, "axes", axes)
 
     @property
     def rank(self) -> int:
@@ -72,13 +93,18 @@ class Mesh:
 
     @property
     def shape(self) -> dict:
-        """The reference's ``dict(mesh.shape)``: one flat docs axis."""
-        return {"data": self.n_shards}
+        """The reference's ``dict(mesh.shape)``: ``axes``, or one flat docs
+        axis."""
+        return dict(self.axes) if self.axes else {"data": self.n_shards}
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
 
 
 def make_local_mesh(device: str | torch.device = "cuda") -> Mesh:
-    """A one-device mesh (tests and smoke runs)."""
-    return Mesh((resolve_device(device),))
+    """A one-device 1 x 1 ``("data", "model")`` mesh (tests and smoke runs)."""
+    return Mesh((resolve_device(device),), axes=(("data", 1), ("model", 1)))
 
 
 def _world_group():
@@ -166,6 +192,24 @@ def make_multihost_mesh(device: str | torch.device = "cuda") -> Mesh:
     return Mesh(_local_devices(1, resolve_device(device)), _world_group())
 
 
+def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda") -> Mesh:
+    """The training mesh over every process of the group, one device each
+    (:func:`make_multihost_mesh`), named as the reference's production
+    mesh: ``("data", "model")``, or ``("pod", "data", "model")`` with one
+    pod a host (``LOCAL_WORLD_SIZE`` processes, torchrun's variable).  The
+    model extent is 1 (the reference's is 16: tensor parallelism, not
+    ported), so the batch splits over every process."""
+    mesh = make_multihost_mesh(device)
+    world = mesh.world_size
+    if not multi_pod:
+        return dataclasses.replace(mesh, axes=(("data", world), ("model", 1)))
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if world % per_host:
+        raise ValueError(f"{world} processes do not fill hosts of {per_host}")
+    return dataclasses.replace(
+        mesh, axes=(("pod", world // per_host), ("data", per_host), ("model", 1)))
+
+
 def visible_shards(device: str | torch.device = "cuda") -> int | None:
     """How many shards the group can hold at one shard per device: the
     cards of every process, or ``None`` (no bound) on the host."""
@@ -193,10 +237,83 @@ def gather_shards(mesh: Mesh, parts: Sequence[torch.Tensor], dim: int = -1) -> t
     """
     home = mesh.devices[0]
     local = torch.cat([p.to(home) for p in parts], dim=dim)
-    if mesh.group is None or mesh.world_size == 1:
+    if mesh.world_size == 1:
         return local
-    on_card = dist.get_backend(mesh.group) == "nccl"
-    buf = (local if on_card else local.cpu()).contiguous()
+    return torch.cat(_all_gather_list(mesh, local), dim=dim).to(home)
+
+
+# --------------------------------------------------------------------------
+# training's collectives (a group of several processes; identity for one)
+# --------------------------------------------------------------------------
+def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` where the group's backend takes it: on the
+    card for NCCL, on the host for gloo."""
+    where = t.device if dist.get_backend(mesh.group) == "nccl" else torch.device("cpu")
+    return t.detach().to(where, copy=True).contiguous()
+
+
+def _all_gather_list(mesh: Mesh, t: torch.Tensor) -> list:
+    buf = _wire(mesh, t)
     out = [torch.empty_like(buf) for _ in range(mesh.world_size)]
     dist.all_gather(out, buf, group=mesh.group)
-    return torch.cat(out, dim=dim).to(home)
+    return out
+
+
+def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the group's processes, a new tensor on ``t``'s
+    device.  Every process gets the same bits: the collective computes each
+    element's sum once and hands it to all."""
+    if mesh.world_size == 1:
+        return t
+    buf = _wire(mesh, t)
+    dist.all_reduce(buf, group=mesh.group)
+    return buf.to(t.device)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every process's ``t`` stacked on a new leading axis in rank order
+    (the reference's ``all_gather(axis=0)``), on ``t``'s device."""
+    if mesh.world_size == 1:
+        return t[None]
+    return torch.stack(_all_gather_list(mesh, t)).to(t.device)
+
+
+def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` (world, ...): process ``i`` sends ``t[j]`` to process ``j`` and
+    receives every process's ``t[i]``, stacked in rank order (the
+    reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+    if mesh.world_size == 1:
+        return t
+    if t.shape[0] != mesh.world_size:
+        raise ValueError(f"all_to_all: leading axis {t.shape[0]} != {mesh.world_size} processes")
+    buf = _wire(mesh, t)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=mesh.group)
+    return out.to(t.device)
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather along axis 0 forward; backward, the gradient of the
+    gathered tensor summed over the processes, this process's rows kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.rows = mesh, x.shape[0]
+        return torch.cat(_all_gather_list(mesh, x)).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = all_reduce_sum(ctx.mesh, grad)
+        r, n = ctx.mesh.rank, ctx.rows
+        return total[r * n : (r + 1) * n], None
+
+
+def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every process's ``x`` (n, ...) concatenated along axis 0 in rank
+    order, differentiably: the gradient reaching a process's rows is the
+    sum over the processes of the gradient each one's loss gave them (so
+    data-parallel in-batch negatives train as the global batch does).
+    Every process's ``x`` must have one shape."""
+    if mesh.world_size == 1:
+        return x
+    return _GatherRows.apply(x, mesh)

@@ -9,7 +9,10 @@ path (no graph); calling the model builds one when a weight requires grad.
 Training follows ColBERTv2 supervision (``train_loss``): per query one
 positive (slot 0) and ``nway - 1`` negatives scored with MaxSim, cross-
 entropy over the candidates (with in-batch negatives, every passage of the
-batch), and KL distillation against teacher scores.
+batch), and KL distillation against teacher scores.  Under a data-parallel
+mesh (``distributed.sharding.data_mesh``) the loss is still the global
+batch's: each process encodes its rows and gathers every process's passage
+vectors, differentiably, for its queries' in-batch negatives.
 
 The training state is a tree in the reference's layout (``{"backbone":
 {"embed", "final_norm", "dense_layers", ...}, "proj"}``, each layer stack a
@@ -28,6 +31,8 @@ import torch
 from torch import nn
 
 from repro_torch import ieee_f32_matmul
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as T
 from repro_torch.training import tree as tree_lib
 
@@ -131,36 +136,58 @@ def init_params(
 def train_loss(model: ColBERT, cfg: ColBERTConfig, batch: Mapping):
     """batch: ``q_tokens`` (B, Lq), ``d_tokens`` (B, nway, Ld), ``d_mask``,
     ``q_mask``, ``target_scores`` (B, nway) teacher scores (optional).
-    Returns ``(ce + kd, {"ce", "kd"})``."""
+    Returns ``(ce + kd, {"ce", "kd"})``.
+
+    Under a data-parallel mesh of W processes ``batch`` is the global batch
+    on every process, and process r takes rows ``[r B/W, (r+1) B/W)``: it
+    encodes its queries and their passages, gathers every process's passage
+    vectors (``launch.mesh.all_gather_rows``: the gradient of each flows
+    back to the process that encoded it) for the in-batch negatives, and
+    returns its queries' share of the global means, so the processes'
+    losses (and gradients) sum to the global batch's.  The KD term reads a
+    query's own passages and teacher scores, which are in its rows."""
     B, nway, Ld = batch["d_tokens"].shape
-    q = model(batch["q_tokens"], batch.get("q_mask"))
-    d_tok = batch["d_tokens"].reshape(B * nway, Ld)
-    d_msk = torch.as_tensor(batch["d_mask"], device=q.device).reshape(B * nway, Ld)
-    d = model(d_tok, d_msk)
-    all_scores = None  # (B, B * nway): every query against every passage
+    dev = model.device
+    mesh = sharding.data_mesh()
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    if B % world:
+        raise ValueError(f"batch {B} does not split over {world} processes")
+    b = B // world
+    rows, d_rows = slice(rank * b, (rank + 1) * b), slice(rank * b * nway, (rank + 1) * b * nway)
+    q_mask = batch.get("q_mask")
+    q = model(torch.as_tensor(batch["q_tokens"], device=dev)[rows],
+              None if q_mask is None else torch.as_tensor(q_mask, device=dev)[rows])
+    d_tok = torch.as_tensor(batch["d_tokens"], device=dev).reshape(B * nway, Ld)
+    d_msk = torch.as_tensor(batch["d_mask"], device=dev).reshape(B * nway, Ld)
+    d = model(d_tok[d_rows], d_msk[d_rows])  # this process's passages
+    ar = torch.arange(b, device=dev)
+    all_scores = None  # (b, B * nway): every query against every passage
     if cfg.use_ib_negatives:
+        if mesh is not None:
+            d = mesh_mod.all_gather_rows(mesh, d)
         scores = all_scores = maxsim_scores(q, d, d_msk)
-        labels = torch.arange(B, device=q.device) * nway  # positives in slot 0
+        own = rank * b + ar  # the queries' rows in the global batch
+        labels = own * nway  # positives in slot 0
     else:
-        dg = d.reshape(B, nway, Ld, -1)
+        dg = d.reshape(b, nway, Ld, -1)
         with ieee_f32_matmul():
             s = torch.einsum("bqd,bntd->bnqt", q, dg)
-        s = torch.where(d_msk.reshape(B, nway, Ld)[:, :, None, :] > 0, s, -1e4)
+        s = torch.where(d_msk[d_rows].reshape(b, nway, Ld)[:, :, None, :] > 0, s, -1e4)
         scores = s.amax(dim=-1).sum(dim=-1)
-        labels = torch.zeros(B, dtype=torch.long, device=q.device)
+        labels = torch.zeros(b, dtype=torch.long, device=dev)
+    share = b / B  # 1.0 on one process: the means are the global batch's
     logz = torch.logsumexp(scores, dim=-1)
     pos = scores.gather(-1, labels[:, None])[:, 0]
-    ce = (logz - pos).mean()
+    ce = (logz - pos).mean() * share
 
-    kd = torch.zeros((), device=q.device)
+    kd = torch.zeros((), device=dev)
     if cfg.distill and "target_scores" in batch:
-        if all_scores is None:
-            all_scores = maxsim_scores(q, d, d_msk)
-        ar = torch.arange(B, device=q.device)
-        way = all_scores.reshape(B, B, nway)[ar, ar]  # (B, nway) own candidates
+        if all_scores is None:  # no in-batch negatives: this process's passages
+            all_scores, own = maxsim_scores(q, d, d_msk[d_rows]), ar
+        way = all_scores.reshape(b, -1, nway)[ar, own]  # (b, nway) own candidates
         logp = torch.log_softmax(way, dim=-1)
-        tgt = torch.softmax(torch.as_tensor(batch["target_scores"], device=q.device).float(), dim=-1)
-        kd = -(tgt * logp).sum(dim=-1).mean()
+        tgt = torch.softmax(torch.as_tensor(batch["target_scores"], device=dev)[rows].float(), dim=-1)
+        kd = -(tgt * logp).sum(dim=-1).mean() * share
     return ce + kd, {"ce": ce, "kd": kd}
 
 
@@ -171,6 +198,13 @@ def param_paths(cfg: ColBERTConfig) -> dict[str, tuple[tuple[str, ...], int | No
            for name, (path, layer) in T.param_paths(cfg.backbone).items()}
     out["proj"] = (("proj",), None)
     return out
+
+
+def param_axes(cfg: ColBERTConfig) -> dict:
+    """Logical axes of each training parameter (``distributed.sharding``),
+    in the training tree's layout; the reference's ``param_axes``,
+    ``lm_head`` excepted."""
+    return {"backbone": T.param_axes(cfg.backbone), "proj": ("embed_fsdp", None)}
 
 
 def train_params(model: ColBERT) -> dict:

@@ -252,6 +252,32 @@ def param_paths(cfg: TransformerConfig) -> dict[str, tuple[tuple[str, ...], int 
     return out
 
 
+#: each layer leaf's logical axes, the reference's ``_layer_axes`` without
+#: its leading "layers" axis (a layer stack is a list here)
+_LAYER_AXES = {
+    ("attn", "wq"): ("embed_fsdp", "heads", "head_dim"),
+    ("attn", "wk"): ("embed_fsdp", "kv_heads", "head_dim"),
+    ("attn", "wv"): ("embed_fsdp", "kv_heads", "head_dim"),
+    ("attn", "wo"): ("heads", "head_dim", "embed_fsdp"),
+    ("ln1", "g"): (None,),
+    ("ln2", "g"): (None,),
+    ("ffn", "wi", "w"): ("embed_fsdp", "mlp"),
+    ("ffn", "wg", "w"): ("embed_fsdp", "mlp"),
+    ("ffn", "wo", "w"): ("mlp", "embed_fsdp"),
+}
+
+
+def param_axes(cfg: TransformerConfig) -> dict:
+    """Logical axes of each parameter (``distributed.sharding``), in the
+    training tree's layout (``param_paths``: each layer stack a list of
+    per-layer tuples); the reference's ``param_axes`` for the dense
+    encoder, ``lm_head`` excepted."""
+    names = {"embed": ("vocab", "embed_fsdp"), "final_norm_g": (None,)}
+    for i in range(cfg.n_layers):
+        names.update({f"layers.{i}.{_param_name(p)}": a for p, a in _LAYER_AXES.items()})
+    return tree_lib.gather(names, param_paths(cfg))
+
+
 def params_tree(module: nn.Module, paths: Mapping) -> dict:
     """``module``'s parameters as a tree in the reference's layout
     (``paths`` as :func:`param_paths` gives them), each layer stack a list:

@@ -204,6 +204,7 @@ class PlaidRetriever:
             static_fields=STATIC_FIELDS,
             dynamic_fields=DYNAMIC_FIELDS,
             index=_index_summary(self.index),
+            compile=dict(trace_count=pipeline.trace_count()),
         )
 
 
@@ -410,6 +411,7 @@ class TieredRetriever:
                 nbits=t.device.nbits,
                 doc_maxlen=t.device.doc_maxlen,
             ),
+            compile=dict(trace_count=pipeline.trace_count()),
         )
 
 

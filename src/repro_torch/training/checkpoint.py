@@ -15,9 +15,9 @@ restores in the other.  Tensors are copied to the host before the write.
 
 ``CheckpointManager`` keeps the last ``keep`` checkpoints and can write on
 a daemon thread (a queue of host arrays; the train loop does not wait on
-the disk).  ``restore`` has no ``shardings``: placing a checkpoint on
-another mesh (``remesh``) belongs to data-parallel training (ROADMAP
-Queue 1 item 8).
+the disk).  A checkpoint holds one replica's values, so one written at any
+world size restores at any other: ``restore(shardings=)`` places it on
+this process's devices (``distributed.sharding.tree_shardings``).
 """
 from __future__ import annotations
 
@@ -90,11 +90,12 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, template, step: int | None = None):
+def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
     """The checkpoint at ``step`` (the newest when None) in ``template``'s
     structure: a tensor leaf comes back as a tensor on that leaf's device,
-    a list as one tensor a layer, anything else as numpy.  Returns
-    ``(tree, step)``."""
+    a list as one tensor a layer, anything else as numpy.  ``shardings``
+    (a device, or a tree of devices in ``template``'s shape) places every
+    leaf anew (elastic re-mesh).  Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -102,7 +103,10 @@ def restore(ckpt_dir: str, template, step: int | None = None):
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    return T.from_numpy(_nest(flat), template), step
+    tree = T.from_numpy(_nest(flat), template)
+    if shardings is not None:
+        tree = T.place(tree, shardings)
+    return tree, step
 
 
 class CheckpointManager:
@@ -154,5 +158,5 @@ class CheckpointManager:
             self._q.put(None)
             self._thread.join()
 
-    def restore(self, template):
-        return restore(self.dir, template)
+    def restore(self, template, shardings=None):
+        return restore(self.dir, template, shardings=shardings)

@@ -1,15 +1,18 @@
-"""Fault tolerance: supervised training with restart and a straggler
-watchdog (the counterpart of ``StepWatchdog`` and ``run_supervised`` in
+"""Fault tolerance: supervised training with restart, a straggler
+watchdog and elastic re-mesh (the counterpart of
 ``repro.training.fault_tolerance``).
 
 * ``run_supervised`` wraps a step function with catch -> restore the
-  newest checkpoint -> resume, dropping the batch that failed.
+  newest checkpoint -> resume, dropping the batch that failed.  In a
+  data-parallel run every process restores; only one writes
+  (``write_checkpoints``).
 * ``StepWatchdog`` keeps a rolling median of step times and flags a step
   slower than ``threshold`` x that median (once it has seen 5 steps).
+* ``remesh`` places a host-side state on new devices: a checkpoint holds
+  one replica, so scaling a data-parallel run up or down is a placement.
 
 Each step's time ends with the device synchronised (the reference's
-``block_until_ready``).  ``remesh``, placing a host checkpoint on another
-mesh, belongs to data-parallel training (ROADMAP Queue 1 item 8).
+``block_until_ready``).
 """
 from __future__ import annotations
 
@@ -64,6 +67,7 @@ def run_supervised(
     watchdog: StepWatchdog | None = None,
     failure_injector=None,  # (step) -> None | raises (tests)
     on_restore=None,  # called with (state, step) after a restore
+    write_checkpoints: bool = True,  # False on all but one replica
 ):
     """Run steps with checkpoint / restart.  An exception from ``step_fn``
     restores the newest checkpoint and resumes with the next batch, up to
@@ -89,7 +93,7 @@ def run_supervised(
             if watchdog is not None:
                 watchdog.observe(step, time.perf_counter() - t0)
             pending = None
-            if (step + 1) % ckpt_every == 0:
+            if write_checkpoints and (step + 1) % ckpt_every == 0:
                 manager.save(step + 1, state)
         except (StopIteration, KeyboardInterrupt):
             raise
@@ -105,5 +109,12 @@ def run_supervised(
                     on_restore(state, last)
             # drop the failed batch and continue from the next one
             pending = None
-    manager.save(step + 1, state)
+    if write_checkpoints:
+        manager.save(step + 1, state)
     return state, step + 1, restarts
+
+
+def remesh(state_host, shardings):
+    """Elastic re-mesh: place a host-side state tree (tensors or numpy, the
+    port's layout) on ``shardings`` (a device, or a tree of devices)."""
+    return T.place(state_host, shardings)

@@ -23,8 +23,21 @@ model to one), so gradients are taken with respect to that tree's leaves.
 * The backward pass runs with TF32 off (``ieee_f32_matmul``), as the
   forward's products do.
 
-Data-parallel training is not ported: ``param_axes`` (the reference's
-logical-axis constraints) raises (ROADMAP Queue 1 item 8).
+Data parallelism: under a mesh that splits the batch over W processes
+(``distributed.sharding.use_mesh``; ``sharding.data_mesh``) the step is
+still the global batch's step.  Every process is handed the global batch;
+the microbatches are cut from it as the reference's ``_split_micro`` cuts
+them (microbatch m is the global block m, whose rows the processes then
+split), and ``loss_fn`` returns this process's share of each
+microbatch's loss (``models.colbert.train_loss`` does).  The shares'
+gradients, accumulated over the microbatches, are summed over the
+processes by ONE all-reduce a step, in f32, with the loss and metrics in
+the same buffer; int8 compression and AdamW then run on every replica
+alike, so the replicas stay bit-identical (:func:`assert_replicas_agree`
+checks it).  ``param_axes`` is accepted and names each leaf's logical axes
+(``models.colbert.param_axes``); on a data-only mesh it constrains
+nothing (``sharding.constrain_tree``), and a mesh with a ``"model"`` axis
+above 1 raises.
 """
 from __future__ import annotations
 
@@ -32,6 +45,8 @@ import torch
 
 from repro_torch import ieee_f32_matmul
 from repro_torch.distributed import compression as comp
+from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.training import tree as T
 from repro_torch.training.optimizer import Optimizer, apply_updates
 
@@ -78,15 +93,13 @@ def make_train_step(
     param_axes=None,
     cast_dtype: torch.dtype | None = None,
 ):
-    if param_axes is not None:
-        raise NotImplementedError(
-            "param_axes constrains a training mesh; data-parallel training is not "
-            "ported (ROADMAP Queue 1 item 8)"
-        )
     if compression not in (None, "int8"):
         raise ValueError(f"compression must be None or 'int8', got {compression!r}")
 
     def train_step(params, opt_state, batch):
+        mesh = sharding.data_mesh()
+        if param_axes is not None:
+            params = sharding.constrain_tree(params, param_axes)
         dev = T.leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if n_micro == 1:
@@ -102,6 +115,8 @@ def make_train_step(
             grads = T.unflatten(params, torch._foreach_div(acc, n_micro))
             loss = loss / n_micro
             metrics = {}
+        if mesh is not None:
+            grads, loss, metrics = _sum_over_replicas(mesh, grads, loss, metrics)
 
         if compression == "int8":
             grads, ef = comp.compress_decompress_with_feedback(grads, opt_state.get("ef"))
@@ -117,6 +132,39 @@ def make_train_step(
         return new_params, new_state, metrics
 
     return train_step
+
+
+def _sum_over_replicas(mesh, grads, loss, metrics):
+    """Every process's gradients, loss and metrics summed in f32 by one
+    all-reduce of one flat buffer."""
+    gs = T.leaves(grads)
+    names = sorted(metrics)
+    flat = torch.cat([g.float().reshape(-1) for g in gs]
+                     + [x.float().reshape(1) for x in [loss] + [metrics[k] for k in names]])
+    flat = mesh_mod.all_reduce_sum(mesh, flat)
+    parts = list(torch.split(flat, [g.numel() for g in gs] + [1] * (1 + len(names))))
+    out = [p.view(g.shape) for p, g in zip(parts, gs)]
+    loss, *ms = (p[0] for p in parts[len(gs):])
+    return T.unflatten(grads, out), loss, dict(zip(names, ms))
+
+
+def replica_checksums(params) -> torch.Tensor:
+    """One int64 a leaf: the sum of the leaf's bit patterns (a leaf viewed
+    as integers of its width), which any changed bit moves."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return torch.stack([p.detach().contiguous().view(ints[p.element_size()]).sum(dtype=torch.int64)
+                        for p in T.leaves(params)])
+
+
+def assert_replicas_agree(params, mesh) -> None:
+    """Raise unless every process of ``mesh`` holds the same bits in
+    ``params`` (compared by :func:`replica_checksums`)."""
+    if mesh is None or mesh.world_size == 1:
+        return
+    sums = mesh_mod.all_gather(mesh, replica_checksums(params))
+    if not bool((sums == sums[0]).all()):
+        bad = (sums != sums[0]).any(dim=0).nonzero().flatten().tolist()
+        raise RuntimeError(f"data-parallel replicas differ in leaves {bad}")
 
 
 def init_opt_state(optimizer: Optimizer, params, compression: str | None = None):

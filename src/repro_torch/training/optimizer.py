@@ -119,6 +119,11 @@ def adamw(cfg: AdamWConfig) -> Optimizer:
     return Optimizer(init=init, update=update)
 
 
+def opt_state_axes(param_axes_tree):
+    """Optimizer-state logical axes mirror the param axes (mu/nu)."""
+    return {"mu": param_axes_tree, "nu": param_axes_tree, "step": ()}
+
+
 def apply_updates(params, updates):
     """``(p.float() + u).to(p.dtype)`` leaf by leaf."""
     ps = T.leaves(params)

@@ -96,6 +96,21 @@ def from_numpy(arrays: Mapping, like, path: str = ""):
     return _like(arrays, like)
 
 
+def place(tree, placement):
+    """``tree``'s leaves (tensors or numpy arrays) as tensors on new
+    devices: ``placement`` is one device for every leaf, or a tree of
+    devices in ``tree``'s shape (``distributed.sharding.tree_shardings``'s
+    output).  The values are unchanged."""
+    if not isinstance(placement, (dict, list)):
+        placement = tree_map(lambda _: placement, tree)
+
+    def put(x, dev):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+        return t.to(dev)
+
+    return tree_map(put, tree, placement)
+
+
 def gather(named: Mapping[str, Any], paths: Mapping) -> dict:
     """Named leaves (e.g. a module's parameters) as a tree.  ``paths`` maps
     each name to ``(path in the tree, index in its layer stack or None)``."""

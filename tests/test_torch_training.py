@@ -44,6 +44,8 @@ from repro.training import loop as rloop  # noqa: E402
 from repro.training import optimizer as ropt  # noqa: E402
 from repro_torch.configs import colbertv2 as tcfgs  # noqa: E402
 from repro_torch.distributed import compression as tcomp  # noqa: E402
+from repro_torch.distributed import sharding as tsharding  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import colbert as tcol  # noqa: E402
 from repro_torch.training import loop as tloop  # noqa: E402
 from repro_torch.training import optimizer as topt  # noqa: E402
@@ -288,9 +290,14 @@ def test_microbatches_equal_one_batch_without_in_batch_negatives(reduced_tree):
 
 
 def test_train_step_refuses_what_is_not_ported(reduced_tree):
+    """A mesh whose "model" axis splits weights (tensor parallelism, FSDP)
+    is refused when the step runs on it; ``param_axes`` itself is
+    accepted, as are a bad compression's and a bad split's refusals."""
     opt = topt.adamw(topt.AdamWConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tloop.make_train_step(lambda p, b: None, opt, param_axes={})
+    tp = tmesh.Mesh(("cpu",) * 4, axes=(("data", 2), ("model", 2)))
+    axes_step = tloop.make_train_step(lambda p, b: None, opt, param_axes={})
+    with tsharding.use_mesh(tp), pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.3"):
+        axes_step({}, {}, {})
     with pytest.raises(ValueError, match="compression"):
         tloop.make_train_step(lambda p, b: None, opt, compression="fp8")
     model, state = tcol.train_state_from_numpy({"params": reduced_tree}, tcfgs.reduced_config(),
@@ -333,7 +340,12 @@ def test_launch_train_runs_reduced_steps_on_the_cpu(tmp_path):
     assert lines[1].startswith("done: 3 steps in ") and "restarts=0, stragglers=0" in lines[1]
     assert lines[2].startswith("loss ") and " -> " in lines[2]
     assert sorted(os.listdir(tmp_path / "ckpt")) == ["step_00000002", "step_00000003"]
+    # a 1 x 1 ("data", "model") mesh trains on one device, as without one
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                        "plaid-colbertv2", "--mesh", "local", "--device", "cpu"],
+                        "plaid-colbertv2", "--reduced", "--steps", "3", "--device", "cpu",
+                        "--mesh", "local", "--ckpt-dir", str(tmp_path / "local")],
                        capture_output=True, text=True, env=env, timeout=240)
-    assert r.returncode != 0 and "Queue 1 item 8" in r.stderr
+    assert r.returncode == 0, r.stderr[-3000:]
+    local = r.stdout.strip().splitlines()
+    assert local[0].endswith("steps=3 mesh={'data': 1, 'model': 1}")
+    assert local[2].startswith("loss ")
