@@ -26,9 +26,13 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
 6. flash       K7 (attention) against its plain version at the encoder's
                two bf16 shapes (B=32 queries of 32 tokens, B=64 passages of
                180; 48 heads over 12 KV heads, dh 64), the reference's f32
-               test shapes (causal, MQA) and bf16 views at an odd offset
-               and transposed; ``ms``, ``device_ms`` and the host's time
-               per call (``host_us``) beside SDPA's;
+               test shapes (causal, MQA), bf16 views at an odd offset
+               and transposed, and the LM prefills' causal bf16 shapes
+               (yi-34b at S 32,768, 64 padded heads over 8, dh 128;
+               granite-34b at S 4,096, 48 heads over 1; granite-moe-1b at
+               B 8, S 4,096, dh 64; deepseek-moe-16b, MHA); ``ms``,
+               ``device_ms`` and the host's time per call (``host_us``)
+               beside SDPA's;
 7. search      the ``plaid-cuda`` backend for k in {10, 100, 1000} x fused
                on/off over a warm-up and 4 timed B=32 batches, ranked pids
                identical to the ``plaid`` backend (plain PyTorch, same
@@ -228,7 +232,30 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                array identical, the same batch gives identical pids;
 15. profile    device time of one plaid-cuda batch, one vanilla batch and
                one B=32 query encode by kernel (torch.profiler) and the
-               device's busy share of each.
+               device's busy share of each;
+16. lm         serving the LM family (``models.transformer``: ``prefill``
+               and ``decode_step`` with a KV cache), the index freed first,
+               one ``lm`` line a config (``LM_RUNS``): yi-34b at full width
+               with 16 of 60 layers (prefill B 1 x 32,768 through K7, decode
+               B 8 on a 32,768-slot cache at cache_len 32,767),
+               h2o-danube-3-4b whole (prefill B 1 x 8,192, chunked sliding
+               window, no kernel; decode B 1 on a 4,096-slot ring at
+               cache_len 524,287), granite-moe-1b-a400m whole (prefill B 8
+               x 4,096 through K7 and the MoE dispatch, decode B 32) and
+               deepseek-moe-16b at full width with 4 of 28 layers (prefill
+               B 1 x 4,096, decode B 32); bf16 weights seeded on the card a
+               tensor at a time.  Each: K7 on layer 0's q/k/v against its
+               plain version; prefill ms (median of 3 after a warm-up)
+               beside the bf16 FLOP bound (the reference's model FLOPs at
+               989 TFLOP/s, less the embedding and all but the last
+               position's head), K7's launches, peak bytes; the K7 model's
+               last-position logits against chunked attention's at S 4,096
+               (cosine, error share, equal argmax); decode == prefill at B
+               2, S 64; decode-step ms (median of 20) beside (weight +
+               cache bytes) / 3.35 TB/s, kernel launches a step, peak
+               bytes; bf16 decode attention on layer 0's cache against the
+               host's f32 products (scalar and per-row lengths); h2o's ring against the same entries rotated into
+               slots by position; MoE expert loads and dropped share.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -237,6 +264,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -256,7 +284,7 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
-from repro_torch import build, live, retrieval, serving  # noqa: E402
+from repro_torch import build, configs, live, retrieval, serving  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
 from repro_torch.core import engine_sharded, indexer  # noqa: E402
@@ -275,9 +303,11 @@ from repro_torch.exec.tiered import partition_tiered  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
+from repro_torch.launch import cells as cells_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import colbert, transformer  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.obs.trace import Tracer  # noqa: E402
@@ -400,6 +430,48 @@ SLEEP_CYCLES = 2_000_000  # queued before each call device_time_ms times
 #: outputs one bf16 ulp apart (both round an f32 result once)
 FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
              torch.bfloat16: dict(rtol=2.0**-7, atol=1e-6)}
+#: K7 at the LM prefills (phase lm): B, S, H (padded), Hkv, dh, causal: yi-34b
+#: at prefill_32k's length (batch 32 -> 1), granite-34b (MQA, 48 heads over
+#: 1), granite-moe-1b (B 8) and deepseek-moe-16b (MHA); fewer timing reps
+#: (a 32k call takes tens of ms, its plain version seconds)
+LM_FLASH_CASES = [("yi-34b", 1, 32768, 64, 8, 128), ("granite-34b", 1, 4096, 48, 1, 128),
+                  ("granite-moe-1b-a400m", 8, 4096, 16, 8, 64),
+                  ("deepseek-moe-16b", 1, 4096, 16, 16, 128)]
+LM_FLASH_REPS = 5
+#: phase lm: (arch, layers kept or None for all, prefill (B, S), decode (B,
+#: the cell's seq_len, cache_len)).  Cuts: yi-34b keeps 16 of 60 layers
+#: (bf16 weights: 20.2 GB of 70.5), prefill_32k's batch 32 -> 1, decode_32k's
+#: 128 -> 8; deepseek-moe-16b keeps 4 of 28 (the dense first + 3 MoE);
+#: h2o-danube-3-4b's prefill is 8,192 tokens (its 4,096 window binds) and
+#: its decode long_500k unreduced (a 4,096-slot ring at cache_len 524,287)
+LM_RUNS = (
+    ("yi-34b", 16, (1, 32768), (8, 32768, 32767)),
+    ("h2o-danube-3-4b", None, (1, 8192), (1, 524288, 524287)),
+    ("granite-moe-1b-a400m", None, (8, 4096), (32, 4096, 4095)),
+    ("deepseek-moe-16b", 4, (1, 4096), (32, 4096, 4095)),
+)
+LM_CHECK_S = 4096  # K7 model vs chunked attention (32k is too slow in plain torch)
+LM_MATCH_B, LM_MATCH_S = 2, 64  # decode == prefill, the reference's own check
+LM_PREFILL_REPS, LM_DECODE_REPS = 3, 20
+#: a second ring position: its window does not start at slot 0
+LM_RING_OFFSET = 1234
+#: bf16 logits of K7's model against chunked attention's (two paths that
+#: round in different places): per row cosine >= 0.999 and max |diff| <= 2%
+#: of the row's largest |logit|
+LM_COS_MIN, LM_ERR_SHARE = 0.999, 0.02
+#: decode against prefill, and a ring against its rotation, computed in f32
+#: from the same bf16 weights (the same values summed in another order):
+#: cosine >= 0.99999 and max |diff| <= 0.1% of the row's largest |logit|.
+#: In bf16 one rounding flipped by the order grows through the layers (on
+#: an H100: yi's 16, 1.3% of the largest logit; h2o's 24 over a rotated
+#: ring, 3.1%)
+LM_F32_COS_MIN, LM_F32_ERR_SHARE = 0.99999, 1e-3
+#: decode attention over a bf16 cache on the card against the host's f32
+#: products, both with f32 outputs: max |diff| <= 0.1% of the largest
+#: |output|.  In plain torch on a CPU at yi-34b's head layout (32,768 slots,
+#: dh 128), f32 against f64 is 1e-4 of it; scores or the output rounded to
+#: bf16 before the softmax or the return put it 4.7e-3 and 3.3e-3 away
+LM_DECODE_ATTN_ERR_SHARE = 1e-3
 #: the reference's flash test shapes (tests/test_flash_attention.py:10-18):
 #: B, S, H, Hkv, dh, causal
 JAX_FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 128, 8, 1, 32, True),
@@ -1002,6 +1074,18 @@ def main(argv=None) -> int:
             batches[1][0]))
         info["encode"] = dict(batch=BATCH, seq=NQ, **profile_encode(model, q_toks[:BATCH]))
 
+    # ---- 16. serving the LM family: prefill through K7, KV-cache decode ---
+    # the index and the encoder are not needed past here: phase lm holds up
+    # to ~45 GB (yi-34b's 16 layers and a 17 GB cache)
+    del index, batches, qs_all, src_all, qm, model, q_toks
+    torch.cuda.empty_cache()
+    with Phase("lm") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        info["resident_bytes"] = torch.cuda.memory_allocated()  # earlier phases' leftovers
+        # counted around each config's warm-up and timed prefills (the
+        # checks' K7 runs not)
+        lm_counts = lm_phase(args.seed, dev, info)
+
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
@@ -1009,7 +1093,7 @@ def main(argv=None) -> int:
     # around the serving of the trained weights): K1-K3 in search, live,
     # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
     # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
-    # stream_build, train and train_dp
+    # stream_build, train, train_dp and lm
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
                 + serve_counts[name] + sharded_counts[name] + driver_counts[name]
                 + train_counts[name] + dp_counts[name]
@@ -1021,7 +1105,8 @@ def main(argv=None) -> int:
     launches["flash_attention"] = (encode_counts["flash_attention"]
                                    + stream_counts["flash_attention"]
                                    + train_counts["flash_attention"]
-                                   + dp_counts["flash_attention"])
+                                   + dp_counts["flash_attention"]
+                                   + lm_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -1101,9 +1186,10 @@ def profile_batch(retriever, qb, reps: int = 3) -> dict:
     )
 
 
-def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool) -> dict:
+def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool, reps: int = 25) -> dict:
     """K7 against its plain version on one seeded case; at the encoder's
-    shapes also its time, the plain version's, SDPA's and the bound."""
+    and the LM prefills' shapes also its time, the plain version's, SDPA's
+    and the bound (``reps`` timed calls; the plain version's a fifth)."""
     dev = "cuda"
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
@@ -1133,10 +1219,11 @@ def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool) -> dict:
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
         row.update(
-            ms=time_ms(kern, reps=25), device_ms=device_time_ms(kern, reps=25),
-            host_us=host_us(kern, reps=25), plain_ms=time_ms(plain, reps=5, warmup=1),
-            library_ms=time_ms(sdpa, reps=25), library_device_ms=device_time_ms(sdpa, reps=25),
-            library_host_us=host_us(sdpa, reps=25),
+            ms=time_ms(kern, reps=reps), device_ms=device_time_ms(kern, reps=reps),
+            host_us=host_us(kern, reps=reps),
+            plain_ms=time_ms(plain, reps=max(reps // 5, 1), warmup=min(reps // 5, 1)),
+            library_ms=time_ms(sdpa, reps=reps), library_device_ms=device_time_ms(sdpa, reps=reps),
+            library_host_us=host_us(sdpa, reps=reps),
             library_max_abs_err=float((lib.float() - want.float()).abs().max()),
             bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
         )
@@ -1151,9 +1238,12 @@ def flash_cases(dev) -> list:
            ("passages", ENCODE_BATCH, DOC_MAXLEN, 48, 12, 64, False, torch.bfloat16)]
     jax_shapes = [(f"reference_test_{i}", *shape, torch.float32)
                   for i, shape in enumerate(JAX_FLASH_SHAPES)]
+    lm = [(f"lm_{arch}", B, S, H, Hkv, dh, True, torch.bfloat16)
+          for arch, B, S, H, Hkv, dh in LM_FLASH_CASES]
     return ([flash_check(*c, g, timed=True) for c in enc]
             + [flash_check(*c, g, timed=False) for c in jax_shapes]
-            + flash_view_cases(dev, g))
+            + flash_view_cases(dev, g)
+            + [flash_check(*c, g, timed=True, reps=LM_FLASH_REPS) for c in lm])
 
 
 def flash_view_cases(dev, g) -> list:
@@ -3478,6 +3568,322 @@ def extra_kernel_cases(dev) -> list:
         for (a, b), name in zip(pairs, ("K1", "K2", "K3")):  # the shared-order contract
             assert torch.equal(a, b), (name, nbits, nq)
     return out
+
+
+# --------------------------------------------------------------------------
+# phase lm: serving the LM family (prefill through K7, KV-cache decode)
+# --------------------------------------------------------------------------
+def lm_logits_agree(got, want, vocab: int, cos_min=LM_COS_MIN, err_share=LM_ERR_SHARE) -> dict:
+    """Two logit rows per batch row against each other over the real vocab
+    (cosine, largest |diff| over the row's largest |logit|), and whether
+    their argmaxes agree."""
+    g, w = got[:, :vocab].float(), want[:, :vocab].float()
+    diff = (g - w).abs().amax(dim=-1)
+    row = dict(min_cos=float(F.cosine_similarity(g, w, dim=-1).min()),
+               max_abs_err=float(diff.max()),
+               max_err_share=float((diff / w.abs().amax(dim=-1)).max()),
+               argmax_equal=bool(torch.equal(g.argmax(-1), w.argmax(-1))))
+    row["ok"] = row["min_cos"] >= cos_min and row["max_err_share"] <= err_share
+    return row
+
+
+def lm_exact_agree(got, want, vocab: int) -> dict:
+    return lm_logits_agree(got, want, vocab, LM_F32_COS_MIN, LM_F32_ERR_SHARE)
+
+
+def lm_twin(model, dtype=None, **changes):
+    """A model whose config is ``model``'s with ``changes``, holding
+    ``model``'s parameter tensors, or with ``dtype`` one copy of them cast
+    to it (its compute dtype then): a check's variant of the served model,
+    which stays as it is."""
+    if dtype is not None:
+        changes["dtype"] = dtype
+    cfg = dataclasses.replace(model.cfg, **changes)
+    twin = transformer.Transformer(cfg, "meta", head=model.head,
+                                   param_dtype=dtype or model.embed.dtype)
+    state = model.state_dict(keep_vars=True)
+    if dtype is not None:
+        state = {n: t.to(dtype) for n, t in state.items()}
+    twin.load_state_dict(state, assign=True)
+    return twin
+
+
+def lm_config(arch: str, layers, reduced: bool = False):
+    """The arch's full config (``reduced``: its reduced one, for a CPU
+    rehearsal) cut to ``layers``, with K7 as its prefill attention."""
+    mod = configs.get(arch)
+    cfg = mod.reduced_config() if reduced else mod.full_config()
+    if layers and not reduced:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, attn_impl="flash")
+
+
+def lm_k7_layer0(model, toks) -> dict:
+    """K7 against its plain version on layer 0's q, k, v of the prefill
+    input, within FLASH_TOL[bf16]; the launch is not the main path's."""
+    lay = model.layers[0]
+    w = {n: getattr(lay, n) for n in lay.names}
+    pos = torch.arange(toks.shape[1], device=toks.device, dtype=torch.int32)[None, :]
+    x = lm_layers.rmsnorm(w["ln1_g"], model.embed[toks.long()])
+    with torch.no_grad():
+        q, k, v = lay.project_qkv(x, pos, model.cast, w)
+        got = fa.flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = FLASH_TOL[q.dtype]
+    row = dict(shape=dict(B=q.shape[0], S=q.shape[1], H=q.shape[2], Hkv=k.shape[2], dh=q.shape[3]),
+               dtype=str(q.dtype), tol=tol,
+               max_abs_err=float((got.float() - want.float()).abs().max()),
+               ok=torch.allclose(got.float(), want.float(), **tol))
+    assert row["ok"], row
+    return row
+
+
+class MoeStats:
+    """Records each ``moe_route`` call (expert ids, keep masks) while
+    active: the port's router, wrapped here to read what it keeps
+    internal.  ``replay`` (the ``calls`` of an earlier run of the same
+    model and input) makes this run take those choices, with its own
+    probabilities as their gates, and counts the tokens whose own choices
+    differ (``flipped``)."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay, self.flipped = [], replay, 0
+
+    def __enter__(self):
+        self.orig = transformer.moe_route
+
+        def spy(router, xg, cfg, cap):
+            out = self.orig(router, xg, cfg, cap)
+            if self.replay is not None:
+                probs, ids = out[0], self.replay[len(self.calls)][0]
+                self.flipped += int((ids != out[2]).any(-1).sum())
+                gates = probs.gather(-1, ids)
+                gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+                slots = transformer.moe_slots(ids, cfg.n_experts)
+                out = (probs, gates, ids, slots, slots < cap)
+            self.calls.append((out[2], out[4], cfg.n_experts))
+            return out
+
+        transformer.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        transformer.moe_route = self.orig
+        return False
+
+    def summary(self) -> dict:
+        loads = [torch.bincount(ids[keep], minlength=E) for ids, keep, E in self.calls]
+        dropped = [1.0 - float(keep.float().mean()) for _, keep, _ in self.calls]
+        return dict(layers=len(self.calls), dropped_share=dropped,
+                    load_min_max=[[int(x.min()), int(x.max())] for x in loads],
+                    first_layer_loads=loads[0].tolist() if loads else [])
+
+
+def lm_ring_check(model, cfg, dev, g, cache_len: int) -> dict:
+    """A sliding-window decode at ``cache_len`` on a random ring cache
+    against the full-attention decode over the same entries rotated into
+    slots 0..Sc-1 by position (the newest last), both in f32 (one f32 copy
+    of the weights, shared by the two): the logits agree (LM_F32_*;
+    identical where the rotation is none), and the updated caches, rotated
+    back, are identical in layer 0 (its new k and v come from the
+    embedding alone; a later layer's carry the attention's sums, taken over
+    the slots in another order)."""
+    Sc = cfg.window
+    ring = lm_twin(model, torch.float32)
+    full = lm_twin(ring, window=None)
+    cache = transformer.init_cache(ring.cfg, 1, Sc, dev)
+    for t in cache.values():
+        t.normal_(generator=g)
+    tok = torch.randint(0, cfg.vocab, (1,), generator=g, device=dev)
+    shift = (cache_len + 1) % Sc  # the slot of the oldest entry after the write
+    rolled = {n: torch.roll(t, -shift, dims=2) for n, t in cache.items()}
+    ring_logits, cache = transformer.decode_step(ring, cache, tok, cache_len)
+    full_logits, rolled = transformer.decode_step(full, rolled, tok, cache_len)
+    del ring, full
+    back = {n: torch.roll(cache[n], -shift, dims=2) for n in cache}
+    row = dict(cache_len=cache_len, slot=cache_len % Sc, shift=shift,
+               logits_identical=torch.equal(ring_logits, full_logits),
+               layer0_identical=all(torch.equal(back[n][0], rolled[n][0]) for n in cache),
+               cache_max_abs_err=max(float((back[n] - rolled[n]).abs().max()) for n in cache),
+               **lm_exact_agree(ring_logits, full_logits, cfg.vocab))
+    assert row["ok"] and row["layer0_identical"] and (shift or row["logits_identical"]), row
+    return row
+
+
+def lm_decode_attention_check(cache, cfg, n_valid: int, g) -> list[dict]:
+    """``decode_attention`` on layer 0's bf16 cache at the cell's shape (on
+    the card: the ``out_dtype=float32`` products over strided cache views)
+    against the same call on the host, whose products run on f32 copies of
+    the cache.  q holds bf16 values in f32, so the output is the f32
+    accumulator's; it must lie within LM_DECODE_ATTN_ERR_SHARE of its
+    largest |value|, with the valid length a scalar and per row."""
+    k, v = cache["k"][0], cache["v"][0]
+    B, _, _, dh = k.shape
+    q = torch.randn(B, 1, cfg.padded_heads, dh, generator=g, device=k.device).to(k.dtype).float()
+    lens = torch.randint(1, n_valid + 1, (B,), generator=g, device=k.device)
+    lens[0] = n_valid
+    host = [t.cpu() for t in (q, k[:, :n_valid], v[:, :n_valid])]
+    out = []
+    for name, n, n_host in (("scalar", n_valid, n_valid), ("per_row", lens, lens.cpu())):
+        got = lm_layers.decode_attention(q, k, v, n)
+        want = lm_layers.decode_attention(*host, n_host)
+        err = float((got.cpu() - want).abs().max())
+        out.append(dict(lens=name, B=B, n_valid=n_valid, kv_dtype=str(k.dtype), out_dtype=str(got.dtype),
+                        max_abs_err=err, err_share=err / float(want.abs().max())))
+    assert all(r["err_share"] <= LM_DECODE_ATTN_ERR_SHARE and r["out_dtype"] == "torch.float32"
+               for r in out), out
+    return out
+
+
+def lm_run(arch, layers, prefill_bs, decode_bs, seed, dev, reduced=False) -> tuple[dict, int]:
+    """One LM config on the card: K7 at layer 0 against plain; prefill time
+    (median of LM_PREFILL_REPS after a warm-up) against the bf16 FLOP
+    bound, K7's launches, peak bytes; the K7 model's last-position logits
+    against chunked attention's at LM_CHECK_S; decode == prefill at
+    (LM_MATCH_B, LM_MATCH_S); decode-step time (median of LM_DECODE_REPS)
+    against (weight + cache bytes) over the memory rate, launches a step,
+    peak bytes; bf16 decode attention at the cell's cache against the
+    host's f32 products; the ring (sliding window); MoE loads and drops.
+    Returns the config's line and K7's launches on its main path (the
+    warm-up and timed prefills alone; the checks' are in the line)."""
+    cfg = lm_config(arch, layers, reduced)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, g, dev, head=True, param_dtype=cfg.dtype)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    row = dict(arch=arch, layers=cfg.n_layers, cut=dict(layers=layers, prefill=prefill_bs,
+               decode=decode_bs), d_model=cfg.d_model, heads=cfg.n_heads,
+               padded_heads=cfg.padded_heads, kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+               experts=cfg.n_experts, top_k=cfg.top_k, window=cfg.window, dtype=str(cfg.dtype),
+               weight_bytes=weight_bytes, init_s=time.perf_counter() - t0)
+    uses_k7 = cfg.window is None
+    B, S = prefill_bs
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    if uses_k7:
+        row["k7_layer0"] = lm_k7_layer0(model, toks)
+
+    # (1) prefill: the main path; K7's launches counted around it alone
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    stats = MoeStats()
+    with stats:
+        out = transformer.prefill(model, toks)  # the warm-up, its routing recorded
+    prefill_ms = time_ms(lambda: transformer.prefill(model, toks), reps=LM_PREFILL_REPS, warmup=0)
+    launches = fa.launches
+    assert out.shape == (B, cfg.padded_vocab) and bool(torch.isfinite(out[:, :cfg.vocab]).all())
+    flops = cells_mod.lm_model_flops(cfg, "prefill", S, B)
+    # the bound's work: the reference's model FLOPs, less its 2 N a token
+    # for the embedding (a lookup) and the head, plus the head at the B
+    # last positions (the only logits prefill makes)
+    emb = cfg.vocab * cfg.d_model * (1 if cfg.tied_embeddings else 2)
+    bound_flops = flops - 2.0 * B * S * emb + 2.0 * B * cfg.d_model * cfg.vocab
+    row["prefill"] = dict(B=B, S=S, ms=prefill_ms, model_flops=flops, bound_flops=bound_flops,
+                          bound_ms=bound_flops / BF16_FLOPS * 1e3,
+                          tokens_per_s=B * S / prefill_ms * 1e3,
+                          k7_launches=launches, peak_device_bytes=torch.cuda.max_memory_allocated())
+    assert launches == (LM_PREFILL_REPS + 1) * cfg.n_layers * uses_k7, (launches, cfg.n_layers)
+    if cfg.n_experts:
+        row["moe"] = stats.summary()
+        assert row["moe"]["layers"] == cfg.n_moe_layers, row["moe"]
+    del out
+
+    # (2) K7 against chunked attention through the whole model.  An MoE
+    # model's chunked run takes the K7 run's expert choices: top-k routing
+    # is discontinuous, and a near-tie that the two attentions' roundings
+    # settle apart moves a token to another expert (and, with drops, every
+    # later token of its group to other slots): granite-moe-1b's 24 layers
+    # ended 12% (capacity 1.25) and 7% (no drops) of the largest logit
+    # apart with free routing on an H100.  The tokens whose own choices differ are
+    # counted (``flipped``)
+    if uses_k7:
+        tc = toks[:, : min(S, LM_CHECK_S)]
+        fa.launches = 0
+        with MoeStats() as k7_routes:
+            k7 = transformer.prefill(model, tc)
+        check_launches = fa.launches  # a check's, not the main path's
+        with MoeStats(replay=k7_routes.calls) as replayed:
+            chunked = transformer.prefill(lm_twin(model, attn_impl="chunked"), tc)
+        row["k7_vs_chunked"] = dict(S=tc.shape[1], routing_replayed=bool(cfg.n_experts),
+                                    flipped_tokens=replayed.flipped, k7_launches=check_launches,
+                                    **lm_logits_agree(k7, chunked, cfg.vocab))
+        del k7_routes, replayed
+        assert row["k7_vs_chunked"]["ok"] and row["k7_vs_chunked"]["argmax_equal"], row
+
+    # (3) decode == prefill, in f32 (no expert drops a choice: capacity E / k)
+    mt = torch.randint(0, cfg.vocab, (LM_MATCH_B, LM_MATCH_S), generator=g, device=dev)
+    no_drop = dict(capacity_factor=cfg.n_experts / cfg.top_k) if cfg.n_experts else {}
+    m32 = lm_twin(model, torch.float32, **no_drop)
+    fa.launches = 0
+    want = transformer.prefill(m32, mt)
+    check_launches = fa.launches  # K7's f32 body, a check's
+    cache = transformer.init_cache(m32.cfg, LM_MATCH_B, LM_MATCH_S, dev)
+    for t in range(LM_MATCH_S):
+        got, cache = transformer.decode_step(m32, cache, mt[:, t], t)
+    del cache, m32
+    row["decode_vs_prefill"] = dict(B=LM_MATCH_B, S=LM_MATCH_S, dtype="torch.float32",
+                                    k7_launches=check_launches,
+                                    **lm_exact_agree(got, want, cfg.vocab))
+    assert row["decode_vs_prefill"]["ok"], row
+
+    # (4) decode at the cell's cache length
+    Bd, seq_len, cache_len = decode_bs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = transformer.init_cache(cfg, Bd, seq_len, dev)
+    for t in cache.values():
+        for layer in t:
+            layer.normal_(generator=g)
+    dt = torch.randint(0, cfg.vocab, (Bd,), generator=g, device=dev)
+
+    def step():
+        return transformer.decode_step(model, cache, dt, cache_len)
+
+    step_ms = time_ms(step, reps=LM_DECODE_REPS)
+    logits, _ = step()
+    assert bool(torch.isfinite(logits[:, : cfg.vocab]).all())
+    kern, wall_ms, whole, sessions = traced_kernels(step, reps=3)
+    Sc = cache["k"].shape[2]
+    n_valid = min(cache_len + 1, Sc)
+    read = (weight_bytes - model.embed.numel() * model.embed.element_size()
+            + Bd * cfg.d_model * model.embed.element_size())  # embed: B rows
+    cache_bytes = 2 * cfg.n_layers * Bd * n_valid * cfg.n_kv_heads * cfg.d_head * cache["k"].element_size()
+    row["decode"] = dict(
+        B=Bd, seq_len=seq_len, cache_slots=Sc, cache_len=cache_len, ms=step_ms,
+        weight_bytes_read=read, cache_bytes_read=cache_bytes,
+        bound_ms=(read + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        tokens_per_s=Bd / step_ms * 1e3,
+        model_flops=cells_mod.lm_model_flops(cfg, "decode", seq_len, Bd),
+        launches_per_step=sum(e.count for e in kern) // 3, launches_whole=whole, sessions=sessions,
+        profiled_device_ms=sum(e.self_device_time_total for e in kern) / 1e3 / 3,
+        profiled_wall_ms=wall_ms, peak_device_bytes=torch.cuda.max_memory_allocated(),
+        top=[dict(kernel=e.key[:80], ms=e.self_device_time_total / 1e3 / 3, calls=e.count // 3)
+             for e in kern[:6]],
+        bf16_attention=lm_decode_attention_check(cache, cfg, n_valid, g))
+    del cache
+
+    # (5) the ring: at the cell's cache_len and at one whose window does
+    # not start at slot 0
+    if cfg.window:
+        row["ring"] = [lm_ring_check(model, cfg, dev, g, n)
+                       for n in (cache_len, cache_len - LM_RING_OFFSET)]
+    del model
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def lm_phase(seed, dev, info: dict, runs=LM_RUNS, reduced=False) -> dict:
+    """Phase lm: each of LM_RUNS through ``lm_run`` (one ``lm`` line each).
+    Returns K7's launches on the LM main path."""
+    total = 0
+    info["configs"] = []
+    for i, (arch, layers, prefill_bs, decode_bs) in enumerate(runs):
+        row, launches = lm_run(arch, layers, prefill_bs, decode_bs, seed + 41 + i, dev, reduced)
+        emit({"lm": row})
+        info["configs"].append(arch)
+        total += launches
+    return {"flash_attention": total}
 
 
 if __name__ == "__main__":

@@ -1,23 +1,28 @@
 """Model configurations of the port (torch dtypes) and the arch registry:
 ``--arch <id>`` resolves here (the counterpart of ``repro.configs``).
 
-Only ``plaid-colbertv2``, the paper's own encoder, is ported.  Every other
-id of the reference's registry raises and names the ROADMAP item that
-ports it: the LM family (dense and MoE) with LM training and decode, Queue 1
-item 8; the recsys and GNN scaffolding, Queue 1 item 9.
+Ported: ``plaid-colbertv2`` (the paper's own encoder) and the five LM
+archs (dense and MoE), whose serving path (``prefill`` and ``decode_step``
+with a KV cache) runs; LM training is ROADMAP Queue 1 item 8.3.  The
+recsys and GNN ids raise and name the ROADMAP item that ports them, Queue
+1 item 9.
 """
 from __future__ import annotations
 
 import importlib
 
-_MODULES = {"plaid-colbertv2": "repro_torch.configs.colbertv2"}
+_MODULES = {
+    # LM family
+    "h2o-danube-3-4b": "repro_torch.configs.h2o_danube3_4b",
+    "yi-34b": "repro_torch.configs.yi_34b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
+    "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    # the paper's own architecture
+    "plaid-colbertv2": "repro_torch.configs.colbertv2",
+}
 #: the reference's other arch ids -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "h2o-danube-3-4b": "Queue 1 item 8 (LM training and decode)",
-    "yi-34b": "Queue 1 item 8 (LM training and decode)",
-    "granite-34b": "Queue 1 item 8 (LM training and decode)",
-    "granite-moe-1b-a400m": "Queue 1 item 8 (MoE layers)",
-    "deepseek-moe-16b": "Queue 1 item 8 (MoE layers)",
     "schnet": "Queue 1 item 9 (GNN scaffolding)",
     "xdeepfm": "Queue 1 item 9 (recsys scaffolding)",
     "bst": "Queue 1 item 9 (recsys scaffolding)",
@@ -26,7 +31,9 @@ _NOT_PORTED = {
 }
 
 #: the reference's ids, in its order
-ARCH_IDS = list(_NOT_PORTED) + list(_MODULES)
+ARCH_IDS = ["h2o-danube-3-4b", "yi-34b", "granite-34b", "granite-moe-1b-a400m",
+            "deepseek-moe-16b", "schnet", "xdeepfm", "bst", "bert4rec", "wide-deep",
+            "plaid-colbertv2"]
 
 
 def get(arch_id: str):
@@ -38,3 +45,7 @@ def get(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {', '.join(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch_id])
+
+
+def cells_of(arch_id: str):
+    return {c.name: c for c in get(arch_id).CELLS}

@@ -48,33 +48,40 @@
 //   masks (-inf) only in a tile that reaches past S or past a causal row;
 //   row max and row sum over the 4 lanes of a quad by shuffles; in log2
 //   units, p = 2^(s dh^-0.5 log2 e - m) as one fma and one ex2.approx
-//   (relative error ~2^-22, far inside the tolerance), l and acc rescaled
-//   by 2^(m_old - m_new).
-// * O += P V: the S accumulators are converted in place into register
-//   A-operands (the accumulator and A fragments share a layout), p split
-//   into three bf16 terms, p_hi = bf16(p), p_mid = bf16(p - p_hi), p_lo =
-//   bf16(p - p_hi - p_mid) (each difference exact in f32), and three
-//   wgmmas (register A, V as an MN-major B with the transpose bit) add
-//   into the same f32 accumulators.  The reference keeps p in f32.  One
-//   bf16 p puts ~11% of the outputs outside one bf16 ulp of it; hi + lo
-//   (~2^-18 of p) still puts near-zero outputs of short causal rows
-//   outside (about one in a million: atol is 1e-6); three terms (~2^-27
-//   of p, f32's own precision) put none outside
-//   (tests/test_torch_flash.py, the emulation tests).
+//   (relative error ~2^-22, far inside the tolerance), l rescaled by
+//   corr = 2^(m_old - m_new).
+// * O = O corr + P V: the S accumulators are converted in place into
+//   register A-operands (the accumulator and A fragments share a layout),
+//   p split into three bf16 terms, p_hi = bf16(p), p_mid = bf16(p - p_hi),
+//   p_lo = bf16(p - p_hi - p_mid) (each difference exact in f32), and
+//   three wgmmas a 16-key step (register A, V as an MN-major B with the
+//   transpose bit) sum the tile's P V into fresh f32 accumulators, which
+//   are then added to O in IEEE f32 (one fma an element).  The reference
+//   keeps p in f32.  One bf16 p puts ~11% of the outputs outside one bf16
+//   ulp of it; hi + lo (~2^-18 of p) still puts near-zero outputs of
+//   short causal rows outside (about one in a million: atol is 1e-6);
+//   three terms (~2^-27 of p, f32's own precision) put none outside
+//   (tests/test_torch_flash.py, the emulation tests).  The tensor cores'
+//   sums round toward zero, so a chain of wgmmas into O across every tile
+//   of an LM row drifts: at S 32,768 (yi-34b's prefill, on an H100)
+//   outputs near zero left atol 1e-6 by ~1e-6 (2,774 of 268M, all at
+//   positions past 10,000); a tile's chain of 12 wgmmas, summed across
+//   tiles in IEEE f32, leaves none.
 // * Output: acc * (1 / max(l, 1e-20)) rounded to bf16 and stored from
 //   registers, rows past S and dims past dh skipped.
 //
 // Occupancy.  `nvcc -Xptxas -v` (kernels/_build.py keeps its output;
-// chip_smoke.py prints it, PERF.md records it) gives 126 registers at
-// dh <= 64 and 142 at dh 128, no spills.  Shared memory is 40 KB a block
-// at dh <= 64 (Q, 2 x K, 2 x V tiles of 8 KB) and 80 KB at dh 128, each
-// plus 1 KB to align to 1024 bytes.  At dh <= 64 registers allow 4 blocks
-// an SM (126 rounds to 128 a thread, 16K a block of the SM's 64K) where
-// shared memory would allow 5; at dh 128 shared memory allows 2.  So the
-// 132 SMs hold 528 blocks of the encoder's dh 64 at a time: the passage
-// shape's 9,216 blocks run in 17.5 waves, enough that the last partial
-// wave costs little, and the query shape's 768 in 1.45 (its second wave
-// less than half full; there are no more rows to spread).
+// chip_smoke.py prints it, PERF.md records it) gave 126 registers at
+// dh <= 64 and 142 at dh 128, no spills, before the tile accumulators
+// (32 more a thread; the build phase prints today's).  Shared memory is
+// 40 KB a block at dh <= 64 (Q, 2 x K, 2 x V tiles of 8 KB) and 80 KB at
+// dh 128, each plus 1 KB to align to 1024 bytes.  Registers bound the
+// blocks an SM holds at dh <= 64 (4 at 128 a thread, 3 up to 168; shared
+// memory would allow 5); at dh 128 shared memory allows 2.  At 4 blocks
+// the 132 SMs hold 528 blocks of the encoder's dh 64 at a time: the
+// passage shape's 9,216 blocks run in 17.5 waves, and the query shape's
+// 768 in 1.45 (its second wave less than half full; there are no more
+// rows to spread).
 //
 // f32 body (plaid_flash_attention_f32): off the main path (the encoder runs
 // in bf16), used at the reference's f32 test shapes.  It computes on CUDA
@@ -395,15 +402,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "memory");
 }
 
-// d (64 x 64, f32) += A B, A bf16 in registers (the fragment of a 64 x 16
-// tile), B bf16 MN-major in shared memory (transpose bit set).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+// d (64 x 64, f32) = [d +] A B, A bf16 in registers (the fragment of a
+// 64 x 16 tile), B bf16 MN-major in shared memory (transpose bit set);
+// scale_d == 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PLAID_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : PLAID_ACC32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
       : "memory");
 }
 
@@ -477,8 +486,10 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
   // row r0 + 8 rr, column 8 n8 + 2 quad + e
   const int r0 = 16 * warp + (lane >> 2);
   const int pos[2] = {p0 + r0 / hb, p0 + (r0 + 8) / hb};
-  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f};
-  float acc[kSlabs][32], s[32];
+  float m[2] = {kNegInit, kNegInit}, l[2] = {0.f, 0.f}, corr[2];
+  float acc[kSlabs][32], s[32], tile[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) tile[i] = 0.f;
 #pragma unroll
   for (int c = 0; c < kSlabs; ++c)
 #pragma unroll
@@ -521,7 +532,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
       tmax = fmaxf(tmax, __shfl_xor_sync(plaid::kFull, tmax, 1));
       tmax = fmaxf(tmax, __shfl_xor_sync(plaid::kFull, tmax, 2));
       const float m_new = fmaxf(m[rr], tmax * scale_log2);
-      const float corr = ex2(m[rr] - m_new);
+      corr[rr] = ex2(m[rr] - m_new);
       float psum = 0.f;
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8)
@@ -533,15 +544,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         }
       psum += __shfl_xor_sync(plaid::kFull, psum, 1);
       psum += __shfl_xor_sync(plaid::kFull, psum, 2);
-      l[rr] = l[rr] * corr + psum;
+      l[rr] = l[rr] * corr[rr] + psum;
       m[rr] = m_new;
-#pragma unroll
-      for (int c = 0; c < kSlabs; ++c)
-#pragma unroll
-        for (int n8 = 0; n8 < 8; ++n8) {
-          acc[c][4 * n8 + 2 * rr] *= corr;
-          acc[c][4 * n8 + 2 * rr + 1] *= corr;
-        }
     }
 
     // p as A fragments, 16 keys a step: register r of step kk holds row
@@ -558,21 +562,28 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int u = 0; u < 3; ++u) pa[u][kk][r] = t[u];
       }
 
-    // acc += p_hi . v + p_mid . v + p_lo . v, 16 keys (2048 bytes of v) a step
+    // tile = p_hi . v + p_mid . v + p_lo . v over this tile's 64 keys, 16
+    // (2048 bytes of v) a step, in fresh accumulators; then acc = acc * corr
+    // + tile in IEEE f32, one slab at a time.  The tensor cores round their
+    // sums toward zero: a chain of wgmmas into acc across all of a long
+    // row's tiles (S 32,768: 512 tiles, 6,144 products) drifted ~1e-6 from
+    // the exact sum of outputs ~0.05; a chain of 12 within a tile does not.
     mbar_wait(&sm.bar_v[st], parity);
-    wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c)
+    for (int c = 0; c < kSlabs; ++c) {
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = sw128_desc(sm.v[st][c]) + (uint64_t)(kk * 2048 >> 4);
 #pragma unroll
-        for (int u = 0; u < 3; ++u) wgmma_rs(acc[c], pa[u][kk], dv);
+        for (int u = 0; u < 3; ++u) wgmma_rs(tile, pa[u][kk], dv, kk | u);
       }
-    wgmma_commit();
-    wgmma_wait_all();
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(tile);
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c) fence_regs(acc[c]);
+      for (int i = 0; i < 32; ++i) acc[c][i] = fmaf(acc[c][i], corr[(i >> 1) & 1], tile[i]);
+    }
 
     __syncthreads();  // every warp is done with stage st
     if (tid == 0 && j + kStages < n_tiles) load_kv(sm, &tk, &tv, j + kStages, st, kvh, b);

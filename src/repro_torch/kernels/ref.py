@@ -198,24 +198,40 @@ def flash_attention_ref(
     ``l = sum p``, ``acc = p v`` (``p`` in f32); masked keys score ``NEG``
     and the output is ``acc / max(l, 1e-20)``.  The CUDA kernel walks 64-key
     tiles, so its sums are rounded in another order.
+
+    Rows are independent, so the work is split into blocks of lanes, heads
+    and query rows of at most ``_CHUNK_ELEMS`` scores each (an LM prefill's
+    S = 32,768 takes 4,096 rows of one head a block).  A causal block reads
+    the keys up to its last row only: the keys past it score ``NEG`` and
+    add ``exp(NEG - m) = 0``, as every row keeps key 0.
     """
     B, S, H, dh = q.shape
     g = H // k.shape[2]
     scale = dh**-0.5
     out = torch.empty_like(q)
     for sl in _lane_chunks(B, H * S * S):
-        qf = q[sl].float().transpose(1, 2)  # (nb, H, S, dh)
-        kf = k[sl].float().repeat_interleave(g, dim=2).transpose(1, 2)
-        vf = v[sl].float().repeat_interleave(g, dim=2).transpose(1, 2)
-        with ieee_f32_matmul():
-            s = (qf @ kf.transpose(-1, -2)) * scale  # (nb, H, S, S)
-        if causal:
-            pos = torch.arange(S, device=q.device)
-            s = torch.where(pos[:, None] >= pos[None, :], s, FLASH_NEG)
-        m = s.amax(dim=-1, keepdim=True).clamp(min=FLASH_NEG)
-        p = torch.exp(s - m)
-        l = p.sum(dim=-1, keepdim=True)
-        with ieee_f32_matmul():
-            acc = p @ vf
-        out[sl] = (acc / l.clamp(min=1e-20)).transpose(1, 2).to(q.dtype)
+        nb = sl.stop - sl.start
+        hs = max(1, min(H, _CHUNK_ELEMS // (nb * S * S)))
+        rs = S if nb * hs * S * S <= _CHUNK_ELEMS else max(1, _CHUNK_ELEMS // (nb * hs * S))
+        for h0 in range(0, H, hs):
+            heads = torch.arange(h0, min(h0 + hs, H), device=q.device)
+            for r0 in range(0, S, rs):
+                r1 = min(r0 + rs, S)
+                n = r1 if causal else S
+                qf = q[sl, r0:r1, h0 : h0 + hs].float().transpose(1, 2)  # (nb, hh, R, dh)
+                kf = k[sl, :n][:, :, heads // g].float().transpose(1, 2)  # (nb, hh, n, dh)
+                vf = v[sl, :n][:, :, heads // g].float().transpose(1, 2)
+                with ieee_f32_matmul():
+                    s = (qf @ kf.transpose(-1, -2)) * scale  # (nb, hh, R, n)
+                if causal:
+                    qpos = torch.arange(r0, r1, device=q.device)
+                    kpos = torch.arange(n, device=q.device)
+                    s = torch.where(qpos[:, None] >= kpos[None, :], s, FLASH_NEG)
+                m = s.amax(dim=-1, keepdim=True).clamp(min=FLASH_NEG)
+                p = torch.exp(s - m)
+                del s
+                l = p.sum(dim=-1, keepdim=True)
+                with ieee_f32_matmul():
+                    acc = p @ vf
+                out[sl, r0:r1, h0 : h0 + hs] = (acc / l.clamp(min=1e-20)).transpose(1, 2).to(q.dtype)
     return out

@@ -1,5 +1,6 @@
 """Shared neural layers in plain PyTorch (the counterpart of
-``repro.models.layers``): the dense parts of the ColBERT backbone.
+``repro.models.layers``): norms, RoPE, attention (chunked prefill and
+cached decode) and SwiGLU.
 
 Conventions are the reference's:
 
@@ -50,6 +51,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _group_q(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, H, dh) -> (B, S, Hkv, G, dh): GQA without repeating K/V."""
+    b, s, h, d = q.shape
+    return q.reshape(b, s, n_kv, h // n_kv, d)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched) accumulated and returned in f32.  On the card a
+    bf16 / f16 pair runs the ``out_dtype`` overload (the operands stay as
+    they are: no f32 copy of a cache is made); elsewhere both are read as
+    f32, whose products of bf16 values are exact."""
+    with ieee_f32_matmul():
+        if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, dh)
+    k_cache: torch.Tensor,  # (B, S, Hkv, dh)
+    v_cache: torch.Tensor,  # (B, S, Hkv, dh)
+    cache_len,  # int, or (B,): valid prefix length
+) -> torch.Tensor:
+    """One query token a row against a KV cache, the reference's grouped
+    ``decode_attention``: scores and ``p . v`` accumulate in f32 from the
+    cache's own dtype, ``p`` is cast to the cache's dtype, slots at or past
+    ``cache_len`` are masked.  Slots past the largest ``cache_len`` are not
+    read (they would add ``exp(-inf) = 0``).  Each KV head is one batched
+    product over B whose operands are strided views of the cache (a
+    product batched over (B, Hkv) at once would copy the cache first)."""
+    B, S, Hkv, dh = k_cache.shape
+    H = q.shape[2]
+    if isinstance(cache_len, int):  # every slot read is valid: no mask
+        n, lens = min(cache_len, S), None
+    else:
+        lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
+        n = min(int(lens.max()), S)
+    qg = _group_q(q, Hkv)[:, 0]  # (B, Hkv, G, dh)
+    s = torch.stack([_bmm_f32(qg[:, h].to(k_cache.dtype), k_cache[:, :n, h].transpose(1, 2))
+                     for h in range(Hkv)], dim=1)  # (B, Hkv, G, n) f32
+    s = s * dh**-0.5
+    if lens is not None:
+        mask = torch.arange(n, device=q.device)[None, :] < lens[:, None]  # (B or 1, n)
+        s = torch.where(mask[:, None, None, :], s, -torch.inf)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    out = torch.stack([_bmm_f32(p[:, h], v_cache[:, :n, h]) for h in range(Hkv)], dim=1)
+    return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
 def chunked_attention(

@@ -1,5 +1,7 @@
-"""Dense transformer backbone in PyTorch (the counterpart of the dense part
-of ``repro.models.transformer``): the ColBERT encoder's forward pass.
+"""Decoder-only LM family and the ColBERT encoder's backbone in PyTorch (the
+counterpart of ``repro.models.transformer``): dense / GQA / MQA /
+sliding-window / MoE layers, the LM head, and serving (``prefill``, and
+``decode_step`` with a KV cache).
 
 Layouts are the reference's, so weights cross between the two packages as
 numpy (:func:`params_from_numpy` / :meth:`Transformer.numpy_params`):
@@ -8,44 +10,63 @@ numpy (:func:`params_from_numpy` / :meth:`Transformer.numpy_params`):
   count divides ``tp_multiple``: ``wq (d, Hp, dh)``, ``wo (Hp, dh, d)``;
   padded heads have zero ``wq`` columns and zero ``wo`` rows, so they are
   inert;
-* the embedding table is padded to ``padded_vocab`` rows.
+* the embedding table (and ``lm_head``'s columns) are padded to
+  ``padded_vocab``; the logits of padded slots are -1e9;
+* the ``first_dense`` dense layers come before the MoE layers
+  (``dense_layers`` then ``moe_layers`` in the tree; one list of layers
+  here, dense first, as the reference's decode offsets them);
+* the KV cache is ``{"k", "v"}`` of ``(n_layers, B, Sc, Hkv, dh)`` in
+  ``cfg.dtype``; a sliding-window model's cache is a ring of ``window``
+  slots.
 
-Parameters are float32, as in the reference; each product runs in
-``cfg.dtype``.  The reference casts each weight at each use; on the serving
-path (no weight requires grad, or grad mode off) the port keeps one cast
-per weight (:meth:`Transformer.compute_weight`), the same values.  A
-forward pass that builds a graph (grad mode on and a weight that requires
-grad, e.g. the training state's tensors bound by ``torch.func.
-functional_call``) casts each weight inside the graph instead, so the
-compute-dtype gradient flows back into the f32 weight as the transpose of
-the reference's ``astype`` does; with ``cfg.remat`` each layer is then
-recomputed in the backward pass (``torch.utils.checkpoint``, the
-reference's ``jax.checkpoint`` per layer).  Parameters are created frozen
-(``requires_grad=False``); ``requires_grad_()`` makes them trainable.
+The encoder (``models.colbert``) holds float32 parameters and no LM head,
+as the reference's training tree does (its ``lm_head`` is left out); each
+product runs in ``cfg.dtype``.  The reference casts each weight at each
+use; on the serving path (no weight requires grad, or grad mode off) the
+port keeps one cast per weight (:meth:`Transformer.compute_weight`), the
+same values.  An LM for serving holds its parameters in ``cfg.dtype``
+(``param_dtype``), as the reference's serving cells cast the tree; then
+there is no cast to keep.  A forward pass that builds a graph (grad mode
+on and a weight that requires grad, e.g. the training state's tensors
+bound by ``torch.func.functional_call``) casts each weight inside the
+graph instead, so the compute-dtype gradient flows back into the f32
+weight as the transpose of the reference's ``astype`` does; with
+``cfg.remat`` each layer is then recomputed in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` per layer).
+Parameters are created frozen (``requires_grad=False``);
+``requires_grad_()`` makes them trainable.
 
 ``attn_impl="flash"`` without a window runs the hand-written attention
-kernel (``kernels.flash_attention``, K7); everything else runs
-``layers.chunked_attention``.  K7 has no backward (the reference's Pallas
+kernel (``kernels.flash_attention``, K7) in ``forward`` and ``prefill``;
+everything else runs ``layers.chunked_attention``, and ``decode_step`` runs
+``layers.decode_attention``.  K7 has no backward (the reference's Pallas
 kernel defines none), so a forward pass that builds a graph through it
 raises.
 
-Not ported yet (later slices): MoE layers (``n_experts > 0`` raises),
-decode with a KV cache, ``prefill``, ``logits_fn`` and ``lm_loss``
-(ROADMAP Queue 1 item 8).
+Not ported yet: ``lm_loss`` and the MoE aux loss under grad (a forward pass
+that builds a graph through an MoE layer raises), ROADMAP Queue 1 item 8.3;
+the sequence-sharded cache update (``_cache_update`` with ``seq_sharded``)
+comes with the tensor-parallel rules there.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ieee_f32_matmul, resolve_device
+from repro_torch.core import scoring
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
+
+#: what the next slice ports (the refusals name it)
+LM_TRAINING = "ROADMAP Queue 1 item 8.3 (LM training)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +78,21 @@ class TransformerConfig:
     n_kv_heads: int = 2
     d_ff: int = 128
     vocab: int = 256
-    # MoE layers (n_experts > 0) are not ported: the model refuses them
+    # MoE (n_experts == 0 -> dense SwiGLU)
     n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    first_dense: int = 0  # leading layers that stay dense (DeepSeekMoE)
+    d_ff_dense: int = 0  # ffn width of those dense layers (0 -> d_ff)
+    capacity_factor: float = 1.25
+    moe_group: int = 256  # dispatch group size (tokens)
     # attention
     window: int | None = None  # sliding-window size (None = full)
     rope_theta: float = 10000.0
     causal: bool = True
     # padding multiple for tensor-parallel alignment (1 = no padding)
     tp_multiple: int = 1
-    # compute dtype (params stay f32)
+    # compute dtype
     dtype: torch.dtype = torch.bfloat16
     # "chunked" (plain torch online softmax) or "flash" (the K7 kernel)
     attn_impl: str = "chunked"
@@ -73,6 +100,7 @@ class TransformerConfig:
     k_chunk: int = 1024
     # recompute each layer in the backward pass (training only)
     remat: bool = True
+    tied_embeddings: bool = False
 
     @property
     def d_head(self) -> int:
@@ -95,55 +123,125 @@ class TransformerConfig:
         m = self.tp_multiple
         return (self.vocab + m - 1) // m * m
 
+    @property
+    def n_moe_layers(self) -> int:
+        return self.n_layers - self.first_dense if self.n_experts else 0
 
-def _layer_leaves(cfg: TransformerConfig) -> dict[tuple[str, ...], tuple[int, ...]]:
-    """A layer's leaves: {path in the reference's ``dense_layers`` tree: shape}."""
-    d, dh, hp, hkv, dff = cfg.d_model, cfg.d_head, cfg.padded_heads, cfg.n_kv_heads, cfg.d_ff
-    return {
+    def _attn_params(self) -> int:
+        d, dh = self.d_model, self.d_head
+        return d * self.n_heads * dh * 2 + d * self.n_kv_heads * dh * 2
+
+    def _emb_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tied_embeddings else 2)
+
+    def num_params(self) -> int:
+        """Exact (unpadded) parameter count, the reference's (its model
+        FLOPs use it)."""
+        d = self.d_model
+        if self.n_experts:
+            ffn_moe = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+            if self.n_shared:
+                ffn_moe += 3 * d * self.d_ff * self.n_shared
+            ffn_dense = 3 * d * (self.d_ff_dense or self.d_ff)
+            ffn = ffn_moe * (self.n_layers - self.first_dense) + ffn_dense * self.first_dense
+        else:
+            ffn = 3 * d * self.d_ff * self.n_layers
+        norms = self.n_layers * 2 * d + d
+        return self._attn_params() * self.n_layers + ffn + norms + self._emb_params()
+
+    def active_params(self) -> int:
+        """Parameters a token activates (MoE: top_k plus the shared experts;
+        the router is not counted, as in the reference)."""
+        if not self.n_experts:
+            return self.num_params()
+        d = self.d_model
+        ffn_act = 3 * d * self.d_ff * (self.top_k + self.n_shared)
+        ffn_dense = 3 * d * (self.d_ff_dense or self.d_ff)
+        ffn = ffn_act * (self.n_layers - self.first_dense) + ffn_dense * self.first_dense
+        return (self._attn_params() * self.n_layers + ffn + self.n_layers * 2 * d + d
+                + self._emb_params())
+
+
+def _layer_leaves(cfg: TransformerConfig, moe: bool) -> dict[tuple[str, ...], tuple[int, ...]]:
+    """A layer's leaves: {path in the reference's layer tree: shape}."""
+    d, dh, hp, hkv = cfg.d_model, cfg.d_head, cfg.padded_heads, cfg.n_kv_heads
+    out = {
         ("attn", "wq"): (d, hp, dh),
         ("attn", "wk"): (d, hkv, dh),
         ("attn", "wv"): (d, hkv, dh),
         ("attn", "wo"): (hp, dh, d),
         ("ln1", "g"): (d,),
         ("ln2", "g"): (d,),
-        ("ffn", "wi", "w"): (d, dff),
-        ("ffn", "wg", "w"): (d, dff),
-        ("ffn", "wo", "w"): (dff, d),
     }
+    if moe:
+        e, dff = cfg.n_experts, cfg.d_ff
+        out.update({("moe", "router"): (d, e), ("moe", "wi"): (e, d, dff),
+                    ("moe", "wg"): (e, d, dff), ("moe", "wo"): (e, dff, d)})
+        if cfg.n_shared:
+            ds = dff * cfg.n_shared
+            out.update({("moe", "shared", "wi", "w"): (d, ds), ("moe", "shared", "wg", "w"): (d, ds),
+                        ("moe", "shared", "wo", "w"): (ds, d)})
+    else:
+        dff = (cfg.d_ff_dense or cfg.d_ff) if cfg.n_experts else cfg.d_ff
+        out.update({("ffn", "wi", "w"): (d, dff), ("ffn", "wg", "w"): (d, dff),
+                    ("ffn", "wo", "w"): (dff, d)})
+    return out
 
 
 def _param_name(path: tuple[str, ...]) -> str:
     return "_".join(p for p in path if p != "w")
 
 
-#: a layer's parameter names, in the order ``DenseLayer.block`` takes them
-LAYER_PARAMS = tuple(_param_name(p) for p in _layer_leaves(TransformerConfig()))
+def _moe_training_refused(cfg: TransformerConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: a forward pass that builds a graph through an MoE layer "
+        f"(training the router and the aux loss) is not ported: {LM_TRAINING}"
+    )
 
 
-class DenseLayer(nn.Module):
+class Layer(nn.Module):
     """One pre-norm block: RMSNorm -> attention -> residual -> RMSNorm ->
-    SwiGLU -> residual.  Parameter ``attn_wq`` is leaf ``attn/wq``, and so on."""
+    SwiGLU (dense) or routed experts (MoE) -> residual.  Parameter
+    ``attn_wq`` is leaf ``attn/wq``, ``moe_shared_wi`` is
+    ``moe/shared/wi/w``, and so on."""
 
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device, moe: bool,
+                 param_dtype: torch.dtype):
         super().__init__()
-        self.cfg = cfg
-        for path, shape in _layer_leaves(cfg).items():
+        self.cfg, self.moe = cfg, moe
+        leaves = _layer_leaves(cfg, moe)
+        #: parameter names, in the order ``block`` takes them
+        self.names = tuple(_param_name(p) for p in leaves)
+        for path, shape in leaves.items():
             self.register_parameter(
                 _param_name(path),
-                nn.Parameter(torch.zeros(shape, device=device), requires_grad=False),
+                nn.Parameter(torch.zeros(shape, device=device, dtype=param_dtype),
+                             requires_grad=False),
             )
 
-    def attention(self, x, positions, cast, wq, wk, wv, wo) -> torch.Tensor:
+    def project_qkv(self, x, positions, cast, w) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """q (B, S, Hp, dh), k and v (B, S, Hkv, dh) in ``cfg.dtype``, RoPE
+        applied to q and k at ``positions``."""
         cfg = self.cfg
         B, S, d = x.shape
         hp, hkv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
         x = x.to(cfg.dtype)
         with ieee_f32_matmul():
-            q = (x @ cast(wq).reshape(d, hp * dh)).view(B, S, hp, dh)
-            k = (x @ cast(wk).reshape(d, hkv * dh)).view(B, S, hkv, dh)
-            v = (x @ cast(wv).reshape(d, hkv * dh)).view(B, S, hkv, dh)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+            q = (x @ cast(w["attn_wq"]).reshape(d, hp * dh)).view(B, S, hp, dh)
+            k = (x @ cast(w["attn_wk"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+            v = (x @ cast(w["attn_wv"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+        return L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta), v
+
+    def out_proj(self, o, cast, w) -> torch.Tensor:
+        cfg = self.cfg
+        B, S = o.shape[:2]
+        with ieee_f32_matmul():
+            return (o.reshape(B, S, cfg.padded_heads * cfg.d_head).to(cfg.dtype)
+                    @ cast(w["attn_wo"]).reshape(-1, cfg.d_model))
+
+    def attention(self, x, positions, cast, w) -> torch.Tensor:
+        cfg = self.cfg
+        q, k, v = self.project_qkv(x, positions, cast, w)
         if cfg.attn_impl == "flash" and cfg.window is None:
             if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
                 raise NotImplementedError(
@@ -160,47 +258,78 @@ class DenseLayer(nn.Module):
                 causal=cfg.causal, window=cfg.window,
                 q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
             )
-        with ieee_f32_matmul():
-            return o.reshape(B, S, hp * dh).to(cfg.dtype) @ cast(wo).reshape(hp * dh, d)
+        return self.out_proj(o, cast, w)
 
-    def block(self, h, positions, cast, wq, wk, wv, wo, ln1, ln2, wi, wg, wo2) -> torch.Tensor:
+    def ffn(self, x2, cast, w) -> tuple[torch.Tensor, torch.Tensor]:
+        """The feed-forward half: (out, aux); aux is 0 for a dense layer."""
+        if self.moe:
+            return moe_einsum(w, x2, self.cfg, cast)
+        out = L.swiglu(cast(w["ffn_wi"]), cast(w["ffn_wg"]), cast(w["ffn_wo"]), x2, self.cfg.dtype)
+        return out, torch.zeros((), device=x2.device)
+
+    def block(self, h, positions, cast, *weights) -> tuple[torch.Tensor, torch.Tensor]:
         """The layer as a function of its weights (passed in, so that a
         recomputation in the backward pass reads the tensors the forward
-        pass read)."""
-        x1 = L.rmsnorm(ln1, h)
-        h = h + self.attention(x1, positions, cast, wq, wk, wv, wo).to(h.dtype)
-        x2 = L.rmsnorm(ln2, h)
-        ffn = L.swiglu(cast(wi), cast(wg), cast(wo2), x2, self.cfg.dtype)
-        return h + ffn.to(h.dtype)
+        pass read): (h, aux)."""
+        w = dict(zip(self.names, weights))
+        x1 = L.rmsnorm(w["ln1_g"], h)
+        h = h + self.attention(x1, positions, cast, w).to(h.dtype)
+        f, aux = self.ffn(L.rmsnorm(w["ln2_g"], h), cast, w)
+        return h + f.to(h.dtype), aux
 
-    def forward(self, h: torch.Tensor, positions: torch.Tensor, cast) -> torch.Tensor:
-        w = [getattr(self, n) for n in LAYER_PARAMS]
-        if (self.cfg.remat and torch.is_grad_enabled()
-                and (h.requires_grad or any(t.requires_grad for t in w))):
+    def forward(self, h: torch.Tensor, positions: torch.Tensor, cast) -> tuple[torch.Tensor, torch.Tensor]:
+        w = [getattr(self, n) for n in self.names]
+        graph = torch.is_grad_enabled() and (h.requires_grad or any(t.requires_grad for t in w))
+        if graph and self.moe:
+            raise _moe_training_refused(self.cfg)
+        if graph and self.cfg.remat:
             return checkpoint(self.block, h, positions, cast, *w,
                               use_reentrant=False, preserve_rng_state=False)
         return self.block(h, positions, cast, *w)
 
+    def decode(self, h, positions, cast, ck, cv, slot: int, n_valid: int) -> torch.Tensor:
+        """One token a row (h (B, 1, d)): writes its k and v into this
+        layer's cache (ck, cv: (B, Sc, Hkv, dh)) at ``slot``, in place, and
+        attends to the first ``n_valid`` slots."""
+        w = {n: getattr(self, n) for n in self.names}
+        q, k, v = self.project_qkv(L.rmsnorm(w["ln1_g"], h), positions, cast, w)
+        ck[:, slot] = k[:, 0].to(ck.dtype)
+        cv[:, slot] = v[:, 0].to(cv.dtype)
+        o = L.decode_attention(q, ck, cv, n_valid)
+        h = h + self.out_proj(o, cast, w).to(h.dtype)
+        f, _ = self.ffn(L.rmsnorm(w["ln2_g"], h), cast, w)
+        return h + f.to(h.dtype)
+
 
 class Transformer(nn.Module):
-    """Embedding -> ``n_layers`` dense layers -> final RMSNorm."""
+    """Embedding -> ``n_layers`` layers (the ``first_dense`` dense ones,
+    then the MoE ones; all dense without experts) -> final RMSNorm, and,
+    with ``head``, the LM head (``lm_head``; a tied model reads the
+    embedding instead).  Parameters are ``param_dtype``: float32 for
+    training and the encoder, ``cfg.dtype`` for serving."""
 
-    def __init__(self, cfg: TransformerConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: TransformerConfig, device: str | torch.device = "cuda", *,
+                 head: bool = False, param_dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}; the reference's "
-                "layers.moe_init / moe_apply) are not ported"
-            )
         if cfg.attn_impl not in ("chunked", "flash"):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {cfg.attn_impl!r}")
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(
-            torch.zeros((cfg.padded_vocab, cfg.d_model), device=dev), requires_grad=False
+            torch.zeros((cfg.padded_vocab, cfg.d_model), device=dev, dtype=param_dtype),
+            requires_grad=False,
         )
-        self.final_norm_g = nn.Parameter(torch.ones(cfg.d_model, device=dev), requires_grad=False)
-        self.layers = nn.ModuleList(DenseLayer(cfg, dev) for _ in range(cfg.n_layers))
+        self.final_norm_g = nn.Parameter(torch.ones(cfg.d_model, device=dev, dtype=param_dtype),
+                                         requires_grad=False)
+        if head and not cfg.tied_embeddings:
+            self.lm_head = nn.Parameter(
+                torch.zeros((cfg.d_model, cfg.padded_vocab), device=dev, dtype=param_dtype),
+                requires_grad=False,
+            )
+        self.head = head
+        n_dense = cfg.n_layers - cfg.n_moe_layers
+        self.layers = nn.ModuleList(Layer(cfg, dev, i >= n_dense, param_dtype)
+                                    for i in range(cfg.n_layers))
         self._casts: dict[int, tuple[tuple, torch.Tensor]] = {}
 
     @property
@@ -216,7 +345,8 @@ class Transformer(nn.Module):
 
     def compute_weight(self, p: torch.Tensor) -> torch.Tensor:
         """``p`` in the compute dtype, cast once and reused until ``p``
-        changes (in place, or by ``.to()``)."""
+        changes (in place, or by ``.to()``); ``p`` itself when it is held
+        in the compute dtype."""
         if p.dtype == self.cfg.dtype:
             return p
         stamp = (p._version, p.data_ptr(), p.device)
@@ -226,29 +356,197 @@ class Transformer(nn.Module):
             self._casts[id(p)] = hit
         return hit[1]
 
-    def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
-        """tokens (B, S) -> hidden states (B, S, d) in ``cfg.dtype``."""
+    def hidden(self, tokens: torch.Tensor, positions: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """tokens (B, S) -> (hidden states (B, S, d) in ``cfg.dtype``, the
+        MoE layers' summed aux value, f32)."""
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
         h = self.cast(self.embed)[tokens.long()]
+        aux = torch.zeros((), device=h.device)
         for layer in self.layers:
-            h = layer(h, positions, self.cast)
-        return L.rmsnorm(self.final_norm_g, h)
+            h, a = layer(h, positions, self.cast)
+            aux = aux + a
+        return L.rmsnorm(self.final_norm_g, h), aux
+
+    def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens (B, S) -> hidden states (B, S, d) in ``cfg.dtype``."""
+        return self.hidden(tokens, positions)[0]
 
     def numpy_params(self) -> dict:
-        """The reference's param tree as numpy (``lm_head`` excepted);
-        each layer's leaves stacked on a leading ``L`` axis."""
-        return tree_lib.to_numpy(params_tree(self, param_paths(self.cfg)))
+        """The reference's param tree as numpy (``lm_head`` when the model
+        holds one); each layer stack's leaves stacked on a leading ``L``
+        axis."""
+        return tree_lib.to_numpy(params_tree(self, param_paths(self.cfg, self.head)))
 
 
-def param_paths(cfg: TransformerConfig) -> dict[str, tuple[tuple[str, ...], int | None]]:
+# --------------------------------------------------------------------------
+# MoE: GShard dispatch with group-blocked capacity
+# --------------------------------------------------------------------------
+def moe_route(router: torch.Tensor, xg: torch.Tensor, cfg: TransformerConfig, cap: int):
+    """The router of the reference's ``moe_einsum`` over groups xg (G, g, d):
+    f32 scores, softmax, top-k (ties to the lower expert, as
+    ``jax.lax.top_k``), gates renormalized over the k choices, and each
+    choice's slot in its expert's queue of ``cap``, the choices taken in
+    priority order (all first choices of the group, then all second, ...).
+    Returns (probs (G, g, E), gates (G, g, k), expert ids (G, g, k) int64,
+    slots (G, g, k) int64, keep (G, g, k) bool: the slot is below ``cap``)."""
+    k = cfg.top_k
+    with ieee_f32_matmul():
+        logits = xg.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, ids = scoring.stable_topk(probs, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    slots = moe_slots(ids, cfg.n_experts)
+    return probs, gates, ids, slots, slots < cap
+
+
+def moe_slots(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Each choice's place in its expert's queue (G, g, k): the choices of
+    a group in priority order, all first choices by token, then all
+    second, and so on (GShard)."""
+    counts = torch.zeros((ids.shape[0], n_experts), dtype=torch.int64, device=ids.device)
+    slots = []
+    for j in range(ids.shape[-1]):
+        oh = F.one_hot(ids[:, :, j], n_experts)  # (G, g, E)
+        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        slots.append((pos * oh).sum(-1))
+        counts = counts + oh.sum(dim=1)
+    return torch.stack(slots, dim=-1)
+
+
+def moe_einsum(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConfig, cast
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, the Switch load-balance
+    aux value), the reference's ``moe_einsum``: tokens in groups of
+    ``moe_group`` (the last one zero-padded), each expert taking at most
+    ``ceil(g k capacity_factor / E)`` choices of a group and dropping the
+    rest; plus the shared experts when the config has them.
+
+    The reference dispatches and combines with one-hot einsums; here each
+    kept choice's row is gathered into its expert's slot (the same values:
+    a one-hot product adds zeros), the experts run as one batched product,
+    and each token sums its k gated outputs in f32 (gates rounded to the
+    compute dtype first, as the reference's ``combine.astype``)."""
+    B, S, d = x.shape
+    E, k, dt = cfg.n_experts, cfg.top_k, cfg.dtype
+    g = min(cfg.moe_group, S)
+    ng = (S + g - 1) // g
+    xg = F.pad(x, (0, 0, 0, ng * g - S)).reshape(B * ng, g, d)
+    G = B * ng
+    cap = max(int(math.ceil(g * k * cfg.capacity_factor / E)), 1)
+    probs, gates, ids, slots, keep = moe_route(w["moe_router"], xg, cfg, cap)
+
+    # expert-major slots: row e * G * cap + n * cap + slot of (E, G * cap, d)
+    group = torch.arange(G, device=x.device)[:, None, None]
+    dest = (ids * G + group) * cap + slots.clamp(max=cap - 1)
+    token = (group * g + torch.arange(g, device=x.device)[None, :, None]).expand_as(ids)
+    xe = torch.zeros((E * G * cap, d), dtype=dt, device=x.device)
+    sel = keep & (gates > 0)  # the reference dispatches where combine > 0
+    xe[dest[sel]] = xg.reshape(G * g, d).to(dt)[token[sel]]
+    xe = xe.view(E, G * cap, d)
+    with ieee_f32_matmul():
+        hid = torch.bmm(xe, cast(w["moe_wi"])) * F.silu(torch.bmm(xe, cast(w["moe_wg"])))
+        ye = torch.bmm(hid, cast(w["moe_wo"])).view(E * G * cap, d)
+    wgt = torch.where(keep, gates, 0.0).to(dt).float()  # (G, g, k)
+    out = torch.zeros((G, g, d), device=x.device)
+    for j in range(k):  # a dropped choice weighs 0 (its clamped slot is another's)
+        out += ye[dest[:, :, j]].float() * wgt[:, :, j, None]
+    out = out.to(dt)
+    out = out.reshape(B, ng * g, d)[:, :S]
+    if "moe_shared_wi" in w:
+        out = out + L.swiglu(cast(w["moe_shared_wi"]), cast(w["moe_shared_wg"]),
+                             cast(w["moe_shared_wo"]), x, dt).to(out.dtype)
+    me = probs.mean(dim=(0, 1))
+    ce = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
+    return out.to(x.dtype), E * torch.sum(me * ce)
+
+
+# --------------------------------------------------------------------------
+# LM head and serving: prefill, single-token decode with a KV cache
+# --------------------------------------------------------------------------
+def logits_fn(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """h (B, S, d) -> (B, S, padded_vocab) logits in ``cfg.dtype``; padded
+    vocab slots are -1e9."""
+    cfg = model.cfg
+    if cfg.tied_embeddings:
+        head = model.cast(model.embed).t()
+    elif model.head:
+        head = model.cast(model.lm_head)
+    else:
+        raise ValueError(f"{cfg.name}: the model holds no LM head (built with head=False)")
+    with ieee_f32_matmul():
+        logits = h.to(cfg.dtype) @ head
+    if cfg.padded_vocab != cfg.vocab:
+        real = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = torch.where(real, logits, -1e9)
+    return logits
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> the last position's logits (B, padded_vocab), the
+    reference's ``prefill`` (which writes no cache)."""
+    h, _ = model.hidden(tokens)
+    return logits_fn(model, h[:, -1:])[:, 0]
+
+
+def cache_seq_len(cfg: TransformerConfig, seq_len: int) -> int:
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
+               device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Zeros ``{"k", "v"}`` of (n_layers, batch, Sc, Hkv, dh) in ``cfg.dtype``."""
+    shape = (cfg.n_layers, batch, cache_seq_len(cfg, seq_len), cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, cache: dict[str, torch.Tensor], tokens: torch.Tensor,
+                cache_len: int) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One decode step: tokens (B,), ``cache_len`` tokens already in the
+    cache.  Returns (logits (B, padded_vocab), cache): the cache is updated
+    in place and is the reference's returned cache.
+
+    The new k and v go to slot ``cache_len % Sc`` of a sliding-window
+    model's ring and to slot ``cache_len`` otherwise (clamped to the last
+    slot, as the reference's ``dynamic_update_slice`` clamps); attention
+    reads ``min(cache_len + 1, Sc)`` slots; RoPE takes the absolute
+    position ``cache_len``."""
+    cfg = model.cfg
+    cache_len = int(cache_len)
+    B = tokens.shape[0]
+    Sc = cache["k"].shape[2]
+    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=tokens.device)
+    slot = cache_len % Sc if cfg.window else min(cache_len, Sc - 1)
+    n_valid = min(cache_len + 1, Sc)
+    h = model.cast(model.embed)[tokens.long()][:, None, :]
+    for i, layer in enumerate(model.layers):
+        h = layer.decode(h, pos, model.cast, cache["k"][i], cache["v"][i], slot, n_valid)
+    h = L.rmsnorm(model.final_norm_g, h)
+    return logits_fn(model, h)[:, 0], cache
+
+
+# --------------------------------------------------------------------------
+# the reference's tree
+# --------------------------------------------------------------------------
+def param_paths(cfg: TransformerConfig, head: bool = False
+                ) -> dict[str, tuple[tuple[str, ...], int | None]]:
     """Each parameter's name in :class:`Transformer` -> (its path in the
     reference's tree, its index in the layer stack or None)."""
     out = {"embed": (("embed",), None), "final_norm_g": (("final_norm", "g"), None)}
+    if head and not cfg.tied_embeddings:
+        out["lm_head"] = (("lm_head",), None)
+    n_dense = cfg.n_layers - cfg.n_moe_layers
     for i in range(cfg.n_layers):
-        for path in _layer_leaves(cfg):
-            out[f"layers.{i}.{_param_name(path)}"] = (("dense_layers",) + path, i)
+        moe = i >= n_dense
+        stack, j = ("moe_layers", i - n_dense) if moe else ("dense_layers", i)
+        for path in _layer_leaves(cfg, moe):
+            out[f"layers.{i}.{_param_name(path)}"] = ((stack,) + path, j)
     return out
 
 
@@ -264,18 +562,27 @@ _LAYER_AXES = {
     ("ffn", "wi", "w"): ("embed_fsdp", "mlp"),
     ("ffn", "wg", "w"): ("embed_fsdp", "mlp"),
     ("ffn", "wo", "w"): ("mlp", "embed_fsdp"),
+    ("moe", "router"): ("embed_fsdp", None),
+    ("moe", "wi"): ("experts", "embed_fsdp", None),
+    ("moe", "wg"): ("experts", "embed_fsdp", None),
+    ("moe", "wo"): ("experts", None, "embed_fsdp"),
+    ("moe", "shared", "wi", "w"): ("embed_fsdp", "mlp"),
+    ("moe", "shared", "wg", "w"): ("embed_fsdp", "mlp"),
+    ("moe", "shared", "wo", "w"): ("mlp", "embed_fsdp"),
 }
 
 
-def param_axes(cfg: TransformerConfig) -> dict:
+def param_axes(cfg: TransformerConfig, head: bool = False) -> dict:
     """Logical axes of each parameter (``distributed.sharding``), in the
     training tree's layout (``param_paths``: each layer stack a list of
-    per-layer tuples); the reference's ``param_axes`` for the dense
-    encoder, ``lm_head`` excepted."""
-    names = {"embed": ("vocab", "embed_fsdp"), "final_norm_g": (None,)}
-    for i in range(cfg.n_layers):
-        names.update({f"layers.{i}.{_param_name(p)}": a for p, a in _LAYER_AXES.items()})
-    return tree_lib.gather(names, param_paths(cfg))
+    per-layer tuples); the reference's ``param_axes``."""
+    names = {"embed": ("vocab", "embed_fsdp"), "final_norm_g": (None,),
+             "lm_head": ("embed_fsdp", "vocab")}
+    paths = param_paths(cfg, head)
+    for name, (path, _) in paths.items():
+        if name.startswith("layers."):
+            names[name] = _LAYER_AXES[path[1:]]
+    return tree_lib.gather(names, paths)
 
 
 def params_tree(module: nn.Module, paths: Mapping) -> dict:
@@ -298,14 +605,19 @@ def assign_params(module: nn.Module, paths: Mapping, tree: Mapping) -> None:
 
 
 def params_from_numpy(
-    tree: Mapping, cfg: TransformerConfig, device: str | torch.device = "cuda"
+    tree: Mapping, cfg: TransformerConfig, device: str | torch.device = "cuda", *,
+    param_dtype: torch.dtype = torch.float32,
 ) -> Transformer:
     """A :class:`Transformer` holding the reference's ``init_params`` tree
-    (converted to numpy) value for value.  ``lm_head`` is not used by the
-    encoder and is dropped."""
-    model = Transformer(cfg, device)
-    paths = param_paths(cfg)
-    assign_params(model, paths, tree_lib.from_numpy(tree, params_tree(model, paths)))
+    (converted to numpy): ``embed``, ``final_norm``, ``lm_head`` (when the
+    tree has one; the model then has an LM head) and the stacked
+    ``dense_layers`` / ``moe_layers``.  ``param_dtype`` float32 keeps the
+    values bit for bit; another dtype rounds them once."""
+    head = "lm_head" in tree or cfg.tied_embeddings
+    model = Transformer(cfg, device, head=head, param_dtype=param_dtype)
+    paths = param_paths(cfg, head)
+    arrays = tree_lib.from_numpy(tree, params_tree(model, paths))
+    assign_params(model, paths, tree_lib.tree_map(lambda t: t.to(param_dtype), arrays))
     return model
 
 
@@ -315,26 +627,44 @@ def _normal(shape, scale: float, g: torch.Generator) -> torch.Tensor:
 
 @torch.no_grad()
 def init_params(
-    cfg: TransformerConfig, generator: torch.Generator, device: str | torch.device = "cuda"
+    cfg: TransformerConfig, generator: torch.Generator, device: str | torch.device = "cuda",
+    *, head: bool = False, param_dtype: torch.dtype = torch.float32,
 ) -> Transformer:
     """Random weights with the reference's shapes, scales and zero padding
-    (not its numbers: ``torch.Generator`` is not ``jax.random``)."""
-    model = Transformer(cfg, device)
+    (not its numbers: ``torch.Generator`` is not ``jax.random``), drawn
+    one tensor at a time in float32 and stored in ``param_dtype``: a
+    serving model in ``cfg.dtype`` never holds a float32 copy of more than
+    one weight."""
+    model = Transformer(cfg, device, head=head, param_dtype=param_dtype)
     dev = model.device
+
+    def draw(shape, scale):
+        return _normal(shape, scale, generator).to(dev)
+
     d, dh, hkv, dff = cfg.d_model, cfg.d_head, cfg.n_kv_heads, cfg.d_ff
     g, gp = cfg.n_heads // hkv, cfg.group_pad
-    model.embed[: cfg.vocab] = _normal((cfg.vocab, d), 0.02, generator).to(dev)
+    model.embed[: cfg.vocab] = draw((cfg.vocab, d), 0.02)
     scale = (2.0 / (d + cfg.n_heads * dh)) ** 0.5
-    fscale = (2.0 / (d + dff)) ** 0.5
     for lay in model.layers:
         # kv-group-major: head (kvh, j) lives at flat index kvh * gp + j;
         # padded slots (j >= g) stay zero
-        lay.attn_wq.view(d, hkv, gp, dh)[:, :, :g] = _normal((d, hkv, g, dh), scale, generator).to(dev)
-        lay.attn_wo.view(hkv, gp, dh, d)[:, :g] = _normal((hkv, g, dh, d), scale, generator).to(dev)
-        lay.attn_wk.copy_(_normal((d, hkv, dh), scale, generator))
-        lay.attn_wv.copy_(_normal((d, hkv, dh), scale, generator))
+        lay.attn_wq.view(d, hkv, gp, dh)[:, :, :g] = draw((d, hkv, g, dh), scale)
+        lay.attn_wo.view(hkv, gp, dh, d)[:, :g] = draw((hkv, g, dh, d), scale)
+        lay.attn_wk.copy_(draw((d, hkv, dh), scale))
+        lay.attn_wv.copy_(draw((d, hkv, dh), scale))
         lay.ln1_g.fill_(1.0)
         lay.ln2_g.fill_(1.0)
-        for p in (lay.ffn_wi, lay.ffn_wg, lay.ffn_wo):
-            p.copy_(_normal(tuple(p.shape), fscale, generator))
+        if lay.moe:  # experts and the shared SwiGLU: (2 / (d + its width)) ** 0.5
+            lay.moe_router.copy_(draw(tuple(lay.moe_router.shape), 0.02))
+            ffn = [(p, dff) for p in (lay.moe_wi, lay.moe_wg, lay.moe_wo)]
+            if cfg.n_shared:
+                ffn += [(p, dff * cfg.n_shared)
+                        for p in (lay.moe_shared_wi, lay.moe_shared_wg, lay.moe_shared_wo)]
+        else:
+            fdim = (cfg.d_ff_dense or dff) if cfg.n_experts else dff
+            ffn = [(p, fdim) for p in (lay.ffn_wi, lay.ffn_wg, lay.ffn_wo)]
+        for p, width in ffn:
+            p.copy_(draw(tuple(p.shape), (2.0 / (d + width)) ** 0.5))
+    if head and not cfg.tied_embeddings:
+        model.lm_head[:, : cfg.vocab] = draw((d, cfg.vocab), 0.02)
     return model

@@ -295,5 +295,10 @@ def test_port_init_matches_reference_shapes_and_scales(reduced_ref_params):
 
 
 def test_moe_configs_are_refused():
+    """MoE layers serve (the model is built and runs without a graph), but
+    a forward pass that builds a graph through them (training) is refused,
+    naming the LM-training item."""
+    cfg = tT.TransformerConfig(n_experts=4, top_k=2, dtype=torch.float32)
+    model = tT.Transformer(cfg, device="cpu").requires_grad_()
     with pytest.raises(NotImplementedError, match="MoE"):
-        tT.Transformer(tT.TransformerConfig(n_experts=4), device="cpu")
+        model(torch.zeros((1, 4), dtype=torch.int64))
