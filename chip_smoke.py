@@ -255,7 +255,31 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                cache bytes) / 3.35 TB/s, kernel launches a step, peak
                bytes; bf16 decode attention on layer 0's cache against the
                host's f32 products (scalar and per-row lengths); h2o's ring against the same entries rotated into
-               slots by position; MoE expert loads and dropped share.
+               slots by position; MoE expert loads and dropped share;
+17. lm_train   LM training on the card, one ``lm_train`` line a run: (1)
+               ``launch.train.run`` in-process at the reference's defaults
+               for granite-moe-1b-a400m (the full config in f32, B 8 x 64
+               tokens, 30 steps, 20 warm-up; every loss finite, the last
+               below the first; its final checkpoint written); (2) the
+               trained weights served: granite-moe-1b's prefill (B 8 x
+               4,096) of them in bf16 through K7 against chunked attention
+               with the K7 run's routing replayed, as phase lm checks it;
+               (3) the ``train_4k`` cell at full width (seq 4,096; for
+               time, the global batch cut 256 -> 4 and ``n_micro`` 8 -> 2,
+               2 rows x 4,096 a microbatch; the cell's donating step from
+               ``cells._train_pieces``: bf16 products over f32 weights,
+               ``_default_optimizer``)
+               for granite-moe-1b whole, h2o-danube-3-4b with 12 of 24
+               layers and deepseek-moe-16b with 4 of 28 (``LM_TRAIN_RUNS``):
+               one warm-up and 3 timed steps, step p50 ms, tokens/s, ``mfu``
+               (the reference's model FLOPs at 989 TFLOP/s), peak bytes,
+               kernel launches a step (the warm-up under torch.profiler),
+               the MoE dropped share, finite losses; (4) card against host
+               at reduced width: one ``n_micro`` 2 f32 step of each of the
+               five reduced configs from the same weights and batch, losses
+               rtol 1e-5, parameters rtol 1e-4 / atol 1e-6 but for a
+               thousandth of them, each within 2 lr.  Only (2) launches a
+               port kernel (K7); training runs none.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -306,6 +330,7 @@ from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.launch import cells as cells_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import colbert, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
@@ -472,6 +497,25 @@ LM_F32_COS_MIN, LM_F32_ERR_SHARE = 0.99999, 1e-3
 #: dh 128), f32 against f64 is 1e-4 of it; scores or the output rounded to
 #: bf16 before the softmax or the return put it 4.7e-3 and 3.3e-3 away
 LM_DECODE_ATTN_ERR_SHARE = 1e-3
+#: phase lm_train: (1) launch.train's flags beyond the reference's defaults
+#: (its full config in f32, B 8 x 64 tokens, lr 3e-4, 20 warm-up steps);
+#: (3) the train_4k cell at full width (seq 4,096) with, for time, the
+#: global batch cut 256 -> 4 and n_micro 8 -> 2 (2 rows x 4,096 a
+#: microbatch), one warm-up and
+#: LM_TRAIN_TIMED timed steps for each (arch, layers kept or None for all):
+#: h2o-danube-3-4b keeps 12 of 24 layers and deepseek-moe-16b 4 of 28 (the
+#: dense first + 3 MoE), their f32 weights, moments and gradients at ~20
+#: bytes a parameter; (4) the card-against-host step's batch and bars
+LM_ARCH_IDS = ("h2o-danube-3-4b", "yi-34b", "granite-34b", "granite-moe-1b-a400m",
+               "deepseek-moe-16b")
+LM_TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--steps", "30"]
+LM_TRAIN_RUNS = (("granite-moe-1b-a400m", None), ("h2o-danube-3-4b", 12),
+                 ("deepseek-moe-16b", 4))
+LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO, LM_TRAIN_TIMED = 4096, 4, 2, 3
+LM_SERVE_BS = (8, 4096)  # the trained granite-moe-1b weights' prefill
+LM_HOST_B, LM_HOST_S = 4, 24
+LM_HOST_SCHED = dict(peak_lr=1e-3, warmup=2, total=10)
+LM_HOST_LOSS_RTOL, LM_HOST_RTOL, LM_HOST_ATOL, LM_HOST_OUTLIERS = 1e-5, 1e-4, 1e-6, 1e-3
 #: the reference's flash test shapes (tests/test_flash_attention.py:10-18):
 #: B, S, H, Hkv, dh, causal
 JAX_FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 128, 8, 1, 32, True),
@@ -1086,6 +1130,13 @@ def main(argv=None) -> int:
         # checks' K7 runs not)
         lm_counts = lm_phase(args.seed, dev, info)
 
+    # ---- 17. LM training: the entry point, train_4k at full width, served ---
+    torch.cuda.empty_cache()
+    with Phase("lm_train") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        # K7's launches counted around the trained weights' prefill alone
+        lm_train_counts = lm_train_phase(args.seed, dev, info)
+
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
@@ -1093,7 +1144,7 @@ def main(argv=None) -> int:
     # around the serving of the trained weights): K1-K3 in search, live,
     # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
     # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
-    # stream_build, train, train_dp and lm
+    # stream_build, train, train_dp, lm and lm_train
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
                 + serve_counts[name] + sharded_counts[name] + driver_counts[name]
                 + train_counts[name] + dp_counts[name]
@@ -1106,7 +1157,8 @@ def main(argv=None) -> int:
                                    + stream_counts["flash_attention"]
                                    + train_counts["flash_attention"]
                                    + dp_counts["flash_attention"]
-                                   + lm_counts["flash_attention"])
+                                   + lm_counts["flash_attention"]
+                                   + lm_train_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -3884,6 +3936,231 @@ def lm_phase(seed, dev, info: dict, runs=LM_RUNS, reduced=False) -> dict:
         info["configs"].append(arch)
         total += launches
     return {"flash_attention": total}
+
+
+# --------------------------------------------------------------------------
+# phase lm_train: LM training on the card
+# --------------------------------------------------------------------------
+def step_launches(fn, dev) -> dict:
+    """The kernels one call of ``fn`` launches, under torch.profiler: one
+    session whose discarded warm-up traces a tiny kernel (CUPTI loses
+    records at a session's start), then the call; its wall ms, device ms,
+    the top kernels, and the seconds the profiler took to read its
+    records.  The records are read raw (``kineto_results.events()``):
+    ``key_averages()`` spent 0.25 ms an event on a training step's ~10^5
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    calls, ns = collections.Counter(), collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.name().startswith("ProfilerStep"):
+            calls[e.name()] += 1
+            ns[e.name()] += e.end_ns() - e.start_ns()
+    device_ms = sum(ns.values()) / 1e6
+    return dict(launches=sum(calls.values()), wall_ms=wall_ms, device_ms=device_ms,
+                device_over_wall=device_ms / wall_ms,
+                read_s=time.perf_counter() - t_all - wall_ms / 1e3,
+                top=[dict(kernel=k[:80], ms=v / 1e6, calls=calls[k]) for k, v in ns.most_common(6)])
+
+
+def lm_train_entry(dev, reduced=False) -> tuple[dict, dict]:
+    """(1) ``launch.train.run`` at the reference's defaults, checkpointing
+    into a temporary directory.  Returns its line and its result."""
+    argv = LM_TRAIN_ARGV + ["--device", str(dev)] + (["--reduced"] if reduced else [])
+    torch.cuda.reset_peak_memory_stats()
+    saves = []
+    manager_save = train_ckpt.CheckpointManager.save
+
+    def timed_save(self, step, tree):  # the checkpoint's host copy and write
+        t0 = time.perf_counter()
+        manager_save(self, step, tree)
+        saves.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ckpt.CheckpointManager.save = timed_save
+        try:
+            t0 = time.perf_counter()
+            out = train_cli.run(argv + ["--ckpt-dir", tmp])
+            wall_s = time.perf_counter() - t0
+        finally:
+            train_ckpt.CheckpointManager.save = manager_save
+        on_disk = sorted(os.listdir(tmp))
+        ckpt_bytes = sum(f.stat().st_size for f in Path(tmp).rglob("*") if f.is_file())
+    cfg, losses = out["cfg"], out["losses"]
+    row = dict(run="entry_point", argv=argv, arch=cfg.name, layers=cfg.n_layers,
+               dtype=str(cfg.dtype), batch=8, seq=64,
+               params=sum(p.numel() for p in train_tree.leaves(out["state"]["params"])),
+               steps=out["steps"], restarts=out["restarts"], run_s=out["seconds"], wall_s=wall_s,
+               checkpoint_save_s=saves,
+               ms_a_step=(out["seconds"] - sum(saves)) / out["steps"] * 1e3, first_loss=losses[0],
+               last_loss=losses[-1], losses=losses, checkpoints=on_disk,
+               checkpoint_bytes=ckpt_bytes, peak_device_bytes=torch.cuda.max_memory_allocated())
+    assert all(math.isfinite(x) for x in losses) and losses[-1] < losses[0], row
+    assert on_disk == [f"step_{out['steps']:08d}"] and out["restarts"] == 0, row
+    return row, out
+
+
+def lm_train_serve(out, dev, g, reduced=False) -> tuple[dict, int]:
+    """(2) The entry point's trained weights served: a bf16 copy with K7 as
+    its prefill attention, B x S tokens through it (the main path, K7's
+    launches counted around it alone) against chunked attention with the
+    K7 run's expert choices replayed (phase lm's check)."""
+    cfg = dataclasses.replace(out["cfg"], dtype=torch.bfloat16, attn_impl="flash")
+    served = transformer.Transformer(cfg, dev, head=True, param_dtype=torch.bfloat16)
+    transformer.assign_params(served, transformer.param_paths(cfg, True), train_tree.tree_map(
+        lambda t: t.to(torch.bfloat16), out["state"]["params"]))
+    B, S = (2, 64) if reduced else LM_SERVE_BS
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    fa.launches = 0
+    with MoeStats() as routes:
+        k7 = transformer.prefill(served, toks)
+    launches = fa.launches
+    assert launches == cfg.n_layers, (launches, cfg.n_layers)
+    assert bool(torch.isfinite(k7[:, :cfg.vocab]).all())
+    with MoeStats(replay=routes.calls) as replayed:
+        chunked = transformer.prefill(lm_twin(served, attn_impl="chunked"), toks)
+    row = dict(run="served", arch=cfg.name, B=B, S=S, dtype=str(cfg.dtype), k7_launches=launches,
+               flipped_tokens=replayed.flipped, moe=routes.summary(),
+               **lm_logits_agree(k7, chunked, cfg.vocab))
+    assert row["ok"] and row["argmax_equal"], row
+    return row, launches
+
+
+def lm_train_run(arch, layers, seed, dev, reduced=False) -> dict:
+    """(3) The train_4k cell at full width (``reduced``: the reduced config
+    at the cell's reduced shape, for a CPU rehearsal): f32 weights drawn on
+    the card, and the cell's step and state (``cells._train_pieces``: bf16
+    products, ``_default_optimizer``, donating its parameters and state)."""
+    mod = configs.get(arch)
+    cfg = mod.reduced_config() if reduced else mod.full_config()
+    cut = []
+    if layers and not reduced:
+        cut.append(f"n_layers {cfg.n_layers} -> {layers}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    cell = configs.cells_of(arch)["train_4k"]
+    if reduced:
+        S, Bg, n_micro = cell.reduced["seq_len"], cell.reduced["global_batch"], cell.reduced["n_micro"]
+    else:
+        S, Bg, n_micro = LM_TRAIN_SEQ, LM_TRAIN_BATCH, LM_TRAIN_MICRO
+        assert S == cell.full["seq_len"]
+        cut += [f"global_batch {cell.full['global_batch']} -> {Bg}",
+                f"n_micro {cell.full['n_micro']} -> {n_micro}"]
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), dev,
+                                    head=True)
+    step, (params, opt_state, _) = cells_mod._train_pieces(
+        transformer.loss_fn(model), transformer.train_params(model), n_micro, None,
+        cast_dtype=cfg.dtype)
+    rng = np.random.default_rng(seed)
+    batches = [{k: torch.as_tensor(rng.integers(0, cfg.vocab, (Bg, S)), dtype=torch.int32,
+                                   device=dev) for k in ("tokens", "targets")}
+               for _ in range(1 + LM_TRAIN_TIMED)]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the warm-up step under the profiler (its launches) and the router spy
+    first = {}
+
+    def warm_up():
+        first["out"] = step(params, opt_state, batches[0])
+
+    with MoeStats() as stats:
+        prof = step_launches(warm_up, dev)
+    params, opt_state, m = first.pop("out")
+    moe = stats.summary() if cfg.n_experts else None
+    del stats
+    losses, ms = [float(m["loss"])], []
+    for b in batches[1:]:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    p50 = statistics.median(ms)
+    flops = cells_mod.lm_model_flops(cfg, "train", S, Bg)
+    row = dict(run="train_4k", arch=arch, layers=cfg.n_layers, reduced=cut, seq=S,
+               global_batch=Bg, n_micro=n_micro, dtype=str(cfg.dtype), param_dtype="torch.float32",
+               attn_impl=cfg.attn_impl, remat=cfg.remat,
+               params=sum(p.numel() for p in train_tree.leaves(params)),
+               active_params=cfg.active_params(), init_s=init_s, step_ms=ms, step_p50_ms=p50, tokens_per_s=Bg * S / p50 * 1e3,
+               model_flops=flops, mfu=flops / (p50 / 1e3) / BF16_FLOPS, losses=losses,
+               resident_bytes=resident, peak_device_bytes=peak,
+               launches_a_step=prof.pop("launches"), profiled_warmup_step=prof)
+    if moe is not None:
+        shares = moe["dropped_share"]
+        row["moe"] = dict(calls=len(shares), dropped_share_mean=statistics.mean(shares),
+                          dropped_share_min_max=[min(shares), max(shares)],
+                          first_layer_loads=moe["first_layer_loads"])
+    assert all(math.isfinite(x) for x in losses), row
+    del model, params, opt_state, batches
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_host_step(arch, dev, seed) -> tuple[float, list]:
+    """One ``n_micro`` 2 AdamW step of the arch's reduced config in f32 on
+    ``dev``, from weights drawn on the host: the loss and the parameters."""
+    cfg = configs.get(arch).reduced_config()
+    init = transformer.init_params(cfg, torch.Generator().manual_seed(seed), "cpu", head=True)
+    model, state = transformer.train_state_from_numpy({"params": init.numpy_params()}, cfg, dev)
+    opt = train_opt.adamw(train_opt.AdamWConfig(schedule=train_opt.cosine_schedule(**LM_HOST_SCHED)))
+    step = train_loop.make_train_step(transformer.loss_fn(model), opt, n_micro=2)
+    b = next(synthetic.lm_batches(cfg.vocab, LM_HOST_B, LM_HOST_S, seed=seed))
+    p, _, m = step(state["params"], train_loop.init_opt_state(opt, state["params"]), b)
+    return float(m["loss"]), train_tree.leaves(train_tree.to_numpy(p))
+
+
+def lm_card_vs_host(seed, dev) -> list[dict]:
+    """(4) Each reduced LM config's step on the card against the host's."""
+    rows = []
+    lr = float(train_opt.cosine_schedule(**LM_HOST_SCHED)(1))
+    for i, arch in enumerate(LM_ARCH_IDS):
+        (card_loss, card_p), (host_loss, host_p) = (lm_host_step(arch, d, seed + i)
+                                                    for d in (dev, "cpu"))
+        d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(card_p, host_p)])
+        w = np.concatenate([np.abs(b).ravel() for b in host_p])
+        row = dict(arch=arch, loss_card=card_loss, loss_host=host_loss,
+                   loss_rel=abs(card_loss / host_loss - 1), max_param_abs_diff=float(d.max()),
+                   outside=int((d > LM_HOST_ATOL + LM_HOST_RTOL * w).sum()), params=int(d.size))
+        row["ok"] = bool(math.isfinite(card_loss) and row["loss_rel"] <= LM_HOST_LOSS_RTOL
+                         and row["outside"] <= LM_HOST_OUTLIERS * d.size and d.max() <= 2 * lr)
+        rows.append(row)
+    assert all(r["ok"] for r in rows), rows
+    return rows
+
+
+def lm_train_phase(seed, dev, info: dict, runs=LM_TRAIN_RUNS, reduced=False) -> dict:
+    """Phase lm_train (one ``lm_train`` line a run).  Returns K7's launches
+    on its main path, the trained weights' prefill."""
+    info["resident_bytes"] = torch.cuda.memory_allocated()  # earlier phases' leftovers
+    row, out = lm_train_entry(dev, reduced)
+    emit({"lm_train": row})
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    row, launches = lm_train_serve(out, dev, g, reduced)
+    emit({"lm_train": row})
+    del out
+    torch.cuda.empty_cache()
+    info["runs"] = ["entry_point", "served"]
+    for i, (arch, layers) in enumerate(runs):
+        emit({"lm_train": lm_train_run(arch, layers, seed + 71 + i, dev, reduced)})
+        info["runs"].append(f"train_4k {arch}")
+    info["card_vs_host"] = lm_card_vs_host(seed + 81, dev)
+    return {"flash_attention": launches}
 
 
 if __name__ == "__main__":

@@ -2,10 +2,11 @@
 ``--arch <id>`` resolves here (the counterpart of ``repro.configs``).
 
 Ported: ``plaid-colbertv2`` (the paper's own encoder) and the five LM
-archs (dense and MoE), whose serving path (``prefill`` and ``decode_step``
-with a KV cache) runs; LM training is ROADMAP Queue 1 item 8.3.  The
-recsys and GNN ids raise and name the ROADMAP item that ports them, Queue
-1 item 9.
+archs (dense and MoE), which train (``lm_loss``, on one device or a data
+mesh) and serve (``prefill`` and ``decode_step`` with a KV cache); a mesh
+with a ``"model"`` axis above 1 is ROADMAP Queue 1 item 8.3.  The recsys
+and GNN ids raise and name the ROADMAP item that ports them, Queue 1 item
+9.
 """
 from __future__ import annotations
 

@@ -7,8 +7,8 @@ noise, unit-normalized) so k-means centroids are meaningful and PLAID's
 centroid interaction behaves as it does on real embeddings; queries are
 derived from documents with noise so relevance is well-defined (the source
 doc is the gold passage).  ``colbert_batches`` gives ColBERT training
-triples.  The LM and recsys generators are not ported (ROADMAP Queue 1
-items 8 and 9).
+triples, ``lm_batches`` the LM family's token streams.  The recsys
+generator is not ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -117,3 +117,16 @@ def colbert_batches(
                 axis=1,
             ),
         }
+
+
+def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0):
+    """Infinite iterator of ``{"tokens", "targets"}`` (batch, seq) int32 with
+    zipfian marginals: one draw of ``seq + 1`` tokens a row, the targets
+    the tokens shifted by one."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        t = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
+        yield {"tokens": t[:, :-1], "targets": t[:, 1:]}

@@ -1,14 +1,19 @@
-"""Training driver: ``python -m repro_torch.launch.train --arch plaid-colbertv2
+"""Training driver: ``python -m repro_torch.launch.train --arch <id>
 [--reduced] [--mesh none|local|single|multi]`` (the counterpart of
 ``repro.launch.train``).
 
-Trains ColBERTv2 on ``colbert_batches`` (the reference's driver's 8-token
-queries and 16-token passages) with AdamW on the cosine schedule (20
-warm-up steps), microbatched gradient accumulation, optional int8 gradient
-compression with error feedback, rolling checkpoints, the straggler
-watchdog and supervised restart.  Weights are random, drawn from seed 0.
-Runs on the card unless ``--device cpu``.  ``params`` counts the encoder's
-parameters (the reference's count also holds its unused ``lm_head``).
+Trains a registry arch on the reference's synthetic data (``data_for``):
+an LM (``lm_batches``, 64 tokens a row, ``lm_loss``; a full config in
+float32, as the reference trains it) or ColBERTv2 (``colbert_batches``,
+8-token queries and 16-token passages), with AdamW on the cosine schedule
+(20 warm-up steps), microbatched gradient accumulation, optional int8
+gradient compression with error feedback, rolling checkpoints, the
+straggler watchdog and supervised restart; each step updates the
+parameters and optimizer state in place, as the reference's jitted step
+donates them.  Weights are random, drawn from seed 0.  Runs on the card unless ``--device cpu``.  ``params`` counts
+the training tree's leaves: an LM's as the reference's (padded slots
+included), ColBERTv2's encoder without the ``lm_head`` the reference's
+count also holds.
 
 ``--mesh none`` and ``local`` train on one device.  ``single`` and
 ``multi`` train data-parallel over every process of a ``torchrun`` launch
@@ -22,12 +27,15 @@ replicas are checked bit-identical at the end.
     torchrun --nproc_per_node=8 -m repro_torch.launch.train \
         --arch plaid-colbertv2 --mesh single --batch 32
 
-Only ``plaid-colbertv2`` is ported; the registry names the ROADMAP item of
-every other arch.
+``run(argv)`` does ``main``'s work and returns what it trained (the
+final state, the config, the losses).  The LM ids and
+``plaid-colbertv2`` train; the recsys and GNN ids raise
+and name ROADMAP Queue 1 item 9.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -40,13 +48,38 @@ from repro_torch.data import synthetic as syn
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import colbert as colbert_lib
+from repro_torch.models import transformer as T
 from repro_torch.training import fault_tolerance as ft
 from repro_torch.training import loop as train_loop
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training import tree
 
 
+def data_for(cfg, batch: int, family: str, device):
+    """``(batches, loss_fn, params)`` of a family: the reference's
+    ``data_for``, with the model drawn from seed 0 on ``device`` (``params``
+    is its training tree).  ``recsys`` and ``gnn`` raise."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    if family == "lm":
+        model = T.init_params(cfg, gen, device, head=True)
+        return syn.lm_batches(cfg.vocab, batch, 64), T.loss_fn(model), T.train_params(model)
+    if family == "retrieval":
+        it = syn.colbert_batches(cfg.backbone.vocab, batch, q_len=8, d_len=16, nway=cfg.nway)
+        model = colbert_lib.init_params(cfg, gen, device=device)
+        return it, colbert_lib.loss_fn(model), colbert_lib.train_params(model)
+    raise NotImplementedError(
+        f"family {family!r} is not ported to repro_torch (ROADMAP Queue 1 item 9)")
+
+
 def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None) -> dict:
+    """``main``'s work: ``{"state", "cfg", "losses", "steps", "restarts",
+    "seconds"}``; the trained weights are ``state["params"]`` (a training
+    tree)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -63,6 +96,8 @@ def main(argv=None) -> int:
 
     mod = config_registry.get(args.arch)
     cfg = mod.reduced_config() if args.reduced else mod.full_config()
+    if mod.FAMILY == "lm" and not args.reduced:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
     dev = resolve_device(args.device)
     joined = False
     if args.mesh in ("single", "multi"):
@@ -75,28 +110,25 @@ def main(argv=None) -> int:
         mesh = mesh_mod.make_local_mesh(dev) if args.mesh == "local" else None
     try:
         with sharding.use_mesh(mesh):
-            return _train(args, cfg, dev, mesh)
+            return _train(args, cfg, mod.FAMILY, dev, mesh)
     finally:
         if joined:
             torch.distributed.destroy_process_group()
 
 
-def _train(args, cfg, dev, mesh) -> int:
+def _train(args, cfg, family, dev, mesh) -> dict:
     world = 1 if mesh is None else mesh.world_size
     if args.batch % (world * args.n_micro):
         raise SystemExit(f"--batch {args.batch} does not split into {args.n_micro} "
                          f"microbatch(es) over {world} process(es)")
     lead = mesh is None or mesh.rank == 0
-    it = syn.colbert_batches(cfg.backbone.vocab, args.batch, q_len=8, d_len=16, nway=cfg.nway)
+    it, loss_fn, params = data_for(cfg, args.batch, family, dev)
     optimizer = opt_lib.adamw(
         opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(args.lr, 20, args.steps))
     )
     comp = None if args.compression == "none" else args.compression
-    model = colbert_lib.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-    step = train_loop.make_train_step(
-        colbert_lib.loss_fn(model), optimizer, n_micro=args.n_micro, compression=comp
-    )
-    params = colbert_lib.train_params(model)
+    step = train_loop.make_train_step(loss_fn, optimizer, n_micro=args.n_micro, compression=comp,
+                                      donate=True)
     train_loop.assert_replicas_agree(params, mesh)
     opt_state = train_loop.init_opt_state(optimizer, params, comp)
     n_params = sum(p.numel() for p in tree.leaves(params))
@@ -128,7 +160,8 @@ def _train(args, cfg, dev, mesh) -> int:
             f"stragglers={len(watchdog.stragglers)}"
         )
         print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    return 0
+    return dict(state=state, cfg=cfg, losses=losses, steps=final, restarts=restarts,
+                seconds=dt)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Decoder-only LM family and the ColBERT encoder's backbone in PyTorch (the
 counterpart of ``repro.models.transformer``): dense / GQA / MQA /
-sliding-window / MoE layers, the LM head, and serving (``prefill``, and
-``decode_step`` with a KV cache).
+sliding-window / MoE layers, the LM head, training (``lm_loss``, with the
+MoE router and its load-balance aux loss under grad) and serving
+(``prefill``, and ``decode_step`` with a KV cache).
 
 Layouts are the reference's, so weights cross between the two packages as
 numpy (:func:`params_from_numpy` / :meth:`Transformer.numpy_params`):
@@ -43,10 +44,21 @@ everything else runs ``layers.chunked_attention``, and ``decode_step`` runs
 kernel defines none), so a forward pass that builds a graph through it
 raises.
 
-Not ported yet: ``lm_loss`` and the MoE aux loss under grad (a forward pass
-that builds a graph through an MoE layer raises), ROADMAP Queue 1 item 8.3;
-the sequence-sharded cache update (``_cache_update`` with ``seq_sharded``)
-comes with the tensor-parallel rules there.
+Training: ``lm_loss(model, tokens, targets, mask)`` is the reference's
+next-token cross-entropy over the real vocabulary plus ``0.01`` times the
+MoE layers' aux total; ``loss_fn(model)`` binds it to a training tree (the
+reference's ``init_params`` tree with ``lm_head``, ``dense_layers`` and
+``moe_layers``, each layer stack a list; :func:`train_params`,
+:func:`train_state_from_numpy`).  An MoE block runs under
+``torch.utils.checkpoint`` with ``cfg.remat`` as a dense one does; its
+router statistics leave the block beside ``h`` and the aux is formed from
+them outside it (:func:`moe_aux`), so that under a data-parallel mesh
+(``distributed.sharding.data_mesh``) the first-choice counts are summed
+over the processes by one forward all-reduce, never in a recomputation.
+
+Not ported yet: a mesh with a ``"model"`` axis above 1 (tensor and expert
+parallelism, the FSDP rules) and the sequence-sharded cache update
+(``_cache_update`` with ``seq_sharded``), ROADMAP Queue 1 item 8.3.
 """
 from __future__ import annotations
 
@@ -61,12 +73,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ieee_f32_matmul, resolve_device
 from repro_torch.core import scoring
+from repro_torch.distributed import sharding
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
-
-#: what the next slice ports (the refusals name it)
-LM_TRAINING = "ROADMAP Queue 1 item 8.3 (LM training)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,13 +203,6 @@ def _param_name(path: tuple[str, ...]) -> str:
     return "_".join(p for p in path if p != "w")
 
 
-def _moe_training_refused(cfg: TransformerConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: a forward pass that builds a graph through an MoE layer "
-        f"(training the router and the aux loss) is not ported: {LM_TRAINING}"
-    )
-
-
 class Layer(nn.Module):
     """One pre-norm block: RMSNorm -> attention -> residual -> RMSNorm ->
     SwiGLU (dense) or routed experts (MoE) -> residual.  Parameter
@@ -260,28 +264,29 @@ class Layer(nn.Module):
             )
         return self.out_proj(o, cast, w)
 
-    def ffn(self, x2, cast, w) -> tuple[torch.Tensor, torch.Tensor]:
-        """The feed-forward half: (out, aux); aux is 0 for a dense layer."""
+    def ffn(self, x2, cast, w) -> tuple[torch.Tensor, tuple]:
+        """The feed-forward half: (out, router statistics): an MoE layer's
+        (probability sums, first-choice counts, tokens), as
+        :func:`moe_ffn` returns them; none for a dense layer."""
         if self.moe:
-            return moe_einsum(w, x2, self.cfg, cast)
+            out, *stats = moe_ffn(w, x2, self.cfg, cast)
+            return out, tuple(stats)
         out = L.swiglu(cast(w["ffn_wi"]), cast(w["ffn_wg"]), cast(w["ffn_wo"]), x2, self.cfg.dtype)
-        return out, torch.zeros((), device=x2.device)
+        return out, ()
 
-    def block(self, h, positions, cast, *weights) -> tuple[torch.Tensor, torch.Tensor]:
+    def block(self, h, positions, cast, *weights) -> tuple[torch.Tensor, tuple]:
         """The layer as a function of its weights (passed in, so that a
         recomputation in the backward pass reads the tensors the forward
-        pass read): (h, aux)."""
+        pass read): (h, router statistics)."""
         w = dict(zip(self.names, weights))
         x1 = L.rmsnorm(w["ln1_g"], h)
         h = h + self.attention(x1, positions, cast, w).to(h.dtype)
-        f, aux = self.ffn(L.rmsnorm(w["ln2_g"], h), cast, w)
-        return h + f.to(h.dtype), aux
+        f, stats = self.ffn(L.rmsnorm(w["ln2_g"], h), cast, w)
+        return h + f.to(h.dtype), stats
 
-    def forward(self, h: torch.Tensor, positions: torch.Tensor, cast) -> tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, h: torch.Tensor, positions: torch.Tensor, cast) -> tuple[torch.Tensor, tuple]:
         w = [getattr(self, n) for n in self.names]
         graph = torch.is_grad_enabled() and (h.requires_grad or any(t.requires_grad for t in w))
-        if graph and self.moe:
-            raise _moe_training_refused(self.cfg)
         if graph and self.cfg.remat:
             return checkpoint(self.block, h, positions, cast, *w,
                               use_reentrant=False, preserve_rng_state=False)
@@ -356,18 +361,24 @@ class Transformer(nn.Module):
             self._casts[id(p)] = hit
         return hit[1]
 
-    def hidden(self, tokens: torch.Tensor, positions: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+    def hidden(self, tokens: torch.Tensor, positions: torch.Tensor | None = None, *,
+               aux_mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (hidden states (B, S, d) in ``cfg.dtype``, the
-        MoE layers' summed aux value, f32)."""
+        MoE layers' aux values summed in layer order, f32; 0 without MoE
+        layers).  With ``aux_mesh`` the tokens are this process's rows of
+        a batch split over the mesh's processes, and the aux is this
+        process's share of the whole batch's (:func:`moe_aux`)."""
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
         h = self.cast(self.embed)[tokens.long()]
-        aux = torch.zeros((), device=h.device)
+        stats = []
         for layer in self.layers:
-            h, a = layer(h, positions, self.cast)
-            aux = aux + a
+            h, st = layer(h, positions, self.cast)
+            if st:
+                stats.append(st)
+        aux = (moe_aux(stats, self.cfg.n_experts, aux_mesh) if stats
+               else torch.zeros((), device=h.device))
         return L.rmsnorm(self.final_norm_g, h), aux
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
@@ -416,19 +427,53 @@ def moe_slots(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
     return torch.stack(slots, dim=-1)
 
 
-def moe_einsum(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConfig, cast
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d) in x's dtype, the Switch load-balance
-    aux value), the reference's ``moe_einsum``: tokens in groups of
-    ``moe_group`` (the last one zero-padded), each expert taking at most
-    ``ceil(g k capacity_factor / E)`` choices of a group and dropping the
-    rest; plus the shared experts when the config has them.
+def moe_aux(stats, n_experts: int, mesh=None) -> torch.Tensor:
+    """The MoE layers' Switch aux values, ``E * sum(me * ce)`` a layer,
+    summed in layer order, from each layer's ``(probability sums (E,),
+    first-choice counts (E,), tokens)`` (:func:`moe_ffn`): ``me`` the mean
+    router probability of each expert, ``ce`` the share of first choices
+    it got, over every token of the groups (padding included, as the
+    reference's means are).
+
+    With ``mesh`` the statistics are this process's rows of a batch split
+    over the mesh's processes: the counts are summed over the processes by
+    one all-reduce (forward only; they carry no gradient), the token count
+    is the whole batch's, and ``me`` is this process's probability sum
+    over it, so that the processes' values sum to the whole batch's aux
+    (it is a product of two batch means, not a mean itself)."""
+    counts = torch.stack([c for _, c, _ in stats])  # (layers, E)
+    n = stats[0][2]
+    if mesh is not None and mesh.world_size > 1:
+        counts = mesh_mod.all_reduce_sum(mesh, counts)
+        n = n * mesh.world_size
+    aux = torch.zeros((), device=counts.device)
+    for (p_sum, _, _), c in zip(stats, counts):
+        aux = aux + n_experts * torch.sum((p_sum / n) * (c / n))
+    return aux
+
+
+def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConfig, cast
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """x (B, S, d) -> (out (B, S, d) in x's dtype, each expert's router
+    probability summed over the tokens (E,) f32, each expert's count of
+    first choices (E,) f32, the tokens counted), the routed half of the
+    reference's ``moe_einsum``: tokens in groups of ``moe_group`` (the last
+    one zero-padded), each expert taking at most ``ceil(g k
+    capacity_factor / E)`` choices of a group and dropping the rest; plus
+    the shared experts when the config has them.
 
     The reference dispatches and combines with one-hot einsums; here each
     kept choice's row is gathered into its expert's slot (the same values:
     a one-hot product adds zeros), the experts run as one batched product,
     and each token sums its k gated outputs in f32 (gates rounded to the
-    compute dtype first, as the reference's ``combine.astype``)."""
+    compute dtype first, as the reference's ``combine.astype``).
+
+    Under grad it is the reference's einsums' gradient: the router's comes
+    through the gates of the kept choices and the probability sums alone
+    (the choices, slots, keep masks and counts carry none), and an
+    expert's weights get theirs through the rows dispatched to it.  The
+    scatter into the slots and the gathers back are ``index_put`` /
+    ``index_add`` in the backward pass, atomic f32 sums on the card."""
     B, S, d = x.shape
     E, k, dt = cfg.n_experts, cfg.top_k, cfg.dtype
     g = min(cfg.moe_group, S)
@@ -458,13 +503,13 @@ def moe_einsum(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerC
     if "moe_shared_wi" in w:
         out = out + L.swiglu(cast(w["moe_shared_wi"]), cast(w["moe_shared_wg"]),
                              cast(w["moe_shared_wo"]), x, dt).to(out.dtype)
-    me = probs.mean(dim=(0, 1))
-    ce = F.one_hot(ids[..., 0], E).float().mean(dim=(0, 1))
-    return out.to(x.dtype), E * torch.sum(me * ce)
+    counts = F.one_hot(ids[..., 0], E).sum(dim=(0, 1)).float()
+    return out.to(x.dtype), probs.sum(dim=(0, 1)), counts, G * g
 
 
 # --------------------------------------------------------------------------
-# LM head and serving: prefill, single-token decode with a KV cache
+# LM head, the training loss, and serving: prefill, single-token decode
+# with a KV cache
 # --------------------------------------------------------------------------
 def logits_fn(model: Transformer, h: torch.Tensor) -> torch.Tensor:
     """h (B, S, d) -> (B, S, padded_vocab) logits in ``cfg.dtype``; padded
@@ -482,6 +527,39 @@ def logits_fn(model: Transformer, h: torch.Tensor) -> torch.Tensor:
         real = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
         logits = torch.where(real, logits, -1e9)
     return logits
+
+
+def lm_loss(model: Transformer, tokens, targets, mask=None
+            ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """The reference's ``lm_loss``: tokens and targets (B, S) ->
+    ``(nll + 0.01 * aux, {"nll", "aux"})``.  Logits in ``cfg.dtype`` (padded
+    vocab slots at -1e9), then f32; each position's ``logsumexp`` minus its
+    target's logit; the mean over ``mask`` (B, S) (all positions without
+    one), its denominator at least 1; ``aux`` the MoE layers' total.
+
+    Under a data-parallel mesh of W processes (``sharding.data_mesh``)
+    ``tokens``, ``targets`` and ``mask`` are the global batch on every
+    process, and process r takes rows ``[r B/W, (r+1) B/W)``: its nll is
+    the sum over its rows divided by the global batch's mask count, and its
+    aux its share of the global aux (:func:`moe_aux`), so the processes'
+    losses (and gradients) sum to the global batch's."""
+    dev = model.device
+    tokens, targets = torch.as_tensor(tokens, device=dev), torch.as_tensor(targets, device=dev)
+    B, S = tokens.shape
+    mesh = sharding.data_mesh()
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    if B % world:
+        raise ValueError(f"batch {B} does not split over {world} processes")
+    b = B // world
+    rows = slice(rank * b, (rank + 1) * b)
+    h, aux = model.hidden(tokens[rows], aux_mesh=mesh)
+    logits = logits_fn(model, h).float()
+    tgt = logits.gather(-1, targets[rows, :, None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - tgt
+    mask = (torch.ones((B, S), device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).to(nll.dtype))
+    loss = (nll * mask[rows]).sum() / mask.sum().clamp(min=1.0)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 @torch.no_grad()
@@ -619,6 +697,56 @@ def params_from_numpy(
     arrays = tree_lib.from_numpy(tree, params_tree(model, paths))
     assign_params(model, paths, tree_lib.tree_map(lambda t: t.to(param_dtype), arrays))
     return model
+
+
+# --------------------------------------------------------------------------
+# the training tree
+# --------------------------------------------------------------------------
+def train_params(model: Transformer) -> dict:
+    """The model's parameters as a training tree, the reference's
+    ``init_params`` layout (``lm_head`` when the model holds one, each
+    layer stack a list): detached aliases, which a functional train step
+    reads and never writes."""
+    return params_tree(model, param_paths(model.cfg, model.head))
+
+
+class _Loss(nn.Module):
+    def __init__(self, model: Transformer):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch):
+        return lm_loss(self.model, batch["tokens"], batch["targets"], batch.get("mask"))
+
+
+def loss_fn(model: Transformer):
+    """``(params, batch) -> lm_loss(model with params, batch["tokens"],
+    batch["targets"], batch.get("mask"))``, the loss function
+    ``training.loop.make_train_step`` takes; ``params`` is a training tree
+    (:func:`train_params`)."""
+    bound = _Loss(model)
+    paths = param_paths(model.cfg, model.head)
+
+    def fn(params, batch):
+        named = {f"model.{k}": v for k, v in tree_lib.scatter(params, paths).items()}
+        return torch.func.functional_call(bound, named, (batch,))
+
+    return fn
+
+
+def train_state_from_numpy(
+    tree: Mapping, cfg: TransformerConfig, device: str | torch.device = "cuda"
+) -> tuple[Transformer, dict]:
+    """The reference's LM training state ``{"params": ..., "opt": {"mu",
+    "nu", "step"[, "ef"]}}`` (as numpy; ``opt`` may be left out) -> (a
+    float32 model holding ``params``, the port's state with every leaf on
+    ``device``); ``training.tree.to_numpy`` is its inverse."""
+    model = params_from_numpy(tree["params"], cfg, device)
+    like = train_params(model)
+    state = {"params": like}
+    if "opt" in tree:
+        state["opt"] = {k: (model.embed if k == "step" else like) for k in tree["opt"]}
+    return model, tree_lib.from_numpy(tree, state)
 
 
 def _normal(shape, scale: float, g: torch.Generator) -> torch.Tensor:

@@ -11,7 +11,9 @@ Flat keys are the reference's: dict keys joined by ``/``.  A list (a layer
 stack, see :mod:`repro_torch.training.tree`) is written as ONE array with
 a leading ``L`` axis, as the reference's stacked leaves are, so a
 checkpoint of ``{"params": ..., "opt": ...}`` written by either package
-restores in the other.  Tensors are copied to the host before the write.
+restores in the other: ColBERTv2's training state and an LM's (its
+``embed``, ``lm_head``, ``final_norm``, ``dense_layers`` / ``moe_layers``
+stacks, the moments, ``step`` and, with int8, ``ef``).  Tensors are copied to the host before the write.
 
 ``CheckpointManager`` keeps the last ``keep`` checkpoints and can write on
 a daemon thread (a queue of host arrays; the train loop does not wait on

@@ -20,6 +20,13 @@ model to one), so gradients are taken with respect to that tree's leaves.
 * ``cast_dtype`` casts every floating parameter once before the forward
   pass, and gradients are taken with respect to the cast (the reference's
   bf16 C5 path).
+* ``donate=True`` lets the step overwrite the parameters and optimizer
+  state it is handed, as the reference's ``launch.train`` and train cells
+  donate theirs to ``jit`` (``launch.train`` and ``launch.cells`` pass it):
+  AdamW's moments and the parameters are updated in place (the same
+  bits), and a step holds about 20 bytes a float32 parameter (weights,
+  two moments, the f32 gradient and the update) where a functional one
+  holds 32.
 * The backward pass runs with TF32 off (``ieee_f32_matmul``), as the
   forward's products do.
 
@@ -48,7 +55,7 @@ from repro_torch.distributed import compression as comp
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.training import tree as T
-from repro_torch.training.optimizer import Optimizer, apply_updates
+from repro_torch.training.optimizer import Optimizer, apply_updates, apply_updates_
 
 
 def _split_micro(batch: dict, n_micro: int) -> list[dict]:
@@ -92,6 +99,7 @@ def make_train_step(
     compression: str | None = None,
     param_axes=None,
     cast_dtype: torch.dtype | None = None,
+    donate: bool = False,
 ):
     if compression not in (None, "int8"):
         raise ValueError(f"compression must be None or 'int8', got {compression!r}")
@@ -112,7 +120,8 @@ def make_train_step(
                 (l, _), g = value_and_grad(loss_fn, params, mb, cast_dtype)
                 torch._foreach_add_(acc, [x.float() for x in T.leaves(g)])
                 loss = loss + l
-            grads = T.unflatten(params, torch._foreach_div(acc, n_micro))
+            torch._foreach_div_(acc, n_micro)
+            grads = T.unflatten(params, acc)
             loss = loss / n_micro
             metrics = {}
         if mesh is not None:
@@ -123,8 +132,13 @@ def make_train_step(
             opt_state = dict(opt_state, ef=ef)
 
         inner = {k: v for k, v in opt_state.items() if k != "ef"}
-        updates, inner = optimizer.update(grads, inner, params)
-        new_params = apply_updates(params, updates)
+        if donate:
+            updates, inner = optimizer.update(grads, inner, params, inplace=True)
+            del grads
+            new_params = apply_updates_(params, updates)
+        else:
+            updates, inner = optimizer.update(grads, inner, params)
+            new_params = apply_updates(params, updates)
         new_state = dict(inner)
         if "ef" in opt_state:
             new_state["ef"] = opt_state["ef"]

@@ -13,8 +13,15 @@ The reference's semantics, in its f32 order:
 
 ``torch.optim.AdamW`` is not used: it applies the decay as a separate
 multiply and has no global-norm clip.  The arithmetic runs as
-``torch._foreach_*`` over all leaves (a few launches a step, not a few per
-tensor); ``update`` is functional and returns new tensors.
+``torch._foreach_*`` over groups of leaves of at most ``GROUP_ELEMS``
+elements (a few launches a group, not a few per tensor; a pass over the
+whole tree at once would hold about nine f32 copies of it in temporaries,
+52 bytes a parameter at its peak).  ``update`` is functional and returns
+new tensors; ``update(..., inplace=True)`` writes ``mu`` and ``nu`` into
+the state it was handed instead, and :func:`apply_updates_` the updates
+into the parameters (a train step that donates its inputs).  The grouping
+and the in-place forms change no bit: each element sees the same f32
+operations in the same order.
 """
 from __future__ import annotations
 
@@ -87,6 +94,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
+#: leaves an update pass takes at a time (f32 elements; a larger leaf alone)
+GROUP_ELEMS = 1 << 26
+
+
+def _groups(xs: list) -> list[slice]:
+    """Runs of consecutive leaves of at most ``GROUP_ELEMS`` elements."""
+    out, start, n = [], 0, 0
+    for i, x in enumerate(xs):
+        if i > start and n + x.numel() > GROUP_ELEMS:
+            out.append(slice(start, i))
+            start, n = i, 0
+        n += x.numel()
+    return out + [slice(start, len(xs))] if xs else out
+
+
 def adamw(cfg: AdamWConfig) -> Optimizer:
     def init(params):
         zeros = lambda: T.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
@@ -94,24 +116,40 @@ def adamw(cfg: AdamWConfig) -> Optimizer:
         return {"mu": zeros(), "nu": zeros(),
                 "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, *, inplace: bool = False):
         step = state["step"] + 1
-        g = [x.float() for x in T.leaves(grads)]
-        gn = global_norm(g)
+        gs = T.leaves(grads)
+        gn = global_norm(gs)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
-        g = torch._foreach_mul(g, scale)
-        mu = torch._foreach_add(torch._foreach_mul(T.leaves(state["mu"]), cfg.b1),
-                                torch._foreach_mul(g, 1 - cfg.b1))
-        nu = torch._foreach_add(torch._foreach_mul(T.leaves(state["nu"]), cfg.b2),
-                                torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
         stepf = step.to(torch.float32)
         bc1 = 1 - torch.pow(cfg.b1, stepf)
         bc2 = 1 - torch.pow(cfg.b2, stepf)
         neg_lr = -cfg.schedule(step)
-        den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), cfg.eps)
-        adam = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        decay = torch._foreach_mul([p.float() for p in T.leaves(params)], cfg.weight_decay)
-        updates = torch._foreach_mul(torch._foreach_add(adam, decay), neg_lr)
+        mus, nus, ps = T.leaves(state["mu"]), T.leaves(state["nu"]), T.leaves(params)
+        mu, nu, updates = [], [], []
+        for sl in _groups(gs):
+            g = torch._foreach_mul([x.float() for x in gs[sl]], scale)
+            if inplace:
+                m, v = mus[sl], nus[sl]
+                torch._foreach_mul_(m, cfg.b1)
+                torch._foreach_add_(m, torch._foreach_mul(g, 1 - cfg.b1))
+                torch._foreach_mul_(v, cfg.b2)
+                torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
+            else:
+                m = torch._foreach_add(torch._foreach_mul(mus[sl], cfg.b1),
+                                       torch._foreach_mul(g, 1 - cfg.b1))
+                v = torch._foreach_add(torch._foreach_mul(nus[sl], cfg.b2),
+                                       torch._foreach_mul(torch._foreach_mul(g, 1 - cfg.b2), g))
+            del g
+            den = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(v, bc2)), cfg.eps)
+            adam = torch._foreach_div(torch._foreach_div(m, bc1), den)
+            del den
+            decay = torch._foreach_mul([p.float() for p in ps[sl]], cfg.weight_decay)
+            updates += torch._foreach_mul(torch._foreach_add(adam, decay), neg_lr)
+            mu += m
+            nu += v
+        if inplace:
+            mu, nu = mus, nus
         return T.unflatten(params, updates), {
             "mu": T.unflatten(params, mu), "nu": T.unflatten(params, nu), "step": step,
         }
@@ -129,3 +167,16 @@ def apply_updates(params, updates):
     ps = T.leaves(params)
     new = torch._foreach_add([p.float() for p in ps], T.leaves(updates))
     return T.unflatten(params, [n.to(p.dtype) for n, p in zip(new, ps)])
+
+
+def apply_updates_(params, updates):
+    """:func:`apply_updates` written into ``params``' tensors; returns
+    ``params``."""
+    pairs = list(zip(T.leaves(params), T.leaves(updates)))
+    f32 = [(p, u) for p, u in pairs if p.dtype == torch.float32]
+    if f32:
+        torch._foreach_add_([p for p, _ in f32], [u for _, u in f32])
+    for p, u in pairs:
+        if p.dtype != torch.float32:
+            p.copy_(p.float() + u)
+    return params

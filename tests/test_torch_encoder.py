@@ -294,11 +294,20 @@ def test_port_init_matches_reference_shapes_and_scales(reduced_ref_params):
     assert abs(got["proj"].std() - (2.0 / (d + out)) ** 0.5) < 0.03
 
 
-def test_moe_configs_are_refused():
-    """MoE layers serve (the model is built and runs without a graph), but
-    a forward pass that builds a graph through them (training) is refused,
-    naming the LM-training item."""
+def test_moe_layers_train_and_serve():
+    """A forward pass through MoE layers that builds a graph trains them:
+    with remat on, the gradient of the hidden states and the aux value
+    reaches the router and every expert weight of each layer, and without
+    a graph the model serves."""
     cfg = tT.TransformerConfig(n_experts=4, top_k=2, dtype=torch.float32)
-    model = tT.Transformer(cfg, device="cpu").requires_grad_()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        model(torch.zeros((1, 4), dtype=torch.int64))
+    model = tT.init_params(cfg, torch.Generator().manual_seed(0), "cpu").requires_grad_()
+    assert cfg.remat and all(lay.moe for lay in model.layers)
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=torch.Generator().manual_seed(1))
+    h, aux = model.hidden(toks)
+    assert float(aux) > 0
+    (h.square().sum() + aux).backward()
+    for lay in model.layers:
+        for name in ("moe_router", "moe_wi", "moe_wg", "moe_wo"):
+            assert getattr(lay, name).grad.abs().max() > 0, name
+    with torch.no_grad():
+        assert model(toks).shape == (2, 8, cfg.d_model)
