@@ -280,6 +280,38 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                rtol 1e-5, parameters rtol 1e-4 / atol 1e-6 but for a
                thousandth of them, each within 2 lr.  Only (2) launches a
                port kernel (K7); training runs none.
+18. lm_tp      the ``"model"`` mesh axis: two gloo ranks sharing
+               ``cuda:0`` on a 1 x 2 ``("data", "model")`` mesh (NCCL
+               refuses two ranks on one card), each holding its slice of
+               every weight.  Each check first runs the one-process port on
+               the card with the same seeded weights and inputs, keeps the
+               results on the host and frees the card; the ranks then run
+               it once: (a) granite-34b at full width, 4 of 88 layers (48
+               heads over one KV head: 24 heads a rank, the cache
+               sequence-sharded, 4,096 of 8,192 slots a rank), prefill 1 x
+               4,096 through K7, 16 decode steps at B 8 from slot 8,176;
+               (b) granite-moe-1b-a400m whole (16 experts and 4 of 8 KV
+               heads a rank, the cache head-sharded), prefill B 8 x 4,096
+               through K7, 16 decode steps at B 32 from slot 4,080, the
+               one-process run's expert choices replayed (one bf16 rounding
+               flips near-tied choices); every prefill row's logits against
+               the one-process run's (cosine >= 0.9999, max |diff| <= 2% of
+               the largest |logit|); the decode steps in bf16 (timed) and
+               again in f32 from the same bf16 weights and cache on the bf16
+               steps' expert choices, every row against the one-process f32
+               run's (LM_F32_*: cosine >= 0.99999, max |diff| <= 0.1%); in
+               bf16 the one-process port is itself ~0.9999 / 1.6% from its
+               own f32 steps on granite-34b, so the ranks' bf16 steps are
+               held to at most LM_TP_BF16_SPREAD times that distance from
+               the f32 steps (1 - cosine and the |diff| share); layer 0's
+               gathered bf16 cache bit for bit, K7 launched on each rank; (c)
+               ``launch.train --mesh single --model 2`` for granite-moe-1b
+               whole in f32 at the reference's defaults (B 8 x 64), 5
+               steps, each loss within 1e-4 of the one-process run's, the
+               replicated leaves bit-identical on both ranks (checkpoint
+               writes skipped for time on both sides; the CPU tests hold
+               them).  Step ms, the collectives' ms and bytes (host
+               traffic under gloo) and peak bytes a rank.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -461,7 +493,10 @@ FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 #: (a 32k call takes tens of ms, its plain version seconds)
 LM_FLASH_CASES = [("yi-34b", 1, 32768, 64, 8, 128), ("granite-34b", 1, 4096, 48, 1, 128),
                   ("granite-moe-1b-a400m", 8, 4096, 16, 8, 64),
-                  ("deepseek-moe-16b", 1, 4096, 16, 16, 128)]
+                  ("deepseek-moe-16b", 1, 4096, 16, 16, 128),
+                  # phase lm_tp's per-rank shapes: half the heads a rank
+                  ("granite-34b-tp2", 1, 4096, 24, 1, 128),
+                  ("granite-moe-1b-a400m-tp2", 8, 4096, 8, 4, 64)]
 LM_FLASH_REPS = 5
 #: phase lm: (arch, layers kept or None for all, prefill (B, S), decode (B,
 #: the cell's seq_len, cache_len)).  Cuts: yi-34b keeps 16 of 60 layers
@@ -516,6 +551,22 @@ LM_SERVE_BS = (8, 4096)  # the trained granite-moe-1b weights' prefill
 LM_HOST_B, LM_HOST_S = 4, 24
 LM_HOST_SCHED = dict(peak_lr=1e-3, warmup=2, total=10)
 LM_HOST_LOSS_RTOL, LM_HOST_RTOL, LM_HOST_ATOL, LM_HOST_OUTLIERS = 1e-5, 1e-4, 1e-6, 1e-3
+#: phase lm_tp: the ranks (a 1 x 2 mesh on cuda:0); (arch, layers kept,
+#: prefill (B, S), decode (B, the cache's slots, the first cache_len)),
+#: LM_TP_STEPS decode steps each; the bars of the bf16 prefill and (c)'s
+#: losses against the one-process run (the decode's are LM_F32_* in f32,
+#: and in bf16 LM_TP_BF16_SPREAD: the ranks' distance from the one
+#: process's f32 steps at most this multiple of its own bf16 one);
+#: launch.train's flags (its defaults: f32, B 8 x 64) for (c)
+LM_TP_MODEL = 2
+LM_TP_RUNS = (
+    ("granite-34b", 4, (1, 4096), (8, 8192, 8176)),
+    ("granite-moe-1b-a400m", None, (8, 4096), (32, 4096, 4080)),
+)
+LM_TP_STEPS = 16
+LM_TP_COS_MIN, LM_TP_ERR_SHARE, LM_TP_LOSS_RTOL = 0.9999, 0.02, 1e-4
+LM_TP_BF16_SPREAD = 2.0
+LM_TP_TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--steps", "5"]
 #: the reference's flash test shapes (tests/test_flash_attention.py:10-18):
 #: B, S, H, Hkv, dh, causal
 JAX_FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 128, 8, 1, 32, True),
@@ -951,7 +1002,11 @@ def main(argv=None) -> int:
     # ---- 6. K7 against its plain version ----------------------------------
     with Phase("flash") as info:
         info["cases"] = flash_cases(dev)
-        kernels["flash_attention"] = next(c for c in info["cases"] if c["case"] == "passages")
+        kernels["flash_attention"] = dict(
+            next(c for c in info["cases"] if c["case"] == "passages"),
+            per_rank_shapes=[{k: c[k] for k in ("case", "shape", "max_abs_err", "ms", "plain_ms",
+                                                 "bound_ms", "bound_by", "library_ms")}
+                             for c in info["cases"] if c["case"].endswith("-tp2")])
 
     # ---- 7. the search path: plaid-cuda vs plaid --------------------------
     ops.reset_launch_counts()
@@ -1137,6 +1192,13 @@ def main(argv=None) -> int:
         # K7's launches counted around the trained weights' prefill alone
         lm_train_counts = lm_train_phase(args.seed, dev, info)
 
+    # ---- 18. the "model" axis: two gloo ranks on a 1 x 2 mesh --------------
+    torch.cuda.empty_cache()
+    with Phase("lm_tp") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        # K7's launches: the ranks' prefills (each rank counts its own)
+        lm_tp_counts = lm_tp_phase(args.seed, dev, info)
+
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
@@ -1144,7 +1206,7 @@ def main(argv=None) -> int:
     # around the serving of the trained weights): K1-K3 in search, live,
     # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
     # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
-    # stream_build, train, train_dp, lm and lm_train
+    # stream_build, train, train_dp, lm, lm_train and lm_tp
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
                 + serve_counts[name] + sharded_counts[name] + driver_counts[name]
                 + train_counts[name] + dp_counts[name]
@@ -1158,7 +1220,8 @@ def main(argv=None) -> int:
                                    + train_counts["flash_attention"]
                                    + dp_counts["flash_attention"]
                                    + lm_counts["flash_attention"]
-                                   + lm_train_counts["flash_attention"])
+                                   + lm_train_counts["flash_attention"]
+                                   + lm_tp_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -1166,6 +1229,7 @@ def main(argv=None) -> int:
             device_ms=kv["device_ms"], host_us=kv.get("host_us"), plain_ms=kv["plain_ms"],
             bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
             library_ms=kv.get("library_ms"), contract_bound_ms=kv.get("contract_bound_ms"),
+            per_rank_shapes=kv.get("per_rank_shapes"),
         )
         for name, kv in kernels.items()
     ]
@@ -3222,14 +3286,14 @@ def gloo_rank(rank: int, tmp: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def spawn_gloo_ranks(tmp: str, target=gloo_rank, *args) -> list:
-    """GLOO_RANKS spawned ranks running ``target(rank, tmp, *args)``, joined
+def spawn_gloo_ranks(tmp: str, target=gloo_rank, *args, n: int = GLOO_RANKS) -> list:
+    """``n`` spawned ranks running ``target(rank, tmp, *args)``, joined
     within GLOO_JOIN_S; none outlives the call.  Returns each rank's result
     (``{tmp}/rank{r}.pt``)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, tmp, *args)) for r in range(GLOO_RANKS)]
+    procs = [ctx.Process(target=target, args=(r, tmp, *args)) for r in range(n)]
     for pr in procs:
         pr.start()
     try:
@@ -3241,8 +3305,8 @@ def spawn_gloo_ranks(tmp: str, target=gloo_rank, *args) -> list:
                 pr.terminate()
                 pr.join(10)
     codes = [pr.exitcode for pr in procs]
-    assert codes == [0] * GLOO_RANKS, f"gloo ranks exited {codes}"
-    return [torch.load(f"{tmp}/rank{r}.pt") for r in range(GLOO_RANKS)]
+    assert codes == [0] * n, f"gloo ranks exited {codes}"
+    return [torch.load(f"{tmp}/rank{r}.pt") for r in range(n)]
 
 
 def sharded_phase(index, batches, seed, info: dict) -> dict:
@@ -4160,6 +4224,288 @@ def lm_train_phase(seed, dev, info: dict, runs=LM_TRAIN_RUNS, reduced=False) -> 
         emit({"lm_train": lm_train_run(arch, layers, seed + 71 + i, dev, reduced)})
         info["runs"].append(f"train_4k {arch}")
     info["card_vs_host"] = lm_card_vs_host(seed + 81, dev)
+    return {"flash_attention": launches}
+
+
+# --------------------------------------------------------------------------
+# phase lm_tp: the "model" mesh axis, two gloo ranks sharing the card
+# --------------------------------------------------------------------------
+def lm_tp_serve(arch, layers, prefill_bs, decode_bs, seed, dev, reduced=False,
+                replay=None) -> dict:
+    """One LM config served by this process under the active mesh, from
+    weights, tokens and a cache drawn from ``seed`` on ``dev`` (the same on
+    one process and on each rank, which keeps its piece): the prefill's
+    logits, LM_TP_STEPS decode steps' logits, layer 0's whole cache after
+    them, the MoE layers' choices (``replay``: an earlier run's, taken),
+    K7's launches and the times, on the host."""
+    cfg = lm_config(arch, layers, reduced)
+    resident = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = transformer.init_params(cfg, g, dev, head=True, param_dtype=cfg.dtype)
+    B, S = (2, 32) if reduced else prefill_bs
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=g, device=dev)
+    fa.launches = 0
+    with MoeStats(replay=replay and replay["prefill"]) as routes:
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits = transformer.prefill(model, toks)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = fa.launches
+    Bd, slots, start = (4, 32, 32 - LM_TP_STEPS) if reduced else decode_bs
+    shape = (cfg.n_layers, Bd, transformer.cache_seq_len(cfg, slots), cfg.n_kv_heads, cfg.d_head)
+    cache = transformer.init_cache(cfg, Bd, slots, dev)  # this process's piece
+    for name in cache:  # the whole cache drawn, its piece kept
+        whole = torch.empty(shape, dtype=cfg.dtype, device=dev).normal_(generator=g)
+        cache[name].copy_(_piece(model, whole, cache[name].shape))
+        del whole
+    dtok = torch.randint(0, cfg.vocab, (LM_TP_STEPS, Bd), generator=g, device=dev)
+    cache32 = cache.map(torch.Tensor.float)  # the f32 check's start
+    steps, step_ms = [], []
+    with MoeStats(replay=replay and replay["decode"]) as droutes:
+        for t in range(LM_TP_STEPS):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out, cache = transformer.decode_step(model, cache, dtok[t], start + t)
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(out.cpu())
+    layer0 = transformer.gather_cache(model, cache.map(lambda c: c[:1]))
+    cache_local = tuple(cache["k"].shape)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    del cache
+    # the same steps in f32 from the same bf16 weights and cache: two sum
+    # orders agree to f32's rounding here, where bf16 amplifies one
+    # rounding through the layers (see LM_F32_COS_MIN).  They take the bf16
+    # steps' expert choices (on the ranks, the one process's replayed), so
+    # bf16 and f32 differ in their rounding alone (LM_TP_BF16_SPREAD)
+    m32, steps32 = lm_twin(model, torch.float32), []
+    replay32 = replay["decode32"] if replay else droutes.calls
+    with MoeStats(replay=replay32 or None) as routes32:
+        for t in range(LM_TP_STEPS):
+            out, cache32 = transformer.decode_step(m32, cache32, dtok[t], start + t)
+            steps32.append(out.cpu())
+    del m32, cache32
+    rec = dict(prefill=logits.cpu(), decode=steps, decode32=steps32,
+               layer0={n: c.cpu() for n, c in layer0.items()},
+               routes={k: [(i.cpu(), kp.cpu(), e) for i, kp, e in r.calls]
+                       for k, r in (("prefill", routes), ("decode", droutes), ("decode32", routes32))},
+               flipped=routes.flipped + droutes.flipped + routes32.flipped, k7_launches=launches,
+               prefill_ms=prefill_ms, decode_ms=step_ms, cache_local=cache_local,
+               peak_device_bytes=peak, resident_bytes=resident,
+               weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+               vocab=cfg.vocab, layers=cfg.n_layers)
+    del model, layer0
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _piece(model, whole, local_shape):
+    """This process's piece of a whole cache tensor: its KV heads (dim 3)
+    or its run of slots (dim 2), whichever ``local_shape`` has fewer of;
+    the whole tensor when ``local_shape`` is its shape."""
+    dims = [i for i, (n, w) in enumerate(zip(local_shape, whole.shape)) if n != w]
+    if not dims:
+        return whole
+    dim = dims[0]
+    n, r = local_shape[dim], model.tp.rank
+    return whole.narrow(dim, r * n, n)
+
+
+def lm_tp_train(argv, dev, tmp) -> dict:
+    """(c) ``launch.train.run`` (checkpoint writes skipped): its losses,
+    step ms, peak bytes, and the replicated leaves' checksums."""
+    skipped, step_s = [], []
+    manager_save, gather = train_ckpt.CheckpointManager.save, train_ckpt.gather
+    observe = ft.StepWatchdog.observe
+    train_ckpt.CheckpointManager.save = lambda self, step, tree: skipped.append(step)
+    train_ckpt.gather = lambda tree, shardings=None: tree
+
+    def timed_observe(self, step, seconds):  # each step's seconds, as the watchdog sees them
+        step_s.append(seconds)
+        return observe(self, step, seconds)
+
+    ft.StepWatchdog.observe = timed_observe
+    resident = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        out = train_cli.run(argv + ["--device", str(dev), "--ckpt-dir", tmp])
+    finally:
+        train_ckpt.CheckpointManager.save, train_ckpt.gather = manager_save, gather
+        ft.StepWatchdog.observe = observe
+    params = out["state"]["params"]
+    place = out["placements"]
+    whole = params if place is None else [
+        p for p, pl in zip(train_tree.leaves(params), train_tree.leaves(place)) if not pl.split]
+    return dict(losses=out["losses"], steps=out["steps"], seconds=out["seconds"],
+                step_ms=[x * 1e3 for x in step_s],
+                step_p50_ms=statistics.median(step_s[1:] or step_s) * 1e3,  # past the first
+                checkpoints_skipped=skipped,
+                replicated_checksums=train_loop.replica_checksums(whole).cpu(),
+                peak_device_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+                resident_bytes=resident)
+
+
+def lm_tp_rank(rank: int, tmp: str, seed: int, device: str, reduced: bool) -> None:
+    """One of the LM_TP_MODEL ranks sharing ``device`` over gloo on a 1 x
+    LM_TP_MODEL mesh: each of LM_TP_RUNS served (the one-process run's
+    expert choices replayed from ``{tmp}/routes{i}.pt``), then (c); every
+    collective timed and its bytes counted.  Writes ``{tmp}/rank{r}.pt``."""
+    mesh_mod.init_distributed(f"file://{tmp}/rendezvous", LM_TP_MODEL, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)  # this process's CUDA context, before its counters
+        else:  # a CPU rehearsal: count K7's plain calls as launches
+            def on_card(t, name):
+                fa.launches += name == "flash_attention"
+                return False
+            _build.on_card = on_card
+        mesh = mesh_mod.make_production_mesh(device=device, model=LM_TP_MODEL)
+        assert mesh.shape == {"data": 1, "model": LM_TP_MODEL} and mesh.devices == (dev,)
+        wire = []  # (kind, bytes on the wire, ms) of every collective
+        reduce_, gather_ = mesh_mod._all_reduce, mesh_mod._all_gather_list
+
+        def timed(kind, fn, t, *a):
+            _sync(dev)
+            t0 = time.perf_counter()
+            res = fn(*a)
+            _sync(dev)
+            n = t.numel() * (4 if t.dtype in (torch.bfloat16, torch.float16) else t.element_size())
+            wire.append((kind, n, (time.perf_counter() - t0) * 1e3))
+            return res
+
+        mesh_mod._all_reduce = lambda m, t, op, axis: timed("all_reduce", reduce_, t, m, t, op, axis)
+        mesh_mod._all_gather_list = lambda m, t: timed("all_gather", gather_, t, m, t)
+        out = {}
+        with sharding.use_mesh(mesh):
+            for i, (arch, layers, pbs, dbs) in enumerate(LM_TP_RUNS):
+                replay = torch.load(f"{tmp}/routes{i}.pt")
+                replay = {k: [(ids.to(dev), keep.to(dev), e) for ids, keep, e in v]
+                          for k, v in replay.items()}
+                n = len(wire)
+                rec = lm_tp_serve(arch, layers, pbs, dbs, seed + 91 + i, dev, reduced, replay)
+                rec["wire"] = wire[n:]
+                out[arch] = rec
+            n = len(wire)
+            argv = LM_TP_TRAIN_ARGV + ["--mesh", "single", "--model", str(LM_TP_MODEL)]
+            out["train"] = lm_tp_train(argv + (["--reduced"] if reduced else []), dev, f"{tmp}/ckpt")
+            out["train"]["wire"] = wire[n:]
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def bf16_spread(ranks: dict, one: dict) -> dict:
+    """The ranks' bf16 decode against the one process's f32 steps beside
+    the one process's own bf16 decode against them: 1 - cosine and the
+    largest |diff| share, each allowed LM_TP_BF16_SPREAD times the one
+    process's, or the f32 bars (LM_F32_*) where that is less (a model
+    whose compute dtype is f32 has no bf16 spread)."""
+    row = dict(cos_gap=1 - ranks["min_cos"], err_share=ranks["max_err_share"],
+               allowed_cos_gap=max(LM_TP_BF16_SPREAD * (1 - one["min_cos"]), 1 - LM_F32_COS_MIN),
+               allowed_err_share=max(LM_TP_BF16_SPREAD * one["max_err_share"], LM_F32_ERR_SHARE))
+    row["ratio"] = [row["cos_gap"] / max(1 - one["min_cos"], 1e-12),
+                    row["err_share"] / max(one["max_err_share"], 1e-12)]
+    row["ok"] = (row["cos_gap"] <= row["allowed_cos_gap"]
+                 and row["err_share"] <= row["allowed_err_share"])
+    return row
+
+
+def _wire_summary(wire, steps: int) -> dict:
+    kinds = sorted({k for k, _, _ in wire})
+    return {k: dict(calls=sum(1 for kk, _, _ in wire if kk == k) / steps,
+                    bytes=sum(b for kk, b, _ in wire if kk == k) / steps,
+                    ms=sum(ms for kk, _, ms in wire if kk == k) / steps) for k in kinds}
+
+
+def lm_tp_phase(seed, dev, info: dict, reduced=False) -> dict:
+    """Phase lm_tp (see the module docstring, 18): the one-process runs,
+    then the ranks, then the checks; one ``lm_tp`` line a run.  Returns
+    K7's launches on the ranks' main path (their prefills)."""
+    single = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (arch, layers, pbs, dbs) in enumerate(LM_TP_RUNS):
+            rec = lm_tp_serve(arch, layers, pbs, dbs, seed + 91 + i, dev, reduced)
+            torch.save(rec["routes"], f"{tmp}/routes{i}.pt")
+            single.append(rec)
+        train_one = lm_tp_train(LM_TP_TRAIN_ARGV + (["--reduced"] if reduced else []), dev,
+                                f"{tmp}/ckpt_one")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = spawn_gloo_ranks(tmp, lm_tp_rank, seed, str(dev), reduced, n=LM_TP_MODEL)
+        info["ranks_s"] = time.perf_counter() - t0
+    launches = 0
+    for (arch, layers, pbs, dbs), one in zip(LM_TP_RUNS, single):
+        recs = [r[arch] for r in ranks]
+        rows = {"prefill": [lm_logits_agree(r["prefill"], one["prefill"], one["vocab"],
+                                            LM_TP_COS_MIN, LM_TP_ERR_SHARE) for r in recs]}
+        rows["decode"] = [lm_logits_agree(torch.cat(r["decode"]), torch.cat(one["decode"]),
+                                          one["vocab"], LM_TP_COS_MIN, LM_TP_ERR_SHARE)
+                          for r in recs]
+        rows["decode_f32"] = [lm_exact_agree(torch.cat(r["decode32"]), torch.cat(one["decode32"]),
+                                             one["vocab"]) for r in recs]
+        layer0 = [all(torch.equal(r["layer0"][n], one["layer0"][n]) for n in ("k", "v"))
+                  for r in recs]
+        line = dict(
+            arch=arch, layers=one["layers"], cut=dict(layers=layers, prefill=pbs, decode=dbs),
+            mesh={"data": 1, "model": LM_TP_MODEL}, steps=LM_TP_STEPS,
+            prefill=rows["prefill"], decode_bf16=rows["decode"], decode_f32=rows["decode_f32"],
+            layer0_cache_identical=layer0,
+            k7_launches=[r["k7_launches"] for r in recs], one_process_k7_launches=one["k7_launches"],
+            cache_local=[r["cache_local"] for r in recs], cache_whole=tuple(one["layer0"]["k"].shape),
+            flipped_tokens=[r["flipped"] for r in recs],
+            prefill_ms=[r["prefill_ms"] for r in recs], one_process_prefill_ms=one["prefill_ms"],
+            decode_p50_ms=[statistics.median(r["decode_ms"]) for r in recs],
+            one_process_decode_p50_ms=statistics.median(one["decode_ms"]),
+            weight_bytes=[r["weight_bytes"] for r in recs], one_process_weight_bytes=one["weight_bytes"],
+            peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+            one_process_peak_device_bytes=one["peak_device_bytes"],
+            one_process_resident_bytes=one["resident_bytes"],
+            # bf16 against the f32 steps on the same expert choices: the one
+            # process's own rounding beside the ranks' (LM_TP_BF16_SPREAD)
+            one_process_bf16_vs_f32=lm_logits_agree(torch.cat(one["decode"]),
+                                                    torch.cat(one["decode32"]), one["vocab"]),
+            ranks_bf16_vs_f32=lm_logits_agree(torch.cat(recs[0]["decode"]),
+                                              torch.cat(one["decode32"]), one["vocab"]),
+            collectives=[_wire_summary(r["wire"], 1) for r in recs])
+        line["bf16_spread"] = bf16_spread(line["ranks_bf16_vs_f32"],
+                                          line["one_process_bf16_vs_f32"])
+        emit({"lm_tp": line, "card": info["card"]})
+        assert all(x["ok"] for x in rows["prefill"] + rows["decode_f32"]), line
+        assert line["bf16_spread"]["ok"], line
+        assert all(bool(torch.isfinite(torch.cat(r["decode"])[:, :one["vocab"]]).all())
+                   for r in recs), line
+        assert all(layer0) and all(r["k7_launches"] == one["layers"] for r in recs), line
+        assert all(torch.equal(recs[0]["prefill"], r["prefill"]) for r in recs), "ranks' logits"
+        launches += sum(r["k7_launches"] for r in recs)
+    recs = [r["train"] for r in ranks]
+    rels = [abs(a / b - 1) for a, b in zip(recs[0]["losses"], train_one["losses"])]
+    line = dict(run="train", argv=LM_TP_TRAIN_ARGV, mesh={"data": 1, "model": LM_TP_MODEL},
+                losses=recs[0]["losses"], one_process_losses=train_one["losses"],
+                max_loss_rel=max(rels), step_ms=[r["step_ms"] for r in recs],
+                step_p50_ms=[r["step_p50_ms"] for r in recs],
+                one_process_step_ms=train_one["step_ms"],
+                one_process_step_p50_ms=train_one["step_p50_ms"],
+                replicated_leaves=int(recs[0]["replicated_checksums"].numel()),
+                replicated_identical=all(torch.equal(r["replicated_checksums"],
+                                                     recs[0]["replicated_checksums"]) for r in recs),
+                peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+                one_process_peak_device_bytes=train_one["peak_device_bytes"],
+                one_process_resident_bytes=train_one["resident_bytes"],
+                collectives_a_step=[_wire_summary(r["wire"], r["steps"]) for r in recs],
+                checkpoints="writes skipped on both sides (tests/test_torch_tensor_parallel.py "
+                            "holds the gathered checkpoint)")
+    emit({"lm_tp": line, "card": info["card"]})
+    assert all(r["losses"] == recs[0]["losses"] for r in recs), "ranks' losses"
+    assert line["max_loss_rel"] <= LM_TP_LOSS_RTOL and line["replicated_identical"], line
+    info["runs"] = [a for a, *_ in LM_TP_RUNS] + ["train"]
     return {"flash_attention": launches}
 
 

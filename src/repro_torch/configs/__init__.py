@@ -2,9 +2,10 @@
 ``--arch <id>`` resolves here (the counterpart of ``repro.configs``).
 
 Ported: ``plaid-colbertv2`` (the paper's own encoder) and the five LM
-archs (dense and MoE), which train (``lm_loss``, on one device or a data
-mesh) and serve (``prefill`` and ``decode_step`` with a KV cache); a mesh
-with a ``"model"`` axis above 1 is ROADMAP Queue 1 item 8.3.  The recsys
+archs (dense and MoE), which train (``lm_loss``) and serve (``prefill``
+and ``decode_step`` with a KV cache) on one device, a data mesh or a mesh
+with a ``"model"`` axis (tensor and expert parallelism; its FSDP rules are
+ROADMAP Queue 1 item 8.3).  The recsys
 and GNN ids raise and name the ROADMAP item that ports them, Queue 1 item
 9.
 """

@@ -75,10 +75,15 @@ def compress_decompress_with_feedback(grads, ef_state):
 def compressed_psum(x: torch.Tensor, mesh, block: int = 256) -> torch.Tensor:
     """The mean of ``x`` over the processes of ``mesh``'s group (a
     ``launch.mesh.Mesh``) with int8 on the wire; ``x`` itself when the
-    group has one member.  Every process passes the same shape."""
+    group has one member.  Every process passes the same shape.  On a mesh
+    with a ``"model"`` axis above 1 the mean runs over the other axes (the
+    data-parallel replicas of this process's slice)."""
     from repro_torch.launch import mesh as mesh_mod
 
-    n_dev = mesh.world_size
+    axis = None  # the data-parallel replicas: every process, or all but "model"
+    if mesh.shape.get("model", 1) > 1:
+        axis = tuple(a for a in mesh.axis_names if a != "model")
+    n_dev = (mesh if axis is None else mesh.sub(*axis)).world_size
     if n_dev == 1:
         return x
     shape = x.shape
@@ -91,11 +96,11 @@ def compressed_psum(x: torch.Tensor, mesh, block: int = 256) -> torch.Tensor:
     q = q.view(n_dev, -1, block)
     s = s.view(n_dev, -1)
     # exchange: process i receives chunk i from every peer
-    q_x = mesh_mod.all_to_all(mesh, q)
-    s_x = mesh_mod.all_to_all(mesh, s)
+    q_x = mesh_mod.all_to_all(mesh, q, axis=axis)
+    s_x = mesh_mod.all_to_all(mesh, s, axis=axis)
     vals = q_x.float() * s_x[..., None]  # (n_dev, blocks, block)
     q2, s2, _ = quantize(vals.mean(dim=0), block)
-    q_all = mesh_mod.all_gather(mesh, q2)  # (n_dev, blocks, block)
-    s_all = mesh_mod.all_gather(mesh, s2)
+    q_all = mesh_mod.all_gather(mesh, q2, axis=axis)  # (n_dev, blocks, block)
+    s_all = mesh_mod.all_gather(mesh, s2, axis=axis)
     out = (q_all.float() * s_all[..., None]).reshape(-1)
     return out[:n].reshape(shape)

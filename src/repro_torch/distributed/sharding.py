@@ -10,27 +10,40 @@ dropped, and an axis whose size its mesh extent does not divide falls back
 to replication.  The rule tables are the reference's.
 
 The port's meshes are :class:`repro_torch.launch.mesh.Mesh` (any object
-with ``shape`` and ``axis_names`` serves :func:`logical_to_spec`).  Training
-runs on a mesh whose ``"model"`` extent is 1: one replica of the weights a
-process, the batch split over the rest (``"batch"`` -> ``("pod",
-"data")``).  Eager PyTorch splits the batch explicitly
-(:func:`data_mesh`, ``models.colbert.train_loss``, ``training.loop``), so
-:func:`constrain` has nothing to act on there and is the identity, and a
-"sharding" (:func:`tree_shardings`) is the device of this process's
-replica.  A ``"model"`` extent above 1 means tensor parallelism (heads,
-MLP and vocab over ``"model"``) or the FSDP rules that put weights on it;
-neither is ported, and every entry point here refuses such a mesh rather
-than replicate what the rules would split.  Under ``DEFAULT_RULES``
-``"embed_fsdp"`` maps to ``"data"``: the reference would shard weights over
-the data axis there, the port keeps a whole replica on every process (the
-same values; ROADMAP Queue 3 records the divergence).
+with ``shape`` and ``axis_names`` serves :func:`logical_to_spec`), one
+device a process.  Eager PyTorch places every collective explicitly, so
+:func:`constrain` is the identity.
+
+* A ``"model"`` extent of 1: one replica of the weights a process, the
+  batch split over the rest (``"batch"`` -> ``("pod", "data")``;
+  :func:`data_mesh`, ``models.colbert.train_loss``, ``training.loop``),
+  and a "sharding" (:func:`tree_shardings`) is the device of this
+  process's replica.
+* A ``"model"`` extent above 1 (tensor and expert parallelism, the LM
+  family): each process holds the slice of each weight that
+  :func:`logical_to_spec` gives its leaf under the rules, with the
+  divisibility fallback (granite-34b's one KV head is replicated); a
+  sharding is then a :class:`Placement` (device, spec, the slice).
+  :func:`model_mesh` is the ``"model"`` sub-mesh the models reduce over,
+  :func:`data_mesh` the sub-mesh over the other axes, which splits the
+  batch and sums the gradients.
+
+Refused, naming ROADMAP Queue 1 item 8.3: a mesh with a ``"model"`` axis
+above 1 whose process holds several devices, and the FSDP rules
+(``"embed_fsdp"`` over ``"model"``, ``ZERO3_RULES``) on such a mesh.
+Under ``DEFAULT_RULES`` ``"embed_fsdp"`` maps to ``"data"``: the reference
+would shard weights over the data axis there, the port keeps a whole
+replica on every data index (the same values; ROADMAP Queue 3 records the
+divergence), and a :class:`Placement` slices along ``"model"`` alone.
 """
 from __future__ import annotations
 
 import contextlib
 import math
 import threading
+from typing import Any, NamedTuple
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.training import tree as T
 
 #: ROADMAP item that ports a "model" axis above 1
@@ -146,11 +159,27 @@ def logical_to_spec(logical_axes: tuple, shape=None) -> tuple:
     return tuple(spec)
 
 
+def _model_extent(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
 def _refuse_model_axis(mesh) -> None:
-    if mesh.shape.get("model", 1) > 1:
+    """Refuse a ``"model"`` axis above 1 where the port does not lay it
+    over processes: several devices in one process, or the FSDP rules."""
+    m = _model_extent(mesh)
+    if m == 1:
+        return
+    if len(mesh.devices) != 1:
         raise NotImplementedError(
-            f"a mesh with a 'model' extent of {mesh.shape['model']} splits weights or "
-            f"activations over devices; the port trains data-parallel only ({_MODEL_AXIS_ITEM})"
+            f"a mesh with a 'model' extent of {m} whose process holds {len(mesh.devices)} "
+            f"devices; the port lays the model axis over processes, one device each "
+            f"({_MODEL_AXIS_ITEM})"
+        )
+    fsdp = _filter_axes(mesh, (_CTX.rules or DEFAULT_RULES).get("embed_fsdp"))
+    if fsdp is not None and "model" in ((fsdp,) if isinstance(fsdp, str) else fsdp):
+        raise NotImplementedError(
+            f"'embed_fsdp' over the 'model' axis (FSDP, ZERO3_RULES) is not ported "
+            f"({_MODEL_AXIS_ITEM})"
         )
 
 
@@ -159,9 +188,10 @@ def _several_devices(mesh) -> bool:
 
 
 def data_mesh():
-    """The active mesh when it splits the batch over several processes (a
-    data-parallel step), else None.  Refuses a ``"model"`` extent above 1
-    and a mesh with several devices in one process."""
+    """The mesh that splits the batch over several processes (a
+    data-parallel step), else None: the active mesh, or with a ``"model"``
+    axis above 1 its sub-mesh over the other axes.  Refuses a mesh with
+    several devices in one process."""
     mesh = _CTX.mesh
     if not _several_devices(mesh):
         return None
@@ -170,13 +200,26 @@ def data_mesh():
         raise NotImplementedError(
             f"a training mesh holds one device a process, not {len(mesh.devices)}"
         )
+    if _model_extent(mesh) > 1:
+        mesh = mesh.sub(*(a for a in mesh.axis_names if a != "model"))
+        return mesh if mesh.world_size > 1 else None
     return mesh
+
+
+def model_mesh():
+    """The active mesh's ``"model"`` sub-mesh when its extent is above 1
+    (the processes a layer's split products reduce over), else None."""
+    mesh = _CTX.mesh
+    if _model_extent(mesh) == 1:
+        return None
+    _refuse_model_axis(mesh)
+    return mesh.sub("model")
 
 
 def constrain(x, *logical_axes):
     """The reference's ``with_sharding_constraint`` by logical names: the
-    identity (see the module docstring); refuses a ``"model"`` extent above
-    1."""
+    identity (see the module docstring); refuses what
+    :func:`model_mesh` refuses."""
     mesh = _CTX.mesh
     if _several_devices(mesh):
         _refuse_model_axis(mesh)
@@ -189,13 +232,86 @@ def constrain_tree(tree, axes_tree):
     return T.tree_map(lambda ax, x: constrain(x, *ax), axes_tree, tree)
 
 
-def tree_shardings(tree_axes):
-    """A tree of logical-axis tuples -> a tree of placements: the device of
-    this process's replica under the active mesh, for every leaf (the
-    reference's ``tree_shapes``, for its divisibility fallback, has no
-    counterpart: a replica's placement does not depend on shapes)."""
+def _names(phys) -> tuple:
+    return () if phys is None else (phys,) if isinstance(phys, str) else tuple(phys)
+
+
+class Placement(NamedTuple):
+    """Where a leaf lives on a mesh with a ``"model"`` axis above 1: this
+    process's device, the leaf's spec (:func:`logical_to_spec`, the
+    reference's ``PartitionSpec``), and the ``"model"`` sub-mesh whose
+    rank picks this process's slice along the dimension the spec splits
+    over ``"model"``."""
+
+    device: Any
+    spec: tuple
+    model: Any
+
+    @property
+    def dim(self) -> int | None:
+        """The dimension split over ``"model"``, or None (replicated)."""
+        return next((i for i, p in enumerate(self.spec) if "model" in _names(p)), None)
+
+    @property
+    def split(self) -> bool:
+        return self.dim is not None
+
+    def piece(self, x):
+        """This process's slice of the whole leaf ``x`` (numpy or torch)."""
+        if self.dim is None:
+            return x
+        m, r = self.model.world_size, self.model.rank
+        n = x.shape[self.dim] // m
+        return x[(slice(None),) * self.dim + (slice(r * n, (r + 1) * n),)]
+
+    def local_shape(self, shape) -> tuple:
+        shape = tuple(shape)
+        if self.dim is None:
+            return shape
+        return shape[: self.dim] + (shape[self.dim] // self.model.world_size,) + shape[self.dim + 1:]
+
+    def gather(self, x):
+        """The whole leaf from every process's slice ``x`` (a collective
+        over ``"model"``), on ``x``'s device."""
+        if self.dim is None:
+            return x
+        return mesh_mod.gather_along(self.model, x.detach(), self.dim)
+
+
+def tree_shardings(tree_axes, tree_shapes=None):
+    """A tree of logical-axis tuples -> a tree of placements under the
+    active mesh.  With a ``"model"`` extent of 1, the device of this
+    process's replica for every leaf; above 1, a :class:`Placement` a leaf
+    (``tree_shapes``, a tree of the whole leaves' shapes in the same
+    structure, gives the reference's divisibility fallback)."""
     mesh = _CTX.mesh
     if mesh is None:
         raise ValueError("tree_shardings requires an active mesh")
     _refuse_model_axis(mesh)
-    return T.tree_map(lambda ax: mesh.devices[0], tree_axes)
+    if _model_extent(mesh) == 1:
+        return T.tree_map(lambda ax: mesh.devices[0], tree_axes)
+    model = mesh.sub("model")
+    if tree_shapes is None:
+        tree_shapes = T.tree_map(lambda ax: None, tree_axes)
+    return T.tree_map(lambda ax, shp: Placement(mesh.devices[0], logical_to_spec(ax, shp), model),
+                      tree_axes, tree_shapes)
+
+
+def place_tree(tree, shardings):
+    """``tree``'s whole leaves (tensors or numpy) as tensors where
+    ``shardings`` (:func:`tree_shardings`'s tree, or one device) puts
+    them: each cut to this process's piece where a :class:`Placement`
+    splits it (``training.tree.place``)."""
+    if not isinstance(shardings, (dict, list)):
+        return T.place(tree, shardings)
+    cut = T.tree_map(lambda x, p: p.piece(x) if isinstance(p, Placement) else x, tree, shardings)
+    return T.place(cut, T.tree_map(lambda p: p.device if isinstance(p, Placement) else p,
+                                   shardings))
+
+
+def gather_tree(tree, shardings):
+    """``tree`` with each split leaf gathered whole over ``"model"`` (a
+    collective: every process of the model group calls it); ``shardings``
+    from :func:`tree_shardings`, devices or placements."""
+    return T.tree_map(lambda x, p: p.gather(x) if isinstance(p, Placement) else x,
+                      tree, shardings)

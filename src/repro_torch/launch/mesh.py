@@ -31,15 +31,29 @@ calls are no-ops.
 Training meshes carry the reference's axis names in ``axes``:
 :func:`make_local_mesh` is its 1 x 1 ``("data", "model")`` mesh and
 :func:`make_production_mesh` lays every process of the group out as
-``("data", "model")`` or ``("pod", "data", "model")`` with a model extent
-of 1, one device a process: data parallelism over the whole group.  The
-reference's 16-way model axis (tensor parallelism) is not ported
-(``distributed.sharding`` refuses a model extent above 1).  Training's
-collectives are here too: :func:`all_reduce_sum`, :func:`all_gather_rows`
-(differentiable), :func:`all_to_all` and :func:`all_gather`.  On an NCCL
-group their tensors stay on the card; on a gloo group (the CPU, or two
-processes sharing one card) each crosses to the host and back explicitly,
-so no collective relies on gloo's support for CUDA tensors.
+``("data", "model")`` or ``("pod", "data", "model")``, one device a
+process, row-major (the model index varies fastest).  Its model extent
+defaults to 1 (data parallelism over the whole group); ``model=m`` lays
+the reference's ``"model"`` axis (tensor and expert parallelism) over
+groups of ``m`` processes, and the mesh then holds one process group a
+named axis: :meth:`Mesh.sub` is the sub-mesh along some axes (its ranks
+are the processes that differ only there), :func:`axis_index` this
+process's coordinate.
+
+Training's collectives are here too: :func:`all_reduce_sum`,
+:func:`all_reduce_max`, :func:`all_gather_rows` (differentiable),
+:func:`all_to_all` and :func:`all_gather`, each over the whole group or,
+with ``axis=``, over one named axis; and the tensor-parallel pair
+:func:`copy_to` (identity forward, all-reduce backward) and
+:func:`reduce_from` (all-reduce forward, identity backward), with
+:func:`gather_along` (a differentiable all-gather along a dimension).  On
+an NCCL group their tensors stay on the card; on a gloo group (the CPU, or
+two processes sharing one card) each crosses to the host and back
+explicitly, so no collective relies on gloo's support for CUDA tensors.
+A gloo sum of bf16 or f16 values is taken in f32 and rounded once, as one
+rounding of the exact sum: gloo has no bf16 sum of its own everywhere,
+and one that rounded at each of its adds would depend on the ranks'
+order.
 """
 from __future__ import annotations
 
@@ -63,6 +77,9 @@ class Mesh:
     #: named axes ``((name, extent), ...)`` whose extents multiply to
     #: ``n_shards``; empty for a document-sharding mesh (one ``"data"`` axis)
     axes: tuple = ()
+    #: ``((axis names, process group), ...)``: this process's group along
+    #: those axes, for the sub-meshes :meth:`sub` hands out
+    subgroups: tuple = ()
 
     def __post_init__(self):
         devs = tuple(torch.device(d) for d in self.devices)
@@ -100,6 +117,36 @@ class Mesh:
     @property
     def axis_names(self) -> tuple:
         return tuple(self.shape)
+
+    def coords(self) -> dict:
+        """This process's index along each named axis (row-major over
+        ``axes``, the last axis fastest; one device a process)."""
+        return _coords(self.rank, self.shape)
+
+    def sub(self, *names: str) -> "Mesh":
+        """The sub-mesh along ``names``: this process and the processes
+        whose coordinates differ from its own only along those axes, in
+        row-major order (its ``rank`` is this process's index there)."""
+        shape = self.shape
+        axes = tuple((n, shape[n]) for n in shape if n in names)
+        extent = math.prod(n for _, n in axes)
+        if extent == self.world_size:
+            group = self.group
+        elif extent == 1:
+            group = None
+        else:
+            group = dict(self.subgroups).get(tuple(n for n, _ in axes))
+            if group is None:
+                raise ValueError(f"the mesh {shape} holds no process group along {names}")
+        return Mesh(self.devices, group, axes or (("data", 1),))
+
+
+def _coords(rank: int, shape: dict) -> dict:
+    out = {}
+    for name, n in reversed(shape.items()):
+        out[name] = rank % n
+        rank //= n
+    return {name: out[name] for name in shape}
 
 
 def make_local_mesh(device: str | torch.device = "cuda") -> Mesh:
@@ -192,22 +239,64 @@ def make_multihost_mesh(device: str | torch.device = "cuda") -> Mesh:
     return Mesh(_local_devices(1, resolve_device(device)), _world_group())
 
 
-def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda") -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda",
+                         model: int = 1) -> Mesh:
     """The training mesh over every process of the group, one device each
     (:func:`make_multihost_mesh`), named as the reference's production
     mesh: ``("data", "model")``, or ``("pod", "data", "model")`` with one
     pod a host (``LOCAL_WORLD_SIZE`` processes, torchrun's variable).  The
-    model extent is 1 (the reference's is 16: tensor parallelism, not
-    ported), so the batch splits over every process."""
+    model extent is ``model`` (the reference's is 16), each run of
+    ``model`` consecutive ranks one model group; at the default 1 the
+    batch splits over every process.  Above 1 every process must call
+    this (the axes' process groups are made here, by all of them)."""
     mesh = make_multihost_mesh(device)
     world = mesh.world_size
+    if model < 1 or world % model:
+        raise ValueError(f"a model extent of {model} does not divide {world} process(es)")
     if not multi_pod:
-        return dataclasses.replace(mesh, axes=(("data", world), ("model", 1)))
-    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
-    if world % per_host:
-        raise ValueError(f"{world} processes do not fill hosts of {per_host}")
-    return dataclasses.replace(
-        mesh, axes=(("pod", world // per_host), ("data", per_host), ("model", 1)))
+        axes = (("data", world // model), ("model", model))
+    else:
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+        if world % per_host or per_host % model:
+            raise ValueError(f"{world} processes do not fill hosts of {per_host} "
+                             f"in model groups of {model}")
+        axes = (("pod", world // per_host), ("data", per_host // model), ("model", model))
+    mesh = dataclasses.replace(mesh, axes=axes)
+    if model == 1:
+        return mesh
+    return dataclasses.replace(mesh, subgroups=_make_subgroups(mesh))
+
+
+def _make_subgroups(mesh: Mesh) -> tuple:
+    """One process group along each named axis, and along all of them but
+    ``"model"`` (the batch's), for every process; ``dist.new_group`` is
+    called by every process for every group, in one order."""
+    shape = mesh.shape
+    names = tuple(shape)
+    world = mesh.world_size
+    wanted = [(n,) for n in names] + [tuple(n for n in names if n != "model")]
+    out = {}
+    for along in wanted:
+        extent = math.prod(shape[n] for n in along)
+        if along in out or extent in (1, world):
+            continue
+        blocks: dict = {}
+        for r in range(world):
+            c = _coords(r, shape)
+            blocks.setdefault(tuple(c[n] for n in names if n not in along), []).append(r)
+        for ranks in blocks.values():
+            g = dist.new_group(ranks)
+            if mesh.rank in ranks:
+                out[along] = g
+    return tuple(out.items())
+
+
+def axis_index(mesh: Mesh | None, name: str) -> int:
+    """This process's index along ``name`` (0 without a mesh, or along an
+    axis the mesh lacks)."""
+    if mesh is None or name not in mesh.shape:
+        return 0
+    return mesh.coords()[name]
 
 
 def visible_shards(device: str | torch.device = "cuda") -> int | None:
@@ -245,11 +334,22 @@ def gather_shards(mesh: Mesh, parts: Sequence[torch.Tensor], dim: int = -1) -> t
 # --------------------------------------------------------------------------
 # training's collectives (a group of several processes; identity for one)
 # --------------------------------------------------------------------------
-def _wire(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy of ``t`` where the group's backend takes it: on the
-    card for NCCL, on the host for gloo."""
-    where = t.device if dist.get_backend(mesh.group) == "nccl" else torch.device("cpu")
-    return t.detach().to(where, copy=True).contiguous()
+def _along(mesh: Mesh, axis) -> Mesh:
+    """``mesh``, or its sub-mesh along ``axis`` (a name or a tuple)."""
+    if axis is None:
+        return mesh
+    return mesh.sub(*((axis,) if isinstance(axis, str) else axis))
+
+
+def _gloo(mesh: Mesh) -> bool:
+    return dist.get_backend(mesh.group) != "nccl"
+
+
+def _wire(mesh: Mesh, t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """A contiguous copy of ``t`` (in ``dtype`` if given) where the group's
+    backend takes it: on the card for NCCL, on the host for gloo."""
+    where = torch.device("cpu") if _gloo(mesh) else t.device
+    return t.detach().to(where, dtype or t.dtype, copy=True).contiguous()
 
 
 def _all_gather_list(mesh: Mesh, t: torch.Tensor) -> list:
@@ -259,29 +359,44 @@ def _all_gather_list(mesh: Mesh, t: torch.Tensor) -> list:
     return out
 
 
-def all_reduce_sum(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over the group's processes, a new tensor on ``t``'s
-    device.  Every process gets the same bits: the collective computes each
-    element's sum once and hands it to all."""
+def _all_reduce(mesh: Mesh, t: torch.Tensor, op, axis) -> torch.Tensor:
+    mesh = _along(mesh, axis)
     if mesh.world_size == 1:
         return t
-    buf = _wire(mesh, t)
-    dist.all_reduce(buf, group=mesh.group)
-    return buf.to(t.device)
+    half = t.dtype in (torch.bfloat16, torch.float16) and _gloo(mesh)
+    buf = _wire(mesh, t, torch.float32 if half else None)
+    dist.all_reduce(buf, op=op, group=mesh.group)
+    return buf.to(t.device, t.dtype)
 
 
-def all_gather(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_reduce_sum(mesh: Mesh, t: torch.Tensor, axis=None) -> torch.Tensor:
+    """The sum of ``t`` over the group's processes (with ``axis``, over
+    the processes along that named axis), a new tensor on ``t``'s device.
+    Every process gets the same bits: the collective computes each
+    element's sum once and hands it to all."""
+    return _all_reduce(mesh, t, dist.ReduceOp.SUM, axis)
+
+
+def all_reduce_max(mesh: Mesh, t: torch.Tensor, axis=None) -> torch.Tensor:
+    """The elementwise max of ``t`` over the processes, as
+    :func:`all_reduce_sum` takes them."""
+    return _all_reduce(mesh, t, dist.ReduceOp.MAX, axis)
+
+
+def all_gather(mesh: Mesh, t: torch.Tensor, axis=None) -> torch.Tensor:
     """Every process's ``t`` stacked on a new leading axis in rank order
     (the reference's ``all_gather(axis=0)``), on ``t``'s device."""
+    mesh = _along(mesh, axis)
     if mesh.world_size == 1:
         return t[None]
     return torch.stack(_all_gather_list(mesh, t)).to(t.device)
 
 
-def all_to_all(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
+def all_to_all(mesh: Mesh, t: torch.Tensor, axis=None) -> torch.Tensor:
     """``t`` (world, ...): process ``i`` sends ``t[j]`` to process ``j`` and
     receives every process's ``t[i]``, stacked in rank order (the
     reference's ``all_to_all(split_axis=0, concat_axis=0)``)."""
+    mesh = _along(mesh, axis)
     if mesh.world_size == 1:
         return t
     if t.shape[0] != mesh.world_size:
@@ -317,3 +432,66 @@ def all_gather_rows(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     if mesh.world_size == 1:
         return x
     return _GatherRows.apply(x, mesh)
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism: the collectives around a split product (Megatron's f
+# and g), on a mesh whose processes hold one slice each of the weights
+# --------------------------------------------------------------------------
+class _CopyTo(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the processes
+    (a replicated tensor entering a product split over them)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(ctx.mesh, grad), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the processes forward (the partial results of a split
+    product); backward, the identity."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(mesh, x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Every process's ``x`` concatenated along ``dim`` in rank order;
+    backward, this process's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return torch.cat(_all_gather_list(mesh, x), dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.mesh.rank * ctx.n, ctx.n), None, None
+
+
+def copy_to(mesh: Mesh | None, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``mesh``'s processes."""
+    return x if mesh is None or mesh.world_size == 1 else _CopyTo.apply(x, mesh)
+
+
+def reduce_from(mesh: Mesh | None, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``mesh``'s processes; its gradient passed as it is."""
+    return x if mesh is None or mesh.world_size == 1 else _ReduceFrom.apply(x, mesh)
+
+
+def gather_along(mesh: Mesh | None, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every process's ``x`` concatenated along ``dim`` in rank order,
+    differentiably (each process's slice of the gradient returns to it)."""
+    if mesh is None or mesh.world_size == 1:
+        return x
+    return _GatherAlong.apply(x, mesh, dim % x.dim())

@@ -16,19 +16,26 @@ included), ColBERTv2's encoder without the ``lm_head`` the reference's
 count also holds.
 
 ``--mesh none`` and ``local`` train on one device.  ``single`` and
-``multi`` train data-parallel over every process of a ``torchrun`` launch
-(one card a process, NCCL; gloo with ``--device cpu``), laid out as the
-reference's ``("data", "model")`` / ``("pod", "data", "model")`` meshes
-with a model extent of 1 (``launch.mesh.make_production_mesh``):
-``--batch`` is the global batch, split over the processes, and each step is
-the global batch's.  Only rank 0 prints and writes checkpoints; the
-replicas are checked bit-identical at the end.
+``multi`` train over every process of a ``torchrun`` launch (one card a
+process, NCCL; gloo with ``--device cpu``), laid out as the reference's
+``("data", "model")`` / ``("pod", "data", "model")`` meshes
+(``launch.mesh.make_production_mesh``) with a model extent of ``--model``
+(default 1: data parallelism over every process).  ``--model m`` (an LM
+arch) splits the weights over groups of ``m`` processes, the reference's
+tensor and expert parallelism on its 16-way axis laid over fewer
+processes; checkpoints hold the whole leaves.  ``--batch`` is the global
+batch, split over the data axis, and each step is the global batch's.
+Only rank 0 prints and writes checkpoints; the replicas are checked
+bit-identical at the end (a model group's in its replicated leaves).
 
     torchrun --nproc_per_node=8 -m repro_torch.launch.train \
         --arch plaid-colbertv2 --mesh single --batch 32
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train \
+        --arch granite-moe-1b-a400m --mesh single --model 2
 
 ``run(argv)`` does ``main``'s work and returns what it trained (the
-final state, the config, the losses).  The LM ids and
+final state, the config, the losses, and on a model axis the
+parameters' placements).  The LM ids and
 ``plaid-colbertv2`` train; the recsys and GNN ids raise
 and name ROADMAP Queue 1 item 9.
 """
@@ -56,17 +63,17 @@ from repro_torch.training import tree
 
 
 def data_for(cfg, batch: int, family: str, device):
-    """``(batches, loss_fn, params)`` of a family: the reference's
+    """``(batches, loss_fn, params, model)`` of a family: the reference's
     ``data_for``, with the model drawn from seed 0 on ``device`` (``params``
     is its training tree).  ``recsys`` and ``gnn`` raise."""
     gen = torch.Generator(device=device).manual_seed(0)
     if family == "lm":
         model = T.init_params(cfg, gen, device, head=True)
-        return syn.lm_batches(cfg.vocab, batch, 64), T.loss_fn(model), T.train_params(model)
+        return syn.lm_batches(cfg.vocab, batch, 64), T.loss_fn(model), T.train_params(model), model
     if family == "retrieval":
         it = syn.colbert_batches(cfg.backbone.vocab, batch, q_len=8, d_len=16, nway=cfg.nway)
         model = colbert_lib.init_params(cfg, gen, device=device)
-        return it, colbert_lib.loss_fn(model), colbert_lib.train_params(model)
+        return it, colbert_lib.loss_fn(model), colbert_lib.train_params(model), model
     raise NotImplementedError(
         f"family {family!r} is not ported to repro_torch (ROADMAP Queue 1 item 9)")
 
@@ -91,6 +98,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", choices=["none", "local", "single", "multi"], default="none")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model extent (--mesh single|multi, an LM arch)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -99,10 +108,13 @@ def run(argv=None) -> dict:
     if mod.FAMILY == "lm" and not args.reduced:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     dev = resolve_device(args.device)
+    if args.model > 1 and (args.mesh not in ("single", "multi") or mod.FAMILY != "lm"):
+        raise SystemExit("--model above 1 takes an LM arch and --mesh single or multi")
     joined = False
     if args.mesh in ("single", "multi"):
         joined = mesh_mod.init_distributed(backend="gloo" if dev.type == "cpu" else None)
-        mesh = mesh_mod.make_production_mesh(multi_pod=args.mesh == "multi", device=dev)
+        mesh = mesh_mod.make_production_mesh(multi_pod=args.mesh == "multi", device=dev,
+                                             model=args.model)
         dev = mesh.devices[0]
         if dev.type == "cuda":
             torch.cuda.set_device(dev)  # NCCL's device for this process
@@ -117,21 +129,27 @@ def run(argv=None) -> dict:
 
 
 def _train(args, cfg, family, dev, mesh) -> dict:
-    world = 1 if mesh is None else mesh.world_size
+    data = sharding.data_mesh()
+    world = 1 if data is None else data.world_size
     if args.batch % (world * args.n_micro):
         raise SystemExit(f"--batch {args.batch} does not split into {args.n_micro} "
                          f"microbatch(es) over {world} process(es)")
     lead = mesh is None or mesh.rank == 0
-    it, loss_fn, params = data_for(cfg, args.batch, family, dev)
+    it, loss_fn, params, model = data_for(cfg, args.batch, family, dev)
     optimizer = opt_lib.adamw(
         opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(args.lr, 20, args.steps))
     )
     comp = None if args.compression == "none" else args.compression
+    place = model.placement_tree() if family == "lm" else None  # None without a model axis
     step = train_loop.make_train_step(loss_fn, optimizer, n_micro=args.n_micro, compression=comp,
-                                      donate=True)
-    train_loop.assert_replicas_agree(params, mesh)
+                                      donate=True, placements=place)
+    train_loop.assert_replicas_agree(params, mesh, place)
     opt_state = train_loop.init_opt_state(optimizer, params, comp)
-    n_params = sum(p.numel() for p in tree.leaves(params))
+    state_place = None if place is None else T.state_placements(
+        model, {"params": params, "opt": opt_state})
+    n_params = sum(x.numel() for x in tree.leaves(params)) if place is None else sum(
+        x.numel() * (p.model.world_size if p.split else 1)
+        for x, p in zip(tree.leaves(params), tree.leaves(place)))
     if lead:
         mesh_note = "" if mesh is None else f" mesh={mesh.shape}"
         print(f"arch={args.arch} params={n_params:,} steps={args.steps}{mesh_note}", flush=True)
@@ -149,10 +167,10 @@ def _train(args, cfg, family, dev, mesh) -> dict:
     state, final, restarts = ft.run_supervised(
         step_fn, {"params": params, "opt": opt_state}, batches,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, watchdog=watchdog,
-        write_checkpoints=lead,
+        write_checkpoints=lead, shardings=state_place,
     )
     dt = time.perf_counter() - t0
-    train_loop.assert_replicas_agree(state["params"], mesh)
+    train_loop.assert_replicas_agree(state["params"], mesh, place)
     if lead:
         print(
             f"done: {final} steps in {dt:.1f}s "
@@ -161,7 +179,7 @@ def _train(args, cfg, family, dev, mesh) -> dict:
         )
         print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     return dict(state=state, cfg=cfg, losses=losses, steps=final, restarts=restarts,
-                seconds=dt)
+                seconds=dt, placements=place)
 
 
 if __name__ == "__main__":

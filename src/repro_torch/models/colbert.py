@@ -12,7 +12,8 @@ entropy over the candidates (with in-batch negatives, every passage of the
 batch), and KL distillation against teacher scores.  Under a data-parallel
 mesh (``distributed.sharding.data_mesh``) the loss is still the global
 batch's: each process encodes its rows and gathers every process's passage
-vectors, differentiably, for its queries' in-batch negatives.
+vectors, differentiably, for its queries' in-batch negatives.  A mesh with
+a ``"model"`` axis above 1 is refused (ROADMAP Queue 1 item 8.3).
 
 The training state is a tree in the reference's layout (``{"backbone":
 {"embed", "final_norm", "dense_layers", ...}, "proj"}``, each layer stack a
@@ -56,6 +57,10 @@ class ColBERT(nn.Module):
 
     def __init__(self, cfg: ColBERTConfig, backbone: T.Transformer):
         super().__init__()
+        if backbone.tp is not None:
+            raise NotImplementedError(
+                "the ColBERT encoder on a mesh with a 'model' axis above 1 is not ported "
+                "(ROADMAP Queue 1 item 8.3)")
         self.cfg = cfg
         self.backbone = backbone
         self.proj = nn.Parameter(
@@ -148,6 +153,10 @@ def train_loss(model: ColBERT, cfg: ColBERTConfig, batch: Mapping):
     query's own passages and teacher scores, which are in its rows."""
     B, nway, Ld = batch["d_tokens"].shape
     dev = model.device
+    if sharding.model_mesh() is not None:
+        raise NotImplementedError(
+            "ColBERT training on a mesh with a 'model' axis above 1 is not ported "
+            "(ROADMAP Queue 1 item 8.3)")
     mesh = sharding.data_mesh()
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     if B % world:

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import ieee_f32_matmul
+from repro_torch.launch import mesh as mesh_mod
 
 
 def dense(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -75,6 +76,7 @@ def decode_attention(
     k_cache: torch.Tensor,  # (B, S, Hkv, dh)
     v_cache: torch.Tensor,  # (B, S, Hkv, dh)
     cache_len,  # int, or (B,): valid prefix length
+    mesh=None,
 ) -> torch.Tensor:
     """One query token a row against a KV cache, the reference's grouped
     ``decode_attention``: scores and ``p . v`` accumulate in f32 from the
@@ -82,11 +84,20 @@ def decode_attention(
     ``cache_len`` are masked.  Slots past the largest ``cache_len`` are not
     read (they would add ``exp(-inf) = 0``).  Each KV head is one batched
     product over B whose operands are strided views of the cache (a
-    product batched over (B, Hkv) at once would copy the cache first)."""
+    product batched over (B, Hkv) at once would copy the cache first).
+
+    With ``mesh`` (a ``launch.mesh.Mesh``) the cache's sequence axis is
+    split over its processes: ``k_cache`` / ``v_cache`` are this process's
+    slots, ``cache_len`` (an int) the valid ones among them, and ``q`` every
+    head.  The softmax keeps the reference's order over the whole
+    sequence: the global max and the global sum of ``exp(s - max)`` (two
+    small all-reduces), then ``p`` cast to the cache's dtype, then the
+    local ``p . v`` summed over the processes."""
     B, S, Hkv, dh = k_cache.shape
     H = q.shape[2]
-    if isinstance(cache_len, int):  # every slot read is valid: no mask
-        n, lens = min(cache_len, S), None
+    split = mesh is not None and mesh.world_size > 1
+    if isinstance(cache_len, int) or split:  # every slot read is valid: no mask
+        n, lens = max(min(int(cache_len), S), 0), None
     else:
         lens = torch.as_tensor(cache_len, device=q.device).reshape(-1)
         n = min(int(lens.max()), S)
@@ -97,8 +108,15 @@ def decode_attention(
     if lens is not None:
         mask = torch.arange(n, device=q.device)[None, :] < lens[:, None]  # (B or 1, n)
         s = torch.where(mask[:, None, None, :], s, -torch.inf)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    if not split:
+        p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    else:  # a process without a valid slot adds exp(-inf) = 0
+        top = s.amax(dim=-1) if n else torch.full(s.shape[:-1], -torch.inf, device=q.device)
+        e = torch.exp(s - mesh_mod.all_reduce_max(mesh, top)[..., None])
+        p = (e / mesh_mod.all_reduce_sum(mesh, e.sum(dim=-1))[..., None]).to(v_cache.dtype)
     out = torch.stack([_bmm_f32(p[:, h], v_cache[:, :n, h]) for h in range(Hkv)], dim=1)
+    if split:
+        out = mesh_mod.all_reduce_sum(mesh, out)
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 

@@ -56,9 +56,25 @@ them outside it (:func:`moe_aux`), so that under a data-parallel mesh
 (``distributed.sharding.data_mesh``) the first-choice counts are summed
 over the processes by one forward all-reduce, never in a recomputation.
 
-Not ported yet: a mesh with a ``"model"`` axis above 1 (tensor and expert
-parallelism, the FSDP rules) and the sequence-sharded cache update
-(``_cache_update`` with ``seq_sharded``), ROADMAP Queue 1 item 8.3.
+Tensor and expert parallelism: a model built under a mesh with a
+``"model"`` axis above 1 (one device a process, ``launch.mesh``) holds
+this process's slice of each weight, as the reference's rules split the
+leaf (``param_axes``): query heads, KV heads where they divide the axis,
+the SwiGLU's ``"mlp"`` width, the experts and the padded vocabulary.  The
+reference's GSPMD places its collectives implicitly; here each one is
+explicit: a column-split product's input takes ``launch.mesh.copy_to``
+and a row-split product's partial sum ``launch.mesh.reduce_from`` (one
+all-reduce, in the compute dtype as the reference's ``_pref`` psums),
+the embedding is a masked lookup of the rows held here plus one
+all-reduce, and ``lm_loss`` a vocab-parallel cross-entropy.  The KV cache
+is split as the reference's ``_cache_axes`` lays it out: by KV head where
+they divide the axis, else by sequence (``_cache_seq_sharded``), whose
+update is the reference's masked select (``_cache_write_``) and whose decode
+attention reduces the softmax over the processes
+(``layers.decode_attention`` with ``mesh``).  The batch stays whole on
+every process of a model group.  Not ported: the FSDP rules
+(``ZERO3_RULES``), a model axis over several devices of one process
+(ROADMAP Queue 1 item 8.3; ``distributed.sharding`` refuses both).
 """
 from __future__ import annotations
 
@@ -66,6 +82,7 @@ import dataclasses
 import math
 from typing import Mapping
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -207,45 +224,91 @@ class Layer(nn.Module):
     """One pre-norm block: RMSNorm -> attention -> residual -> RMSNorm ->
     SwiGLU (dense) or routed experts (MoE) -> residual.  Parameter
     ``attn_wq`` is leaf ``attn/wq``, ``moe_shared_wi`` is
-    ``moe/shared/wi/w``, and so on."""
+    ``moe/shared/wi/w``, and so on.
+
+    Under tensor parallelism (``tp``, the ``"model"`` sub-mesh) each
+    parameter is this process's slice (``local``: name -> its shape here):
+    ``wq`` / ``wk`` / ``wv`` split by column (heads), ``attn/wo`` by row,
+    the SwiGLU's ``wi`` / ``wg`` by column and ``wo`` by row (``"mlp"``),
+    the experts by expert; a split product's partial sums are summed over
+    ``tp`` once (:func:`launch.mesh.reduce_from`), and a replicated tensor
+    that enters one takes :func:`launch.mesh.copy_to` (its gradient summed
+    over ``tp``)."""
 
     def __init__(self, cfg: TransformerConfig, device: torch.device, moe: bool,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, local: Mapping | None = None, tp=None):
         super().__init__()
-        self.cfg, self.moe = cfg, moe
+        self.cfg, self.moe, self.tp = cfg, moe, tp
+        self.rank = 0 if tp is None else tp.rank
         leaves = _layer_leaves(cfg, moe)
         #: parameter names, in the order ``block`` takes them
         self.names = tuple(_param_name(p) for p in leaves)
+        local = local or {}
+        #: name -> True where this process holds a slice of the weight
+        self.split = {}
         for path, shape in leaves.items():
+            name = _param_name(path)
+            here = tuple(local.get(name, shape))
+            self.split[name] = here != tuple(shape)
             self.register_parameter(
-                _param_name(path),
-                nn.Parameter(torch.zeros(shape, device=device, dtype=param_dtype),
-                             requires_grad=False),
-            )
+                name, nn.Parameter(torch.zeros(here, device=device, dtype=param_dtype),
+                                   requires_grad=False))
+
+    def _tp(self, name: str):
+        """``tp`` when this process holds a slice of ``name``, else None."""
+        return self.tp if self.split[name] else None
+
+    @property
+    def local_heads(self) -> int:
+        return self.attn_wq.shape[1]
 
     def project_qkv(self, x, positions, cast, w) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """q (B, S, Hp, dh), k and v (B, S, Hkv, dh) in ``cfg.dtype``, RoPE
-        applied to q and k at ``positions``."""
+        """q (B, S, heads here, dh), k and v (B, S, KV heads here, dh) in
+        ``cfg.dtype``, RoPE applied to q and k at ``positions``."""
         cfg = self.cfg
         B, S, d = x.shape
-        hp, hkv, dh = cfg.padded_heads, cfg.n_kv_heads, cfg.d_head
+        hq, hkv, dh = w["attn_wq"].shape[1], w["attn_wk"].shape[1], cfg.d_head
         x = x.to(cfg.dtype)
+        xq = mesh_mod.copy_to(self._tp("attn_wq"), x)
+        xk = xq if self.split["attn_wk"] else x
         with ieee_f32_matmul():
-            q = (x @ cast(w["attn_wq"]).reshape(d, hp * dh)).view(B, S, hp, dh)
-            k = (x @ cast(w["attn_wk"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
-            v = (x @ cast(w["attn_wv"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+            q = (xq @ cast(w["attn_wq"]).reshape(d, hq * dh)).view(B, S, hq, dh)
+            k = (xk @ cast(w["attn_wk"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
+            v = (xk @ cast(w["attn_wv"]).reshape(d, hkv * dh)).view(B, S, hkv, dh)
         return L.apply_rope(q, positions, cfg.rope_theta), L.apply_rope(k, positions, cfg.rope_theta), v
+
+    def kv_for_heads(self, k, v, grad: bool = True):
+        """(k, v, query heads a KV head): the KV heads this process's query
+        heads read, grouped as K7 and the chunked attention take them.  A
+        process holding a slice of the query heads but every KV head
+        (kv_heads not split: MQA, or fewer KV heads than processes) takes
+        the ones its heads read; with ``grad`` their gradient is summed
+        over ``tp`` first (each process's heads feed only some of them)."""
+        hl, gp = self.local_heads, self.cfg.group_pad
+        if self.split["attn_wk"] or not self.split["attn_wq"]:
+            return k, v, hl // k.shape[2]
+        if grad:
+            k, v = mesh_mod.copy_to(self.tp, k), mesh_mod.copy_to(self.tp, v)
+        a = self.rank * hl  # this process's first query head
+        if hl % gp == 0 or gp % hl == 0:  # whole groups, or within one
+            sl = slice(a // gp, a // gp + max(hl // gp, 1))
+            k, v = k[:, :, sl], v[:, :, sl]
+        else:
+            idx = torch.arange(a, a + hl, device=k.device) // gp
+            k, v = k[:, :, idx], v[:, :, idx]
+        return k, v, hl // k.shape[2]
 
     def out_proj(self, o, cast, w) -> torch.Tensor:
         cfg = self.cfg
         B, S = o.shape[:2]
         with ieee_f32_matmul():
-            return (o.reshape(B, S, cfg.padded_heads * cfg.d_head).to(cfg.dtype)
-                    @ cast(w["attn_wo"]).reshape(-1, cfg.d_model))
+            out = (o.reshape(B, S, -1).to(cfg.dtype) @ cast(w["attn_wo"]).reshape(-1, cfg.d_model))
+        return mesh_mod.reduce_from(self._tp("attn_wo"), out)
 
     def attention(self, x, positions, cast, w) -> torch.Tensor:
         cfg = self.cfg
         q, k, v = self.project_qkv(x, positions, cast, w)
+        k, v, groups = self.kv_for_heads(k, v)
         if cfg.attn_impl == "flash" and cfg.window is None:
             if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
                 raise NotImplementedError(
@@ -253,12 +316,11 @@ class Layer(nn.Module):
                     "flash_attention (K7) defines none, so the port adds none; train "
                     "with attn_impl='chunked' (the reference's default)"
                 )
-            # grouped: query head h reads KV head h // group_pad, no repeat
-            o = fa.flash_attention(q, k, v, causal=cfg.causal)
+            # grouped: query head h reads KV head h // groups, no repeat
+            o = fa.flash_attention(q, k.contiguous(), v.contiguous(), causal=cfg.causal)
         else:
-            gp = cfg.group_pad
             o = L.chunked_attention(
-                q, k.repeat_interleave(gp, dim=2), v.repeat_interleave(gp, dim=2),
+                q, k.repeat_interleave(groups, dim=2), v.repeat_interleave(groups, dim=2),
                 causal=cfg.causal, window=cfg.window,
                 q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk,
             )
@@ -269,10 +331,12 @@ class Layer(nn.Module):
         (probability sums, first-choice counts, tokens), as
         :func:`moe_ffn` returns them; none for a dense layer."""
         if self.moe:
-            out, *stats = moe_ffn(w, x2, self.cfg, cast)
+            out, *stats = moe_ffn(w, x2, self.cfg, cast, tp=self.tp)
             return out, tuple(stats)
-        out = L.swiglu(cast(w["ffn_wi"]), cast(w["ffn_wg"]), cast(w["ffn_wo"]), x2, self.cfg.dtype)
-        return out, ()
+        tp = self._tp("ffn_wi")
+        out = L.swiglu(cast(w["ffn_wi"]), cast(w["ffn_wg"]), cast(w["ffn_wo"]),
+                       mesh_mod.copy_to(tp, x2), self.cfg.dtype)
+        return mesh_mod.reduce_from(tp, out), ()
 
     def block(self, h, positions, cast, *weights) -> tuple[torch.Tensor, tuple]:
         """The layer as a function of its weights (passed in, so that a
@@ -292,15 +356,23 @@ class Layer(nn.Module):
                               use_reentrant=False, preserve_rng_state=False)
         return self.block(h, positions, cast, *w)
 
-    def decode(self, h, positions, cast, ck, cv, slot: int, n_valid: int) -> torch.Tensor:
+    def decode(self, h, positions, cast, ck, cv, cache: "_CacheLayout") -> torch.Tensor:
         """One token a row (h (B, 1, d)): writes its k and v into this
-        layer's cache (ck, cv: (B, Sc, Hkv, dh)) at ``slot``, in place, and
-        attends to the first ``n_valid`` slots."""
+        layer's cache (ck, cv: (B, slots here, KV heads here, dh)) at the
+        step's slot, in place, and attends to the valid slots."""
         w = {n: getattr(self, n) for n in self.names}
         q, k, v = self.project_qkv(L.rmsnorm(w["ln1_g"], h), positions, cast, w)
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        o = L.decode_attention(q, ck, cv, n_valid)
+        _cache_write_(ck, k, cache.slot, cache.seq_sharded, cache.offset)
+        _cache_write_(cv, v, cache.slot, cache.seq_sharded, cache.offset)
+        if cache.seq_split:  # every head against this process's slots
+            hl = self.local_heads
+            qa = mesh_mod.gather_along(self._tp("attn_wq"), q, dim=2)
+            o = L.decode_attention(qa, ck, cv, cache.n_valid, mesh=self.tp)
+            if self.split["attn_wq"]:
+                o = o[:, :, self.rank * hl:(self.rank + 1) * hl]
+        else:
+            kk, vv, _ = self.kv_for_heads(ck, cv, grad=False)
+            o = L.decode_attention(q, kk, vv, cache.n_valid)
         h = h + self.out_proj(o, cast, w).to(h.dtype)
         f, _ = self.ffn(L.rmsnorm(w["ln2_g"], h), cast, w)
         return h + f.to(h.dtype)
@@ -311,7 +383,16 @@ class Transformer(nn.Module):
     then the MoE ones; all dense without experts) -> final RMSNorm, and,
     with ``head``, the LM head (``lm_head``; a tied model reads the
     embedding instead).  Parameters are ``param_dtype``: float32 for
-    training and the encoder, ``cfg.dtype`` for serving."""
+    training and the encoder, ``cfg.dtype`` for serving.
+
+    Built under a mesh with a ``"model"`` axis above 1
+    (``distributed.sharding.use_mesh``), the model holds this process's
+    slice of each weight, as ``sharding.logical_to_spec`` gives its leaf
+    (:func:`param_axes`, the whole leaf's shape for the divisibility
+    fallback): ``tp`` is the ``"model"`` sub-mesh its products reduce
+    over, ``placements`` each parameter's ``sharding.Placement``.  The
+    embedding and the head split the (padded) vocabulary: a lookup takes
+    the rows held here and sums over ``tp``."""
 
     def __init__(self, cfg: TransformerConfig, device: str | torch.device = "cuda", *,
                  head: bool = False, param_dtype: torch.dtype = torch.float32):
@@ -320,22 +401,53 @@ class Transformer(nn.Module):
             raise ValueError(f"attn_impl must be 'chunked' or 'flash', got {cfg.attn_impl!r}")
         dev = resolve_device(device)
         self.cfg = cfg
-        self.embed = nn.Parameter(
-            torch.zeros((cfg.padded_vocab, cfg.d_model), device=dev, dtype=param_dtype),
-            requires_grad=False,
-        )
-        self.final_norm_g = nn.Parameter(torch.ones(cfg.d_model, device=dev, dtype=param_dtype),
-                                         requires_grad=False)
+        self.tp = sharding.model_mesh()
+        axes, shapes = _flat_leaves(cfg, head)
+        self.placements = {} if self.tp is None else sharding.tree_shardings(axes, shapes)
+        local = {n: p.local_shape(shapes[n]) for n, p in self.placements.items()}
+
+        def param(name, fill=0.0):
+            return nn.Parameter(torch.full(local.get(name, shapes[name]), fill, device=dev,
+                                           dtype=param_dtype), requires_grad=False)
+
+        self.embed = param("embed")
+        self.final_norm_g = param("final_norm_g", 1.0)
         if head and not cfg.tied_embeddings:
-            self.lm_head = nn.Parameter(
-                torch.zeros((cfg.d_model, cfg.padded_vocab), device=dev, dtype=param_dtype),
-                requires_grad=False,
-            )
+            self.lm_head = param("lm_head")
         self.head = head
         n_dense = cfg.n_layers - cfg.n_moe_layers
-        self.layers = nn.ModuleList(Layer(cfg, dev, i >= n_dense, param_dtype)
-                                    for i in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Layer(cfg, dev, i >= n_dense, param_dtype,
+                  {n.split(".", 2)[2]: sh for n, sh in local.items() if n.startswith(f"layers.{i}.")},
+                  self.tp)
+            for i in range(cfg.n_layers))
         self._casts: dict[int, tuple[tuple, torch.Tensor]] = {}
+
+    @property
+    def vocab_tp(self):
+        """``tp`` when the vocabulary is split over it, else None."""
+        return self.tp if self.embed.shape[0] != self.cfg.padded_vocab else None
+
+    def placement_tree(self):
+        """Each parameter's placement in the training tree's layout, or
+        None without a ``"model"`` axis."""
+        if self.tp is None:
+            return None
+        return tree_lib.gather(self.placements, param_paths(self.cfg, self.head))
+
+    def embed_lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the compute dtype: with a
+        split vocabulary, the rows held here (others zero) summed over
+        ``tp``."""
+        emb = self.cast(self.embed)
+        tp = self.vocab_tp
+        if tp is None:
+            return emb[tokens.long()]
+        n = emb.shape[0]
+        t = tokens.long() - tp.rank * n
+        here = (t >= 0) & (t < n)
+        rows = torch.where(here[..., None], emb[t.clamp(0, n - 1)], 0.0)
+        return mesh_mod.reduce_from(tp, rows)
 
     @property
     def device(self) -> torch.device:
@@ -371,7 +483,7 @@ class Transformer(nn.Module):
         B, S = tokens.shape
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=tokens.device)[None, :]
-        h = self.cast(self.embed)[tokens.long()]
+        h = self.embed_lookup(tokens)
         stats = []
         for layer in self.layers:
             h, st = layer(h, positions, self.cast)
@@ -388,8 +500,12 @@ class Transformer(nn.Module):
     def numpy_params(self) -> dict:
         """The reference's param tree as numpy (``lm_head`` when the model
         holds one); each layer stack's leaves stacked on a leading ``L``
-        axis."""
-        return tree_lib.to_numpy(params_tree(self, param_paths(self.cfg, self.head)))
+        axis.  Under tensor parallelism the whole leaves, gathered over
+        ``tp`` (a collective)."""
+        tree = params_tree(self, param_paths(self.cfg, self.head))
+        if self.tp is not None:
+            tree = sharding.gather_tree(tree, self.placement_tree())
+        return tree_lib.to_numpy(tree)
 
 
 # --------------------------------------------------------------------------
@@ -452,8 +568,8 @@ def moe_aux(stats, n_experts: int, mesh=None) -> torch.Tensor:
     return aux
 
 
-def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConfig, cast
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConfig, cast,
+            tp=None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """x (B, S, d) -> (out (B, S, d) in x's dtype, each expert's router
     probability summed over the tokens (E,) f32, each expert's count of
     first choices (E,) f32, the tokens counted), the routed half of the
@@ -473,7 +589,15 @@ def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConf
     (the choices, slots, keep masks and counts carry none), and an
     expert's weights get theirs through the rows dispatched to it.  The
     scatter into the slots and the gathers back are ``index_put`` /
-    ``index_add`` in the backward pass, atomic f32 sums on the card."""
+    ``index_add`` in the backward pass, atomic f32 sums on the card.
+
+    Expert parallelism (``tp``, and ``w`` holding this process's experts,
+    a contiguous run of ``E / tp`` of them): the router runs whole on
+    every process; each runs its experts' share of the dispatch, and its
+    combine's partial sum (in the compute dtype, the reference's bf16 psum)
+    is summed over ``tp``; the shared experts split over ``"mlp"`` join
+    that one sum.  The gates and the rows that enter the experts take
+    ``copy_to``, so their gradients are summed over ``tp``."""
     B, S, d = x.shape
     E, k, dt = cfg.n_experts, cfg.top_k, cfg.dtype
     g = min(cfg.moe_group, S)
@@ -483,26 +607,40 @@ def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConf
     cap = max(int(math.ceil(g * k * cfg.capacity_factor / E)), 1)
     probs, gates, ids, slots, keep = moe_route(w["moe_router"], xg, cfg, cap)
 
-    # expert-major slots: row e * G * cap + n * cap + slot of (E, G * cap, d)
+    El = w["moe_wi"].shape[0]  # the experts held here
+    etp = tp if El != E else None
+    here, keep_here = ids, keep
+    if etp is not None:
+        first = tp.rank * El
+        keep_here = keep & (ids >= first) & (ids < first + El)
+        here, gates, xg = ids - first, mesh_mod.copy_to(tp, gates), mesh_mod.copy_to(tp, xg)
+    # expert-major slots: row e * G * cap + n * cap + slot of (El, G * cap, d)
     group = torch.arange(G, device=x.device)[:, None, None]
-    dest = (ids * G + group) * cap + slots.clamp(max=cap - 1)
+    dest = ((here * G + group) * cap + slots.clamp(max=cap - 1)).clamp(0, El * G * cap - 1)
     token = (group * g + torch.arange(g, device=x.device)[None, :, None]).expand_as(ids)
-    xe = torch.zeros((E * G * cap, d), dtype=dt, device=x.device)
-    sel = keep & (gates > 0)  # the reference dispatches where combine > 0
+    xe = torch.zeros((El * G * cap, d), dtype=dt, device=x.device)
+    sel = keep_here & (gates > 0)  # the reference dispatches where combine > 0
     xe[dest[sel]] = xg.reshape(G * g, d).to(dt)[token[sel]]
-    xe = xe.view(E, G * cap, d)
+    xe = xe.view(El, G * cap, d)
     with ieee_f32_matmul():
         hid = torch.bmm(xe, cast(w["moe_wi"])) * F.silu(torch.bmm(xe, cast(w["moe_wg"])))
-        ye = torch.bmm(hid, cast(w["moe_wo"])).view(E * G * cap, d)
-    wgt = torch.where(keep, gates, 0.0).to(dt).float()  # (G, g, k)
+        ye = torch.bmm(hid, cast(w["moe_wo"])).view(El * G * cap, d)
+    wgt = torch.where(keep_here, gates, 0.0).to(dt).float()  # (G, g, k)
     out = torch.zeros((G, g, d), device=x.device)
     for j in range(k):  # a dropped choice weighs 0 (its clamped slot is another's)
         out += ye[dest[:, :, j]].float() * wgt[:, :, j, None]
     out = out.to(dt)
     out = out.reshape(B, ng * g, d)[:, :S]
     if "moe_shared_wi" in w:
-        out = out + L.swiglu(cast(w["moe_shared_wi"]), cast(w["moe_shared_wg"]),
-                             cast(w["moe_shared_wo"]), x, dt).to(out.dtype)
+        stp = tp if w["moe_shared_wi"].shape[1] != cfg.d_ff * cfg.n_shared else None
+        shared = L.swiglu(cast(w["moe_shared_wi"]), cast(w["moe_shared_wg"]),
+                          cast(w["moe_shared_wo"]), mesh_mod.copy_to(stp, x), dt).to(out.dtype)
+        if stp is not None and etp is not None:  # one sum over tp for both
+            out = mesh_mod.reduce_from(tp, out + shared)
+        else:
+            out = mesh_mod.reduce_from(etp, out) + mesh_mod.reduce_from(stp, shared)
+    else:
+        out = mesh_mod.reduce_from(etp, out)
     counts = F.one_hot(ids[..., 0], E).sum(dim=(0, 1)).float()
     return out.to(x.dtype), probs.sum(dim=(0, 1)), counts, G * g
 
@@ -511,9 +649,11 @@ def moe_ffn(w: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: TransformerConf
 # LM head, the training loss, and serving: prefill, single-token decode
 # with a KV cache
 # --------------------------------------------------------------------------
-def logits_fn(model: Transformer, h: torch.Tensor) -> torch.Tensor:
+def logits_fn(model: Transformer, h: torch.Tensor, gather: bool = True) -> torch.Tensor:
     """h (B, S, d) -> (B, S, padded_vocab) logits in ``cfg.dtype``; padded
-    vocab slots are -1e9."""
+    vocab slots are -1e9.  With the vocabulary split over ``model.tp`` the
+    head's columns held here make this process's logits, and ``gather``
+    concatenates every process's (else they are returned as they are)."""
     cfg = model.cfg
     if cfg.tied_embeddings:
         head = model.cast(model.embed).t()
@@ -521,12 +661,15 @@ def logits_fn(model: Transformer, h: torch.Tensor) -> torch.Tensor:
         head = model.cast(model.lm_head)
     else:
         raise ValueError(f"{cfg.name}: the model holds no LM head (built with head=False)")
+    tp = model.vocab_tp
     with ieee_f32_matmul():
-        logits = h.to(cfg.dtype) @ head
-    if cfg.padded_vocab != cfg.vocab:
-        real = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+        logits = mesh_mod.copy_to(tp, h).to(cfg.dtype) @ head
+    n = logits.shape[-1]
+    first = 0 if tp is None else tp.rank * n
+    if first + n > cfg.vocab:
+        real = torch.arange(first, first + n, device=logits.device) < cfg.vocab
         logits = torch.where(real, logits, -1e9)
-    return logits
+    return mesh_mod.gather_along(tp, logits, -1) if gather else logits
 
 
 def lm_loss(model: Transformer, tokens, targets, mask=None
@@ -542,7 +685,14 @@ def lm_loss(model: Transformer, tokens, targets, mask=None
     process, and process r takes rows ``[r B/W, (r+1) B/W)``: its nll is
     the sum over its rows divided by the global batch's mask count, and its
     aux its share of the global aux (:func:`moe_aux`), so the processes'
-    losses (and gradients) sum to the global batch's."""
+    losses (and gradients) sum to the global batch's.  The processes of a
+    ``"model"`` group take the same rows and return the same loss.
+
+    With the vocabulary split over ``model.tp`` the cross-entropy is
+    vocab-parallel: the max over the logits held here (a constant shift,
+    without gradient), the sum of their exponentials and the target's
+    logit (on the process that holds it) are each reduced over ``tp``, and
+    no process gathers the logits."""
     dev = model.device
     tokens, targets = torch.as_tensor(tokens, device=dev), torch.as_tensor(targets, device=dev)
     B, S = tokens.shape
@@ -553,9 +703,21 @@ def lm_loss(model: Transformer, tokens, targets, mask=None
     b = B // world
     rows = slice(rank * b, (rank + 1) * b)
     h, aux = model.hidden(tokens[rows], aux_mesh=mesh)
-    logits = logits_fn(model, h).float()
-    tgt = logits.gather(-1, targets[rows, :, None].long())[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - tgt
+    tp = model.vocab_tp
+    logits = logits_fn(model, h, gather=False).float()
+    tgt_ids = targets[rows].long()
+    if tp is None:
+        tgt = logits.gather(-1, tgt_ids[..., None])[..., 0]
+        nll = torch.logsumexp(logits, dim=-1) - tgt
+    else:
+        n = logits.shape[-1]
+        top = mesh_mod.all_reduce_max(tp, logits.detach().amax(dim=-1))
+        t = tgt_ids - tp.rank * n
+        here = (t >= 0) & (t < n)
+        tgt = torch.where(here, logits.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+        sum_exp, tgt = mesh_mod.reduce_from(
+            tp, torch.stack([torch.exp(logits - top[..., None]).sum(dim=-1), tgt]))
+        nll = top + torch.log(sum_exp) - tgt
     mask = (torch.ones((B, S), device=dev) if mask is None
             else torch.as_tensor(mask, device=dev).to(nll.dtype))
     loss = (nll * mask[rows]).sum() / mask.sum().clamp(min=1.0)
@@ -574,13 +736,103 @@ def cache_seq_len(cfg: TransformerConfig, seq_len: int) -> int:
     return min(seq_len, cfg.window) if cfg.window else seq_len
 
 
+def _cache_seq_sharded(cfg: TransformerConfig, model: int) -> bool:
+    """The reference's: on a ``"model"`` axis of extent ``model`` whose
+    extent the KV heads do not divide, the cache splits its sequence."""
+    return model > 1 and cfg.n_kv_heads % model != 0
+
+
+def _cache_axes(cfg: TransformerConfig):
+    """The KV cache's logical axes (B, Sc, Hkv, dh) under the active mesh,
+    the reference's: head-sharded when the KV heads divide the ``"model"``
+    extent, else sequence-sharded (decode attention's softmax reductions
+    become small all-reduces)."""
+    mesh = sharding.active_mesh()
+    if _cache_seq_sharded(cfg, 1 if mesh is None else mesh.shape.get("model", 1)):
+        return ("batch", "cache_seq", None, "head_dim")
+    return ("batch", None, "kv_heads", "head_dim")
+
+
+def _cache_write_(cache, new_kv, slot: int, seq_sharded: bool, offset: int = 0) -> None:
+    """The reference's ``_cache_update`` in place, the same bits: (B, 1,
+    Hkv, dh) written into (B, S, Hkv, dh) at sequence index ``slot``.
+    Unsharded, its ``dynamic_update_slice`` (the slot clamped into the
+    cache); sequence-sharded, its masked select ``where(arange(S) == slot,
+    new, cache)`` (a slot outside the cache writes nothing), over the slots
+    ``offset ..`` that a process holds."""
+    S = cache.shape[1]
+    i = min(max(slot, 0), S - 1) if not seq_sharded else slot - offset
+    if 0 <= i < S:
+        cache[:, i] = new_kv[:, 0].to(cache.dtype)
+
+
+class KVCache(dict):
+    """``{"k", "v"}``: (n_layers, B, slots held here, KV heads held here,
+    dh) each, and ``slots``, the whole cache's slot count (the reference's
+    Sc).  A piece's shape cannot tell whether its slots were split: over
+    two processes, Sc = 10 leaves 5 slots a process, and Sc = 5 (which the
+    axis does not divide) 5 whole ones."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, slots: int):
+        super().__init__(k=k, v=v)
+        self.slots = slots
+
+    def map(self, fn) -> "KVCache":
+        """``fn`` over k and v (a layer range, a dtype), the layout kept."""
+        return KVCache(fn(self["k"]), fn(self["v"]), self.slots)
+
+
 def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
-               device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
-    """Zeros ``{"k", "v"}`` of (n_layers, batch, Sc, Hkv, dh) in ``cfg.dtype``."""
-    shape = (cfg.n_layers, batch, cache_seq_len(cfg, seq_len), cfg.n_kv_heads, cfg.d_head)
+               device: str | torch.device = "cuda") -> KVCache:
+    """Zeros ``{"k", "v"}`` of (n_layers, batch, Sc, Hkv, dh) in ``cfg.dtype``.
+    Under a mesh with a ``"model"`` axis above 1, this process's piece of
+    the cache ``_cache_axes`` lays out: its KV heads, or its run of
+    ``Sc / model`` slots (the batch stays whole on every process)."""
+    slots = cache_seq_len(cfg, seq_len)
+    shape = (cfg.n_layers, batch, slots, cfg.n_kv_heads, cfg.d_head)
+    tp = sharding.model_mesh()
+    if tp is not None:
+        spec = sharding.logical_to_spec((None,) + _cache_axes(cfg), shape)
+        spec = tuple(p if p == "model" else None for p in spec)
+        shape = sharding.Placement(None, spec, tp).local_shape(shape)
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+    return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   torch.zeros(shape, dtype=cfg.dtype, device=dev), slots)
+
+
+@dataclasses.dataclass(frozen=True)
+class _CacheLayout:
+    """One decode step's view of the cache on this process: the slot the
+    new k and v go to, whether it is the reference's sequence-sharded
+    update (no clamp), the first slot held here, whether the slots are
+    split over ``tp`` (``seq_split``), and the valid slots held here."""
+
+    slot: int
+    seq_sharded: bool
+    offset: int
+    seq_split: bool
+    n_valid: int
+
+
+def _cache_layout(model: Transformer, cache: Mapping, cache_len: int) -> _CacheLayout:
+    cfg, tp = model.cfg, model.tp
+    seq_sharded = _cache_seq_sharded(cfg, 1 if tp is None else tp.world_size)
+    here = cache["k"].shape[2]
+    Sc = getattr(cache, "slots", None)
+    if Sc is None:
+        if seq_sharded:
+            raise ValueError("a sequence-sharded cache must be init_cache's KVCache, "
+                             "which records its whole slot count")
+        Sc = here
+    seq_split = here != Sc
+    if seq_split and (not seq_sharded or here * tp.world_size != Sc):
+        raise ValueError(f"{here} slots here are no piece of a {Sc}-slot cache")
+    slot = cache_len % Sc if cfg.window else cache_len
+    offset = tp.rank * here if seq_split else 0
+    n_valid = min(cache_len + 1, Sc)
+    if seq_split:
+        n_valid = min(max(n_valid - offset, 0), here)
+    return _CacheLayout(slot, seq_sharded, offset, seq_split, n_valid)
 
 
 @torch.no_grad()
@@ -592,21 +844,39 @@ def decode_step(model: Transformer, cache: dict[str, torch.Tensor], tokens: torc
 
     The new k and v go to slot ``cache_len % Sc`` of a sliding-window
     model's ring and to slot ``cache_len`` otherwise (clamped to the last
-    slot, as the reference's ``dynamic_update_slice`` clamps); attention
-    reads ``min(cache_len + 1, Sc)`` slots; RoPE takes the absolute
-    position ``cache_len``."""
-    cfg = model.cfg
+    slot, as the reference's ``dynamic_update_slice`` clamps, unless the
+    cache is sequence-sharded: its masked select writes no slot past the
+    end); attention reads ``min(cache_len + 1, Sc)`` slots; RoPE takes the
+    absolute position ``cache_len``.  Under tensor parallelism the cache
+    is :func:`init_cache`'s piece (a :class:`KVCache`: a sequence-sharded
+    one's layout is read from its whole slot count), and a sequence-split
+    cache's attention runs every head against this process's slots
+    (``layers.decode_attention`` with ``mesh``)."""
     cache_len = int(cache_len)
     B = tokens.shape[0]
-    Sc = cache["k"].shape[2]
+    layout = _cache_layout(model, cache, cache_len)
     pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=tokens.device)
-    slot = cache_len % Sc if cfg.window else min(cache_len, Sc - 1)
-    n_valid = min(cache_len + 1, Sc)
-    h = model.cast(model.embed)[tokens.long()][:, None, :]
+    h = model.embed_lookup(tokens)[:, None, :]
     for i, layer in enumerate(model.layers):
-        h = layer.decode(h, pos, model.cast, cache["k"][i], cache["v"][i], slot, n_valid)
+        h = layer.decode(h, pos, model.cast, cache["k"][i], cache["v"][i], layout)
     h = L.rmsnorm(model.final_norm_g, h)
     return logits_fn(model, h)[:, 0], cache
+
+
+def gather_cache(model: Transformer, cache: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The whole cache (the reference's layout) from every process's piece
+    (a collective over ``model.tp``; ``cache`` a :class:`KVCache`, or
+    ``KVCache.map``'s of some layers); the cache itself without one."""
+    tp = model.tp
+    if tp is None:
+        return cache
+    if model.layers[0].split["attn_wk"]:
+        dim = 3
+    elif _cache_layout(model, cache, 0).seq_split:
+        dim = 2
+    else:
+        return cache
+    return {k: mesh_mod.gather_along(tp, cache[k], dim) for k in ("k", "v")}
 
 
 # --------------------------------------------------------------------------
@@ -650,17 +920,27 @@ _LAYER_AXES = {
 }
 
 
+def _flat_leaves(cfg: TransformerConfig, head: bool = False) -> tuple[dict, dict]:
+    """({parameter name: logical axes}, {parameter name: whole shape}),
+    the names of :func:`param_paths`."""
+    d, vp = cfg.d_model, cfg.padded_vocab
+    axes = {"embed": ("vocab", "embed_fsdp"), "final_norm_g": (None,),
+            "lm_head": ("embed_fsdp", "vocab")}
+    shapes = {"embed": (vp, d), "final_norm_g": (d,), "lm_head": (d, vp)}
+    n_dense = cfg.n_layers - cfg.n_moe_layers
+    for i in range(cfg.n_layers):
+        for path, shape in _layer_leaves(cfg, i >= n_dense).items():
+            axes[f"layers.{i}.{_param_name(path)}"] = _LAYER_AXES[path]
+            shapes[f"layers.{i}.{_param_name(path)}"] = shape
+    names = param_paths(cfg, head)
+    return {n: axes[n] for n in names}, {n: shapes[n] for n in names}
+
+
 def param_axes(cfg: TransformerConfig, head: bool = False) -> dict:
     """Logical axes of each parameter (``distributed.sharding``), in the
     training tree's layout (``param_paths``: each layer stack a list of
     per-layer tuples); the reference's ``param_axes``."""
-    names = {"embed": ("vocab", "embed_fsdp"), "final_norm_g": (None,),
-             "lm_head": ("embed_fsdp", "vocab")}
-    paths = param_paths(cfg, head)
-    for name, (path, _) in paths.items():
-        if name.startswith("layers."):
-            names[name] = _LAYER_AXES[path[1:]]
-    return tree_lib.gather(names, paths)
+    return tree_lib.gather(_flat_leaves(cfg, head)[0], param_paths(cfg, head))
 
 
 def params_tree(module: nn.Module, paths: Mapping) -> dict:
@@ -682,6 +962,17 @@ def assign_params(module: nn.Module, paths: Mapping, tree: Mapping) -> None:
         p.copy_(t)
 
 
+def _host_pieces(tree: Mapping, like, placements):
+    """The numpy tree ``tree`` (the reference's layout) in ``like``'s
+    structure as host arrays, each cut to this process's piece where
+    ``placements`` (a tree of ``sharding.Placement`` in ``like``'s
+    structure, or None) splits its leaf."""
+    host = tree_lib.from_numpy(tree, tree_lib.tree_map(lambda _: None, like))
+    if placements is None:
+        return host
+    return tree_lib.tree_map(lambda a, p: p.piece(a), host, placements)
+
+
 def params_from_numpy(
     tree: Mapping, cfg: TransformerConfig, device: str | torch.device = "cuda", *,
     param_dtype: torch.dtype = torch.float32,
@@ -690,12 +981,16 @@ def params_from_numpy(
     (converted to numpy): ``embed``, ``final_norm``, ``lm_head`` (when the
     tree has one; the model then has an LM head) and the stacked
     ``dense_layers`` / ``moe_layers``.  ``param_dtype`` float32 keeps the
-    values bit for bit; another dtype rounds them once."""
+    values bit for bit; another dtype rounds them once.  Under a mesh with
+    a ``"model"`` axis above 1, each process takes its piece of each leaf."""
     head = "lm_head" in tree or cfg.tied_embeddings
     model = Transformer(cfg, device, head=head, param_dtype=param_dtype)
     paths = param_paths(cfg, head)
-    arrays = tree_lib.from_numpy(tree, params_tree(model, paths))
-    assign_params(model, paths, tree_lib.tree_map(lambda t: t.to(param_dtype), arrays))
+    like = params_tree(model, paths)
+    pieces = _host_pieces(tree, like, model.placement_tree())
+    assign_params(model, paths, tree_lib.tree_map(
+        lambda a, t: torch.from_numpy(np.array(a)).to(t.device, param_dtype),
+        pieces, like))
     return model
 
 
@@ -740,13 +1035,33 @@ def train_state_from_numpy(
     """The reference's LM training state ``{"params": ..., "opt": {"mu",
     "nu", "step"[, "ef"]}}`` (as numpy; ``opt`` may be left out) -> (a
     float32 model holding ``params``, the port's state with every leaf on
-    ``device``); ``training.tree.to_numpy`` is its inverse."""
+    ``device``); ``training.tree.to_numpy`` is its inverse.  Under a mesh
+    with a ``"model"`` axis above 1 each process holds its piece of every
+    leaf (``state_placements``)."""
     model = params_from_numpy(tree["params"], cfg, device)
     like = train_params(model)
     state = {"params": like}
     if "opt" in tree:
         state["opt"] = {k: (model.embed if k == "step" else like) for k in tree["opt"]}
-    return model, tree_lib.from_numpy(tree, state)
+    place = state_placements(model, state)
+    pieces = _host_pieces(tree, state, place)
+    return model, tree_lib.tree_map(lambda a, t: torch.from_numpy(np.array(a)).to(t.device),
+                                    pieces, state)
+
+
+def state_placements(model: Transformer, state: Mapping):
+    """Each leaf's ``sharding.Placement`` in a training state ``{"params",
+    "opt": {"mu", "nu", "step"[, "ef"]}}`` of ``model`` (the moments
+    placed as the parameters, the step replicated), or None without a
+    ``"model"`` axis."""
+    place = model.placement_tree()
+    if place is None:
+        return None
+    out = {"params": place}
+    if "opt" in state:
+        step = sharding.Placement(model.device, (), model.tp)
+        out["opt"] = {k: (step if k == "step" else place) for k in state["opt"]}
+    return out
 
 
 def _normal(shape, scale: float, g: torch.Generator) -> torch.Tensor:
@@ -762,37 +1077,53 @@ def init_params(
     (not its numbers: ``torch.Generator`` is not ``jax.random``), drawn
     one tensor at a time in float32 and stored in ``param_dtype``: a
     serving model in ``cfg.dtype`` never holds a float32 copy of more than
-    one weight."""
+    one weight.  Under tensor parallelism every process draws each whole
+    tensor in the same order and keeps its piece, so the pieces are those
+    of the one-process model drawn from the same generator."""
     model = Transformer(cfg, device, head=head, param_dtype=param_dtype)
     dev = model.device
+    params = dict(model.named_parameters())
 
     def draw(shape, scale):
         return _normal(shape, scale, generator).to(dev)
 
+    def put(name, whole):  # this process's piece of the whole tensor
+        p = model.placements.get(name)
+        params[name].copy_(whole if p is None else p.piece(whole))
+
+    def padded(shape, real, scale):  # zeros but for ``real``, drawn
+        whole = torch.zeros(shape, device=dev)
+        whole[real] = draw(whole[real].shape, scale)
+        return whole
+
     d, dh, hkv, dff = cfg.d_model, cfg.d_head, cfg.n_kv_heads, cfg.d_ff
     g, gp = cfg.n_heads // hkv, cfg.group_pad
-    model.embed[: cfg.vocab] = draw((cfg.vocab, d), 0.02)
+    put("embed", padded((cfg.padded_vocab, d), slice(0, cfg.vocab), 0.02))
     scale = (2.0 / (d + cfg.n_heads * dh)) ** 0.5
-    for lay in model.layers:
+    for i, lay in enumerate(model.layers):
+        leaves = {_param_name(k): v for k, v in _layer_leaves(cfg, lay.moe).items()}
+        name = f"layers.{i}.".__add__
         # kv-group-major: head (kvh, j) lives at flat index kvh * gp + j;
         # padded slots (j >= g) stay zero
-        lay.attn_wq.view(d, hkv, gp, dh)[:, :, :g] = draw((d, hkv, g, dh), scale)
-        lay.attn_wo.view(hkv, gp, dh, d)[:, :g] = draw((hkv, g, dh, d), scale)
-        lay.attn_wk.copy_(draw((d, hkv, dh), scale))
-        lay.attn_wv.copy_(draw((d, hkv, dh), scale))
+        put(name("attn_wq"), padded((d, hkv, gp, dh), (slice(None), slice(None), slice(0, g)),
+                                    scale).view(leaves["attn_wq"]))
+        put(name("attn_wo"), padded((hkv, gp, dh, d), (slice(None), slice(0, g)),
+                                    scale).view(leaves["attn_wo"]))
+        put(name("attn_wk"), draw(leaves["attn_wk"], scale))
+        put(name("attn_wv"), draw(leaves["attn_wv"], scale))
         lay.ln1_g.fill_(1.0)
         lay.ln2_g.fill_(1.0)
         if lay.moe:  # experts and the shared SwiGLU: (2 / (d + its width)) ** 0.5
-            lay.moe_router.copy_(draw(tuple(lay.moe_router.shape), 0.02))
-            ffn = [(p, dff) for p in (lay.moe_wi, lay.moe_wg, lay.moe_wo)]
+            put(name("moe_router"), draw(leaves["moe_router"], 0.02))
+            ffn = [(n, dff) for n in ("moe_wi", "moe_wg", "moe_wo")]
             if cfg.n_shared:
-                ffn += [(p, dff * cfg.n_shared)
-                        for p in (lay.moe_shared_wi, lay.moe_shared_wg, lay.moe_shared_wo)]
+                ffn += [(n, dff * cfg.n_shared)
+                        for n in ("moe_shared_wi", "moe_shared_wg", "moe_shared_wo")]
         else:
             fdim = (cfg.d_ff_dense or dff) if cfg.n_experts else dff
-            ffn = [(p, fdim) for p in (lay.ffn_wi, lay.ffn_wg, lay.ffn_wo)]
-        for p, width in ffn:
-            p.copy_(draw(tuple(p.shape), (2.0 / (d + width)) ** 0.5))
+            ffn = [(n, fdim) for n in ("ffn_wi", "ffn_wg", "ffn_wo")]
+        for n, width in ffn:
+            put(name(n), draw(leaves[n], (2.0 / (d + width)) ** 0.5))
     if head and not cfg.tied_embeddings:
-        model.lm_head[:, : cfg.vocab] = draw((d, cfg.vocab), 0.02)
+        put("lm_head", padded((d, cfg.padded_vocab), (slice(None), slice(0, cfg.vocab)), 0.02))
     return model

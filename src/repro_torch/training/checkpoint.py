@@ -19,7 +19,12 @@ stacks, the moments, ``step`` and, with int8, ``ef``).  Tensors are copied to th
 a daemon thread (a queue of host arrays; the train loop does not wait on
 the disk).  A checkpoint holds one replica's values, so one written at any
 world size restores at any other: ``restore(shardings=)`` places it on
-this process's devices (``distributed.sharding.tree_shardings``).
+this process's devices (``distributed.sharding.tree_shardings``).  On a
+mesh with a ``"model"`` axis above 1 the same holds for the reference's
+whole leaves: :func:`gather` gathers each split leaf over ``"model"``
+before one process saves, and ``restore(shardings=)`` cuts this
+process's piece from each whole leaf, so a checkpoint crosses between a
+model mesh, one process and the reference.
 """
 from __future__ import annotations
 
@@ -59,8 +64,21 @@ def _nest(flat: dict) -> dict:
     return tree
 
 
+def gather(tree, shardings=None):
+    """``tree`` with every leaf that ``shardings`` splits over ``"model"``
+    gathered whole (``distributed.sharding.gather_tree``; a collective:
+    every process of the model group calls it); ``tree`` itself when
+    ``shardings`` is None."""
+    if shardings is None:
+        return tree
+    from repro_torch.distributed import sharding
+
+    return sharding.gather_tree(tree, shardings)
+
+
 def save(ckpt_dir: str, step: int, tree) -> str:
-    """Atomic checkpoint write; returns the final path."""
+    """Atomic checkpoint write; returns the final path.  A tree of a model
+    mesh's pieces is gathered first (:func:`gather`, on every process)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -96,8 +114,10 @@ def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
     """The checkpoint at ``step`` (the newest when None) in ``template``'s
     structure: a tensor leaf comes back as a tensor on that leaf's device,
     a list as one tensor a layer, anything else as numpy.  ``shardings``
-    (a device, or a tree of devices in ``template``'s shape) places every
-    leaf anew (elastic re-mesh).  Returns ``(tree, step)``."""
+    (a device, or a tree of devices or ``sharding.Placement`` objects in
+    ``template``'s shape) places every leaf anew (elastic re-mesh), a
+    placement's leaf cut to this process's piece.  Returns ``(tree,
+    step)``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -105,10 +125,12 @@ def restore(ckpt_dir: str, template, step: int | None = None, shardings=None):
     path = os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
-    tree = T.from_numpy(_nest(flat), template)
-    if shardings is not None:
-        tree = T.place(tree, shardings)
-    return tree, step
+    if shardings is None:
+        return T.from_numpy(_nest(flat), template), step
+    from repro_torch.distributed import sharding
+
+    host = T.from_numpy(_nest(flat), T.tree_map(lambda _: None, template))
+    return sharding.place_tree(host, shardings), step
 
 
 class CheckpointManager:

@@ -5,7 +5,10 @@ watchdog and elastic re-mesh (the counterpart of
 * ``run_supervised`` wraps a step function with catch -> restore the
   newest checkpoint -> resume, dropping the batch that failed.  In a
   data-parallel run every process restores; only one writes
-  (``write_checkpoints``).
+  (``write_checkpoints``).  On a mesh with a ``"model"`` axis above 1
+  (``shardings``, the state's placements) every process joins the
+  gather of the whole leaves before the one writer writes them, and a
+  restore cuts each process's piece.
 * ``StepWatchdog`` keeps a rolling median of step times and flags a step
   slower than ``threshold`` x that median (once it has seen 5 steps).
 * ``remesh`` places a host-side state on new devices: a checkpoint holds
@@ -68,11 +71,18 @@ def run_supervised(
     failure_injector=None,  # (step) -> None | raises (tests)
     on_restore=None,  # called with (state, step) after a restore
     write_checkpoints: bool = True,  # False on all but one replica
+    shardings=None,  # the state's placements (sharding.tree_shardings)
 ):
     """Run steps with checkpoint / restart.  An exception from ``step_fn``
     restores the newest checkpoint and resumes with the next batch, up to
     ``max_restarts`` times.  Returns ``(state, steps, restarts)``."""
     manager = ckpt_lib.CheckpointManager(ckpt_dir, async_write=False)
+
+    def checkpoint(at, state):
+        whole = ckpt_lib.gather(state, shardings)  # every process of a model group
+        if write_checkpoints:
+            manager.save(at, whole)
+
     restarts = 0
     step = start_step
     it = iter(enumerate(batches, start=start_step))
@@ -93,8 +103,8 @@ def run_supervised(
             if watchdog is not None:
                 watchdog.observe(step, time.perf_counter() - t0)
             pending = None
-            if write_checkpoints and (step + 1) % ckpt_every == 0:
-                manager.save(step + 1, state)
+            if (step + 1) % ckpt_every == 0:
+                checkpoint(step + 1, state)
         except (StopIteration, KeyboardInterrupt):
             raise
         except Exception:
@@ -104,13 +114,12 @@ def run_supervised(
                 raise
             last = ckpt_lib.latest_step(ckpt_dir)
             if last is not None:
-                state, _ = ckpt_lib.restore(ckpt_dir, state)
+                state, _ = ckpt_lib.restore(ckpt_dir, state, shardings=shardings)
                 if on_restore is not None:
                     on_restore(state, last)
             # drop the failed batch and continue from the next one
             pending = None
-    if write_checkpoints:
-        manager.save(step + 1, state)
+    checkpoint(step + 1, state)
     return state, step + 1, restarts
 
 

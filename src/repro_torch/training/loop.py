@@ -42,9 +42,18 @@ processes by ONE all-reduce a step, in f32, with the loss and metrics in
 the same buffer; int8 compression and AdamW then run on every replica
 alike, so the replicas stay bit-identical (:func:`assert_replicas_agree`
 checks it).  ``param_axes`` is accepted and names each leaf's logical axes
-(``models.colbert.param_axes``); on a data-only mesh it constrains
-nothing (``sharding.constrain_tree``), and a mesh with a ``"model"`` axis
-above 1 raises.
+(``models.colbert.param_axes``); it constrains nothing
+(``sharding.constrain_tree``).
+
+Tensor parallelism: under a mesh with a ``"model"`` axis above 1 each
+process holds its slice of each leaf (``models.transformer``); the batch
+splits over the other axes (``sharding.data_mesh``), so the gradient
+all-reduce runs over those alone, and the processes of a model group
+take the same rows.  The step then needs ``placements``, the leaves'
+``sharding.Placement`` objects (``Transformer.placement_tree()``): the
+optimizer's global norm sums the squares of split leaves over
+``"model"`` and counts a replicated leaf once.  int8 compression on such a mesh is refused: its
+blocks of 256 values run across the whole leaf, which no process holds.
 """
 from __future__ import annotations
 
@@ -100,14 +109,25 @@ def make_train_step(
     param_axes=None,
     cast_dtype: torch.dtype | None = None,
     donate: bool = False,
+    placements=None,  # the params' sharding.Placement tree (a "model" axis above 1)
 ):
     if compression not in (None, "int8"):
         raise ValueError(f"compression must be None or 'int8', got {compression!r}")
+    # the optimizer sees the placements only on a model axis: an Optimizer's
+    # update is (grads, state, params) elsewhere
+    norm = {} if placements is None else {"placements": T.leaves(placements)}
 
     def train_step(params, opt_state, batch):
         mesh = sharding.data_mesh()
         if param_axes is not None:
             params = sharding.constrain_tree(params, param_axes)
+        if sharding.model_mesh() is not None:
+            if not norm:
+                raise ValueError("a 'model' axis above 1 needs the step's placements "
+                                 "(Transformer.placement_tree())")
+            if compression is not None:
+                raise NotImplementedError(
+                    "int8 compression on a 'model' axis above 1 (ROADMAP Queue 1 item 8.3)")
         dev = T.leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if n_micro == 1:
@@ -133,11 +153,11 @@ def make_train_step(
 
         inner = {k: v for k, v in opt_state.items() if k != "ef"}
         if donate:
-            updates, inner = optimizer.update(grads, inner, params, inplace=True)
+            updates, inner = optimizer.update(grads, inner, params, inplace=True, **norm)
             del grads
             new_params = apply_updates_(params, updates)
         else:
-            updates, inner = optimizer.update(grads, inner, params)
+            updates, inner = optimizer.update(grads, inner, params, **norm)
             new_params = apply_updates(params, updates)
         new_state = dict(inner)
         if "ef" in opt_state:
@@ -170,15 +190,28 @@ def replica_checksums(params) -> torch.Tensor:
                         for p in T.leaves(params)])
 
 
-def assert_replicas_agree(params, mesh) -> None:
+def assert_replicas_agree(params, mesh, shardings=None) -> None:
     """Raise unless every process of ``mesh`` holds the same bits in
-    ``params`` (compared by :func:`replica_checksums`)."""
+    ``params`` (compared by :func:`replica_checksums`).  On a mesh with a
+    ``"model"`` axis above 1 (``shardings`` the leaves' placements,
+    ``sharding.tree_shardings``): the processes of each data group, which
+    hold the same slices, in every leaf, and those of each model group in
+    the replicated leaves."""
     if mesh is None or mesh.world_size == 1:
         return
-    sums = mesh_mod.all_gather(mesh, replica_checksums(params))
+    sums = replica_checksums(params)
+    if mesh.shape.get("model", 1) == 1:
+        return _agree(sums, mesh, None, "data-parallel replicas")
+    _agree(sums, mesh, tuple(a for a in mesh.axis_names if a != "model"), "data-parallel replicas")
+    whole = [i for i, p in enumerate(T.leaves(shardings)) if not p.split]
+    _agree(sums[whole], mesh, "model", "a model group's replicated leaves")
+
+
+def _agree(sums, mesh, axis, what: str) -> None:
+    sums = mesh_mod.all_gather(mesh, sums, axis=axis)
     if not bool((sums == sums[0]).all()):
         bad = (sums != sums[0]).any(dim=0).nonzero().flatten().tolist()
-        raise RuntimeError(f"data-parallel replicas differ in leaves {bad}")
+        raise RuntimeError(f"{what} differ in leaves {bad}")
 
 
 def init_opt_state(optimizer: Optimizer, params, compression: str | None = None):

@@ -6,7 +6,8 @@ The reference's semantics, in its f32 order:
 
 * the step is incremented before ``schedule(step)`` is read;
 * gradients are clipped to ``clip_norm`` by their global norm, with a
-  ``1e-9`` floor under the norm;
+  ``1e-9`` floor under the norm (under tensor parallelism ``update``'s
+  ``placements`` make it the whole tree's norm);
 * the decoupled weight decay sits inside the update,
   ``-lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p)``;
 * updates are added in f32 and cast back to each parameter's dtype.
@@ -31,6 +32,7 @@ import typing
 
 import torch
 
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.training import tree as T
 
 
@@ -88,10 +90,20 @@ class AdamWConfig:
     clip_norm: float = 1.0
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+def global_norm(tree, placements=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.
+
+    Under tensor parallelism the leaves are this process's slices and
+    ``placements`` their ``sharding.Placement`` objects, in ``leaves``
+    order: the squares of the split leaves are summed over the
+    ``"model"`` sub-mesh; a replicated leaf counts once."""
     sq = [torch.sum(torch.square(x.float())) for x in T.leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    if placements is None:
+        return torch.sqrt(torch.stack(sq).sum())
+    zero = torch.zeros((), device=sq[0].device)
+    parts = sum((q for q, p in zip(sq, placements) if p.split), zero)
+    whole = sum((q for q, p in zip(sq, placements) if not p.split), zero)
+    return torch.sqrt(mesh_mod.all_reduce_sum(placements[0].model, parts) + whole)
 
 
 #: leaves an update pass takes at a time (f32 elements; a larger leaf alone)
@@ -116,10 +128,10 @@ def adamw(cfg: AdamWConfig) -> Optimizer:
         return {"mu": zeros(), "nu": zeros(),
                 "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
-    def update(grads, state, params, *, inplace: bool = False):
+    def update(grads, state, params, *, inplace: bool = False, placements=None):
         step = state["step"] + 1
         gs = T.leaves(grads)
-        gn = global_norm(gs)
+        gn = global_norm(gs, placements)
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
         stepf = step.to(torch.float32)
         bc1 = 1 - torch.pow(cfg.b1, stepf)
