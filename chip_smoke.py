@@ -312,6 +312,39 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                writes skipped for time on both sides; the CPU tests hold
                them).  Step ms, the collectives' ms and bytes (host
                traffic under gloo) and peak bytes a rank.
+19. recsys     the recsys family, PLAID as an item index and SchNet, one
+               ``recsys`` line a run: (a) wide-deep, xDeepFM, BST and
+               BERT4Rec at full width, each through ``launch.train``'s
+               weights, batches and donating AdamW step (``data_for``; the
+               ``train_batch`` cell's B 65,536 in 4 microbatches, one
+               warm-up and RECSYS_TRAIN_TIMED timed steps): step p50,
+               examples/s, peak bytes; then ``serve_p99`` (B 512),
+               ``serve_bulk`` (B 262,144) and ``retrieval_cand`` (1M
+               candidates, top 100) through their cells' callables on the
+               trained weights, p50 ms, the top-k positions identical to a
+               stable sort of the same scores.  Cuts, each with its bytes
+               (RECSYS_CUTS, ``recsys_cut_bytes``): BERT4Rec's train batch
+               64 (its (B, 60, 1,000,002) f32 logits take 240 MB a row) and
+               serve_bulk 32,768 (its attention scores, 320 KB a row);
+               xDeepFM's serve_bulk and retrieval_cand 65,536 (the CIN's
+               (B, 200, 39, 10) product, 312 KB a row).  Then each reduced
+               config's step on the card against the host's.  (b) PLAID as
+               an item index over BERT4Rec's 1,000,002 x 64 item table
+               (``core.item_retrieval``): build seconds and K; 32 user
+               states (the encoder's last position) at k 100 with the
+               reference's settings and at nprobe 64: ``impl="cuda"`` (K1,
+               K2) pids and scores identical to ``impl="ref"``, recall@100
+               against brute force over the reconstructed and the exact
+               rows, p50 ms, K1/K2 launches a batch; K1 and K2 at these
+               shapes (nq 1, d 64, one-token documents) bit for bit against
+               their plain versions.  (c) SchNet at full width through its
+               cells' donating step: ``molecule`` (128 molecules of 30
+               atoms), ``full_graph_sm`` (2,708 nodes, 10,556 edges, d_feat
+               1,433) and ``minibatch_lg`` (the host sampler's fanout (15,
+               10) block of the 232,965-node, 114.6M-edge graph, drawn in a
+               process of its own from the script's start): step ms, peak
+               bytes; ``ogb_products`` is skipped with its reckoning (its
+               (61.9M, 300) f32 radial basis alone is 74.2 GB).
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -340,14 +373,14 @@ import torch.nn.functional as F
 SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 # Copied out of the repository, the script stops here (no package).
-from repro_torch import build, configs, live, retrieval, serving  # noqa: E402
+from repro_torch import build, configs, ieee_f32_matmul, live, retrieval, serving  # noqa: E402
 from repro_torch.configs import colbertv2 as colbert_cfg  # noqa: E402
 from repro_torch.core import index as index_mod  # noqa: E402
-from repro_torch.core import engine_sharded, indexer  # noqa: E402
+from repro_torch.core import engine_sharded, indexer, item_retrieval  # noqa: E402
 from repro_torch.core import kmeans, pipeline, plaid, scoring, vanilla  # noqa: E402
 from repro_torch.core import residual_codec as rc  # noqa: E402
 from repro_torch.core import tiered as tiered_mod  # noqa: E402
-from repro_torch.data import synthetic  # noqa: E402
+from repro_torch.data import graphs, synthetic  # noqa: E402
 from repro_torch.distributed import compression as dist_comp  # noqa: E402
 from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.distributed.topk import local_to_global_pids, merge_topk  # noqa: E402
@@ -363,7 +396,7 @@ from repro_torch.launch import cells as cells_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import colbert, transformer  # noqa: E402
+from repro_torch.models import colbert, recsys, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
@@ -824,6 +857,10 @@ def main(argv=None) -> int:
             for k, log in _build.BUILD_LOGS.items()
         }
 
+    # phase recsys's minibatch_lg block: the host sampler over a 114.6M-edge
+    # graph runs in a process of its own while the earlier phases run
+    gnn_job = start_gnn_block()
+
     # ---- 3. index ---------------------------------------------------------
     with Phase("index") as info:
         index = synth_index(passages=args.passages, seed=args.seed)
@@ -1199,6 +1236,16 @@ def main(argv=None) -> int:
         # K7's launches: the ranks' prefills (each rank counts its own)
         lm_tp_counts = lm_tp_phase(args.seed, dev, info)
 
+    # ---- 19. the recsys family, PLAID as an item index, SchNet -------------
+    torch.cuda.empty_cache()
+    with Phase("recsys") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        # K1/K2's launches: the item index's cuda batches (their checks at
+        # the item shapes not)
+        recsys_counts, item_checks = recsys_phase(args.seed, dev, info, gnn_job)
+    for name, row in item_checks.items():
+        kernels[name]["item_index_shapes"] = row
+
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
@@ -1206,10 +1253,11 @@ def main(argv=None) -> int:
     # around the serving of the trained weights): K1-K3 in search, live,
     # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
     # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
-    # stream_build, train, train_dp, lm, lm_train and lm_tp
+    # stream_build, train, train_dp, lm, lm_train and lm_tp; K1/K2 in recsys
+    # (the item index's batches)
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
                 + serve_counts[name] + sharded_counts[name] + driver_counts[name]
-                + train_counts[name] + dp_counts[name]
+                + train_counts[name] + dp_counts[name] + recsys_counts.get(name, 0)
                 for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = (vanilla_counts["decompress_residuals"]
                                         + driver_counts["decompress_residuals"])
@@ -1230,6 +1278,7 @@ def main(argv=None) -> int:
             bound_ms=kv["bound_ms"], bound_by=kv["bound_by"],
             library_ms=kv.get("library_ms"), contract_bound_ms=kv.get("contract_bound_ms"),
             per_rank_shapes=kv.get("per_rank_shapes"),
+            item_index_shapes=kv.get("item_index_shapes"),
         )
         for name, kv in kernels.items()
     ]
@@ -4507,6 +4556,418 @@ def lm_tp_phase(seed, dev, info: dict, reduced=False) -> dict:
     assert line["max_loss_rel"] <= LM_TP_LOSS_RTOL and line["replicated_identical"], line
     info["runs"] = [a for a, *_ in LM_TP_RUNS] + ["train"]
     return {"flash_attention": launches}
+
+
+# --------------------------------------------------------------------------
+# phase recsys: the recsys family, PLAID as an item index, SchNet
+# --------------------------------------------------------------------------
+#: phase recsys: the four recsys archs (BERT4Rec last: its item table feeds
+#: the item index); a cell's values cut where the full ones do not fit the
+#: card (recsys_cut_bytes reckons each); timed steps after one warm-up
+#: step, timed calls after one warm-up call; the card-against-host step's
+#: batch; the item index's users, k and a wider probe beside the
+#: reference's defaults (nprobe 8, candidate_cap 4,096); SchNet's cells run
+#: (ogb_products does not fit: SCHNET_SKIP) and their timed steps
+RECSYS_ARCHS = ("wide-deep", "xdeepfm", "bst", "bert4rec")
+RECSYS_CUTS = {
+    ("bert4rec", "train_batch"): dict(batch=64),
+    ("bert4rec", "serve_bulk"): dict(batch=32768),
+    ("xdeepfm", "serve_bulk"): dict(batch=65536),
+    ("xdeepfm", "retrieval_cand"): dict(n_candidates=65536),
+}
+RECSYS_TRAIN_TIMED, RECSYS_CALL_REPS, RECSYS_HOST_B = 2, 5, 16
+ITEM_USERS, ITEM_K, ITEM_WIDE = 32, 100, dict(nprobe=64, candidate_cap=16384)
+GNN_RUNS, GNN_TIMED = ("molecule", "full_graph_sm", "minibatch_lg"), 5
+SCHNET_SKIP = "ogb_products"
+
+
+def _peak_reset(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def wall_ms(fn, dev, reps: int, warmup: int = 1) -> tuple[float, list, object]:
+    """Median host ms of ``reps`` calls of ``fn`` each ended by a device
+    synchronize, after ``warmup`` calls; the times and the last result."""
+    out = None
+    for _ in range(warmup):
+        out = fn()
+    _sync(dev)
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms, out
+
+
+def recsys_cut_bytes(arch: str, cell: str, cfg, full: dict, cut: dict) -> dict:
+    """The tensor that rules out a cell's full value, its bytes a row and at
+    the full and the cut value: BERT4Rec's masked-position logits (B, M,
+    V + 2) and its attention scores (B, heads, S, S); xDeepFM's CIN outer
+    product (B, H, m, D); all f32."""
+    if arch == "bert4rec" and cell == "train_batch":
+        m = max(int(2 * cfg.mask_frac * cfg.seq_len), 1)
+        what, row = f"(B, {m}, {cfg.item_vocab + 2}) f32 logits", m * (cfg.item_vocab + 2) * 4
+    elif arch == "bert4rec":
+        what = f"(B, {cfg.n_heads}, {cfg.seq_len}, {cfg.seq_len}) f32 attention scores"
+        row = cfg.n_heads * cfg.seq_len**2 * 4
+    else:
+        h = max(cfg.cin_layers)
+        what, row = f"(B, {h}, {cfg.n_sparse}, {cfg.embed_dim}) f32 CIN product", h * cfg.n_sparse * cfg.embed_dim * 4
+    (key, full_n), = ((k, full[k]) for k in cut)
+    return dict(value=key, full=full_n, cut=cut[key], tensor=what, bytes_a_row=row,
+                full_bytes=row * full_n, cut_bytes=row * cut[key])
+
+
+def recsys_arch_run(arch: str, seed: int, dev, reduced=False) -> tuple[dict, dict]:
+    """(a) One recsys arch at full width (``reduced``: its reduced config and
+    cells, for a CPU rehearsal): ``launch.train``'s weights, batches and
+    donating AdamW step (``data_for``; one warm-up and RECSYS_TRAIN_TIMED
+    timed steps at the ``train_batch`` cell's batch and ``n_micro``), then
+    the trained weights through ``serve_p99``, ``serve_bulk`` and
+    ``retrieval_cand`` (the cells' callables), the top-k positions against
+    a stable sort of the same scores.  Returns the line and the weights."""
+    mod = configs.get(arch)
+    cfg = mod.reduced_config() if reduced else mod.full_config()
+    cells = configs.cells_of(arch)
+    row = dict(arch=arch, params=cfg.num_params(), cuts=[])
+
+    def values(name):
+        c = cells[name]
+        cut = {} if reduced else RECSYS_CUTS.get((arch, name), {})
+        if cut:
+            row["cuts"].append(dict(cell=name, **recsys_cut_bytes(arch, name, cfg, c.full, cut)))
+        return c, dict(c.reduced if reduced else c.full, **cut)
+
+    _peak_reset(dev)
+    cell, p = values("train_batch")
+    B, n_micro = p["batch"], p.get("n_micro", 1)
+    t0 = time.perf_counter()
+    it, loss_fn, params, _ = train_cli.data_for(cfg, B, mod.FAMILY, dev)
+    _sync(dev)
+    row["init_s"] = time.perf_counter() - t0
+    row["param_bytes"] = sum(x.numel() * x.element_size() for x in train_tree.leaves(params))
+    opt = train_opt.adamw(train_opt.AdamWConfig(
+        schedule=train_opt.cosine_schedule(3e-4, 20, 1 + RECSYS_TRAIN_TIMED)))
+    step = train_loop.make_train_step(loss_fn, opt, n_micro=n_micro, donate=True)
+    opt_state = train_loop.init_opt_state(opt, params)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in next(it).items()}
+               for _ in range(1 + RECSYS_TRAIN_TIMED)]
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    p50 = statistics.median(ms[1:])
+    flops = cells_mod.recsys_flops(cfg, "train", p)
+    row["train"] = dict(batch=B, n_micro=n_micro, warmup_ms=ms[0], step_ms=ms[1:],
+                        step_p50_ms=p50, examples_per_s=B / p50 * 1e3, losses=losses,
+                        model_flops=flops, model_tflops_per_s=flops / p50 / 1e9,
+                        peak_device_bytes=_peak(dev))
+    assert all(math.isfinite(x) for x in losses), row
+    del opt_state, batches, step
+    with torch.no_grad():
+        for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+            _peak_reset(dev)
+            cell, p = values(name)
+            built = cells_mod.recsys_cell(arch, cfg, cell, p, dev, params=params)
+            p50, times, out = wall_ms(lambda: built.fn(*built.args), dev, RECSYS_CALL_REPS)
+            line = dict(values=p, p50_ms=p50, ms=times, peak_device_bytes=_peak(dev),
+                        model_flops=built.model_flops)
+            if cell.kind == "serve":
+                assert out.shape == (p["batch"],) and bool(torch.isfinite(out).all()), name
+                line["examples_per_s"] = p["batch"] / p50 * 1e3
+            else:
+                # the cell's top-k (stable_topk) against a stable sort of
+                # one set of scores: on the card the wide part's segment
+                # sums are atomic, so two passes differ in the last bits
+                full = recsys.candidate_scores(params, cfg, built.args[1])
+                scores, idx = scoring.stable_topk(full, p["top_k"])
+                plain = torch.sort(full, descending=True, stable=True).indices[: p["top_k"]]
+                line["topk_ids_identical"] = torch.equal(idx, plain)
+                line["topk_scores_identical"] = torch.equal(scores, full[plain])
+                assert line["topk_ids_identical"] and line["topk_scores_identical"], name
+                assert out[1].shape == (p["top_k"],) and bool(torch.isfinite(out[0]).all()), name
+                del full, plain, scores, idx
+            row[name] = line
+            del built, out
+    return row, params
+
+
+def recsys_card_vs_host(seed: int, dev) -> list[dict]:
+    """One AdamW step (2 microbatches, f32) of each reduced recsys config
+    on ``dev`` and on the host from the same weights and batch: the losses
+    rtol 1e-5, the parameters rtol 1e-4 / atol 1e-6 (the card's gathers'
+    backward and segment sums add with atomics, in no fixed order)."""
+    rows = []
+    for i, arch in enumerate(RECSYS_ARCHS):
+        cfg = configs.get(arch).reduced_config()
+        tree = recsys.numpy_params(recsys.init_params(cfg, torch.Generator().manual_seed(seed + i)))
+        b = next(synthetic.recsys_batches(cfg, RECSYS_HOST_B, seed=seed + i))
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            opt = train_opt.adamw(train_opt.AdamWConfig(
+                schedule=train_opt.cosine_schedule(1e-3, 2, 10)))
+            prm = recsys.params_from_numpy(tree, d)
+            step = train_loop.make_train_step(lambda p, bb: recsys.train_loss(p, cfg, bb), opt,
+                                              n_micro=2)
+            new, _, m = step(prm, train_loop.init_opt_state(opt, prm),
+                             {k: torch.as_tensor(v, device=d) for k, v in b.items()})
+            out[d.type] = (float(m["loss"]), train_tree.leaves(train_tree.to_numpy(new)))
+        (card_loss, card_p), (host_loss, host_p) = out[dev.type], out["cpu"]
+        d = np.concatenate([np.abs(a - w).ravel() for a, w in zip(card_p, host_p)])
+        w = np.concatenate([np.abs(x).ravel() for x in host_p])
+        row = dict(arch=arch, loss_card=card_loss, loss_host=host_loss,
+                   loss_rel=abs(card_loss / host_loss - 1), max_param_abs_diff=float(d.max()),
+                   outside=int((d > 1e-6 + 1e-4 * w).sum()), params=int(d.size))
+        row["ok"] = bool(math.isfinite(card_loss) and row["loss_rel"] <= 1e-5
+                         and row["outside"] == 0)
+        rows.append(row)
+    assert all(r["ok"] for r in rows), rows
+    return rows
+
+
+def _recall(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Mean share of each row of ``want`` (B, k) found in ``got``'s row."""
+    return float((got[:, :, None] == want[:, None, :]).any(-1).float().mean())
+
+
+def item_kernel_checks(index, qn, dev) -> dict:
+    """K1 at stage 2's and stage 3's shapes and K2 at stage 4's for one
+    item-index batch (nq = 1, d = 64, one token a document), bit for bit
+    against their plain versions, timed as phase kernels times them
+    (these launches are not counted)."""
+    p = plaid.clamp_params(item_retrieval.item_search_params(ITEM_K, 8, 4096, "cuda"),
+                           index.num_passages)
+    qb = qn[:, None, :].contiguous()
+    qm = torch.ones(qb.shape[:2], device=dev)
+    s_cq = pipeline.stage1_scores_batched(index, qb)
+    cands = pipeline.candidate_generation_batched(index, s_cq, p.nprobe, p.candidate_cap)
+    keep = scoring.prune_mask(s_cq, p.t_cs)
+    codes_blk, _ = pipeline.gather_candidate_tokens_shared(index, cands)
+    final_pids, codes4, valid4, _ = pipeline.select_finalists_impl(index, qb, qm, p.t_cs,
+                                                                   params=p)
+    res4, _ = scoring.gather_doc_tokens(index.residuals, index.doc_offsets, index.doc_lens,
+                                        final_pids.reshape(-1), index.doc_maxlen, fill=0)
+    res4 = res4.reshape(*codes4.shape, -1)
+    nbits, d = index.nbits, index.dim
+    cases = {
+        "centroid_interaction_batched": (
+            lambda: ops.centroid_interaction_batched(s_cq, codes_blk, qm, keep),
+            lambda: ref.centroid_interaction_batched_ref(s_cq, codes_blk, keep, qm),
+            k1_bound(s_cq, codes_blk, keep),
+            dict(B=qb.shape[0], nq=1, nd=codes_blk.shape[1], L=codes_blk.shape[2],
+                 K=s_cq.shape[1])),
+        "decompress_and_score_batched": (
+            lambda: ops.decompress_and_score_batched(qb, qm, codes4, res4, valid4,
+                                                     index.centroids, index.weights, nbits=nbits),
+            lambda: ref.decompress_and_score_batched_ref(qb, qm, codes4, res4, valid4,
+                                                         index.centroids, index.weights,
+                                                         nbits=nbits),
+            stage4_bound(int(valid4.sum()), codes4[valid4], 1, d, res4.shape[-1], qb.shape[0],
+                         final_pids.numel(), valid4.numel()),
+            dict(B=qb.shape[0], nq=1, d=d, nd=codes4.shape[1], L=codes4.shape[2],
+                 pd=res4.shape[-1])),
+    }
+    out = {}
+    for name, (kern, plain, (bound_ms, bound_by), shp) in cases.items():
+        got, want = kern(), plain()
+        _sync(dev)
+        out[name] = dict(equal=torch.equal(got, want),
+                         max_abs_err=float((got - want).abs().max()), bound_ms=bound_ms,
+                         bound_by=bound_by, shape=shp)
+        if dev.type == "cuda":
+            out[name].update(ms=time_ms(kern, reps=25), device_ms=device_time_ms(kern, reps=25),
+                             plain_ms=time_ms(plain, reps=3, warmup=1))
+        assert out[name]["equal"], (name, out[name])
+    return out
+
+
+def item_index_run(params, cfg, seed: int, dev) -> tuple[dict, dict, dict]:
+    """(b) PLAID as an item index over BERT4Rec's item table (V + 2 rows):
+    the build, ITEM_USERS user states (the encoder's last position over
+    seeded sequences) at k = ITEM_K, ``impl="cuda"`` against ``"ref"``
+    (pids and scores identical), recall@k against brute force over the
+    reconstructed and the exact embeddings, p50 ms and K1 / K2's launches a
+    batch.  Returns the line, the K1/K2 launches of its cuda batches and
+    the kernels' checks at these shapes."""
+    items = params["items"]
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    index = item_retrieval.build_item_index(items, seed=seed, device=dev)
+    _sync(dev)
+    row = dict(items=index.num_passages, dim=index.dim, nbits=index.nbits,
+               centroids=index.num_centroids, build_s=time.perf_counter() - t0,
+               index_bytes=sum(index.nbytes().values()), build_peak_device_bytes=_peak(dev))
+    b = next(synthetic.recsys_batches(cfg, ITEM_USERS, seed=seed))
+    with torch.no_grad():
+        users = recsys.seq_encode(params, cfg, torch.as_tensor(b["seq_ids"], device=dev))[:, -1]
+    users = users.contiguous()
+    search = lambda impl, **kw: item_retrieval.retrieve_items(  # noqa: E731
+        index, users, k=ITEM_K, impl=impl, **kw)
+    ops.reset_launch_counts()
+    got_s, got_p = search("cuda")
+    _sync(dev)
+    row["launches_a_batch"] = {k: v for k, v in ops.launch_counts().items() if v}
+    p50, times, _ = wall_ms(lambda: search("cuda"), dev, RECSYS_CALL_REPS)
+    wide_s, wide_p = search("cuda", **ITEM_WIDE)
+    _sync(dev)
+    counts = ops.launch_counts()
+    ref_p50, _, (want_s, want_p) = wall_ms(lambda: search("ref"), dev, 2)
+    wide_ref = search("ref", **ITEM_WIDE)
+    row.update(users=ITEM_USERS, k=ITEM_K, nprobe=8, candidate_cap=4096, p50_ms=p50, ms=times,
+               ref_p50_ms=ref_p50,
+               pids_identical=torch.equal(got_p, want_p), scores_identical=torch.equal(got_s, want_s),
+               wide=dict(ITEM_WIDE, pids_identical=torch.equal(wide_p, wide_ref[1]),
+                         scores_identical=torch.equal(wide_s, wide_ref[0])))
+    qn = users / users.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+    with ieee_f32_matmul():
+        recon = index.reconstruct_tokens(torch.arange(index.num_tokens, device=dev))
+        brute_c = torch.topk(qn @ recon.t(), ITEM_K, dim=1).indices
+        del recon
+        exact = items / items.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+        brute_x = torch.topk(qn @ exact.t(), ITEM_K, dim=1).indices
+        del exact
+    row["recall_at_k"] = dict(reconstructed=_recall(got_p, brute_c), exact=_recall(got_p, brute_x))
+    row["wide"]["recall_at_k"] = dict(reconstructed=_recall(wide_p, brute_c),
+                                      exact=_recall(wide_p, brute_x))
+    row["peak_device_bytes"] = _peak(dev)
+    assert row["pids_identical"] and row["scores_identical"], row
+    assert row["wide"]["pids_identical"] and row["wide"]["scores_identical"], row
+    assert got_p.shape == (ITEM_USERS, ITEM_K) and bool(torch.isfinite(got_s).all()), row
+    checks = item_kernel_checks(index, qn, dev)
+    row["kernel_checks"] = checks
+    del index
+    return row, {k: counts[k] for k in SEARCH_KERNELS[:2]}, checks
+
+
+def gnn_block_job(path: str, reduced: bool) -> None:
+    """The ``minibatch_lg`` cell's host sampler, run in a process of its own
+    from the start of the script: the seeded graph (``random_graph``), the
+    fanout block around nodes 0..batch_nodes-1 (``neighbor_sample``) and
+    the cell's batch (``cells.gnn_batch``), saved to ``path`` (.npz) with
+    the generator's and the sampler's seconds."""
+    cell = configs.cells_of("schnet")["minibatch_lg"]
+    p = cell.reduced if reduced else cell.full
+    t0 = time.perf_counter()
+    g = graphs.random_graph(p["n_nodes"], p["n_edges"], p["d_feat"], p["n_classes"])
+    t1 = time.perf_counter()
+    blk = graphs.neighbor_sample(g, np.arange(p["batch_nodes"]), tuple(p["fanout"]))
+    t2 = time.perf_counter()
+    batch = cells_mod.gnn_batch("minibatch", p, graph=g, block=blk)
+    np.savez(path, **batch, _graph_s=t1 - t0, _sample_s=t2 - t1,
+             _real_nodes=blk["n_real_nodes"], _real_edges=blk["n_real_edges"])
+
+
+def start_gnn_block(reduced: bool = False):
+    """Start :func:`gnn_block_job` in a spawned process; returns (process,
+    path).  Its directory is removed when the script exits."""
+    import atexit
+    import multiprocessing
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gnn_")
+    atexit.register(shutil.rmtree, tmp, True)
+    path = os.path.join(tmp, "minibatch_lg.npz")
+    proc = multiprocessing.get_context("spawn").Process(target=gnn_block_job,
+                                                        args=(path, reduced), daemon=True)
+    proc.start()
+    return proc, path
+
+
+def schnet_run(name: str, dev, batch=None, reduced=False) -> dict:
+    """(c) One SchNet cell at full width (``reduced``: its reduced values):
+    the cell's donating AdamW step on its seeded weights, one warm-up and
+    GNN_TIMED timed steps, step ms, model FLOPs and peak bytes."""
+    cell = configs.cells_of("schnet")[name]
+    base = configs.get("schnet").reduced_config() if reduced else configs.get("schnet").full_config()
+    p = cell.reduced if reduced else cell.full
+    cfg, N, E = cells_mod.gnn_shape(base, cell.kind, p)
+    _peak_reset(dev)
+    built = cells_mod.gnn_cell("schnet", base, cell, p, dev, batch=batch)
+    params, opt_state, b = built.args
+    losses, ms = [], []
+    for _ in range(1 + GNN_TIMED):
+        t0 = time.perf_counter()
+        params, opt_state, m = built.fn(params, opt_state, b)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    p50 = statistics.median(ms[1:])
+    row = dict(cell=name, kind=cell.kind, values=p, nodes=N, edges=E, params=cfg.num_params(),
+               warmup_ms=ms[0], step_ms=ms[1:], step_p50_ms=p50, losses=losses,
+               model_flops=built.model_flops, model_tflops_per_s=built.model_flops / p50 / 1e9,
+               peak_device_bytes=_peak(dev))
+    assert all(math.isfinite(x) for x in losses), row
+    return row
+
+
+def schnet_skip_line(reduced=False) -> dict:
+    """Why ``ogb_products`` does not run on one card: its (E, n_rbf) f32
+    radial basis alone, before the filter MLP's (E, d) activations."""
+    cfg = configs.get("schnet").full_config()
+    p = configs.cells_of("schnet")[SCHNET_SKIP].full
+    rbf = p["n_edges"] * cfg.n_rbf * 4
+    return dict(cell=SCHNET_SKIP, skipped=True, edges=p["n_edges"], n_rbf=cfg.n_rbf,
+                rbf_bytes=rbf, per_edge_activation_bytes=p["n_edges"] * cfg.d_hidden * 4,
+                card_bytes=80e9, reason=f"the (E, n_rbf) f32 radial basis alone is "
+                f"{p['n_edges']:,} x {cfg.n_rbf} x 4 = {rbf / 1e9:.1f} GB")
+
+
+def recsys_phase(seed, dev, info: dict, gnn_job, reduced=False) -> tuple[dict, dict]:
+    """Phase recsys (see the module docstring, 19): (a) the four recsys
+    archs and card against host, (b) the item index over BERT4Rec's table,
+    (c) SchNet's cells; one ``recsys`` line a run.  Returns K1/K2's
+    launches on (b)'s path and their checks at its shapes."""
+    t_phase = time.perf_counter()
+    params = None
+    for i, arch in enumerate(RECSYS_ARCHS):
+        del params
+        t0 = time.perf_counter()
+        row, params = recsys_arch_run(arch, seed + 101 + i, dev, reduced)
+        row["seconds"] = time.perf_counter() - t0
+        emit({"recsys": row, "card": info["card"]})
+    t0 = time.perf_counter()
+    info["card_vs_host"] = recsys_card_vs_host(seed + 111, dev)
+    info["card_vs_host_s"] = time.perf_counter() - t0
+    cfg = configs.get("bert4rec").reduced_config() if reduced else configs.get(
+        "bert4rec").full_config()
+    t0 = time.perf_counter()
+    row, launches, checks = item_index_run(params, cfg, seed + 121, dev)
+    row["seconds"] = time.perf_counter() - t0
+    emit({"recsys": dict(run="item_index", **row), "card": info["card"]})
+    del params
+    proc, path = gnn_job
+    t0 = time.perf_counter()
+    proc.join(timeout=600)
+    info["gnn_block_wait_s"] = time.perf_counter() - t0
+    assert proc.exitcode == 0, f"the minibatch_lg sampler exited with {proc.exitcode}"
+    with np.load(path) as z:
+        block = {k: z[k] for k in z.files if not k.startswith("_")}
+        sampler = {k[1:]: z[k].item() for k in z.files if k.startswith("_")}
+    for name in GNN_RUNS:
+        t0 = time.perf_counter()
+        row = schnet_run(name, dev, block if name == "minibatch_lg" else None, reduced)
+        if name == "minibatch_lg":
+            row["host_sampler"] = sampler
+        row["seconds"] = time.perf_counter() - t0
+        emit({"recsys": dict(run="schnet", **row), "card": info["card"]})
+    emit({"recsys": dict(run="schnet", **schnet_skip_line()), "card": info["card"]})
+    info["runs"] = list(RECSYS_ARCHS) + ["card_vs_host", "item_index"] + list(GNN_RUNS)
+    info["launches"] = launches
+    info["in_phase_s"] = time.perf_counter() - t_phase
+    if dev.type == "cuda":
+        assert all(v > 0 for v in launches.values()), launches
+    return launches, checks
 
 
 if __name__ == "__main__":

@@ -1,13 +1,13 @@
 """Model configurations of the port (torch dtypes) and the arch registry:
 ``--arch <id>`` resolves here (the counterpart of ``repro.configs``).
 
-Ported: ``plaid-colbertv2`` (the paper's own encoder) and the five LM
-archs (dense and MoE), which train (``lm_loss``) and serve (``prefill``
-and ``decode_step`` with a KV cache) on one device, a data mesh or a mesh
-with a ``"model"`` axis (tensor and expert parallelism; its FSDP rules are
-ROADMAP Queue 1 item 8.3).  The recsys
-and GNN ids raise and name the ROADMAP item that ports them, Queue 1 item
-9.
+Every id of the reference resolves: ``plaid-colbertv2`` (the paper's own
+encoder); the five LM archs (dense and MoE), which train (``lm_loss``)
+and serve (``prefill`` and ``decode_step`` with a KV cache) on one device,
+a data mesh or a mesh with a ``"model"`` axis (tensor and expert
+parallelism; its FSDP rules are ROADMAP Queue 1 item 8.3, planned with
+item 8.5); the four recsys archs (``models.recsys``) and SchNet
+(``models.schnet``), on one device.
 """
 from __future__ import annotations
 
@@ -20,30 +20,23 @@ _MODULES = {
     "granite-34b": "repro_torch.configs.granite_34b",
     "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
+    # GNN
+    "schnet": "repro_torch.configs.schnet",
+    # RecSys
+    "xdeepfm": "repro_torch.configs.xdeepfm",
+    "bst": "repro_torch.configs.bst",
+    "bert4rec": "repro_torch.configs.bert4rec",
+    "wide-deep": "repro_torch.configs.wide_deep",
     # the paper's own architecture
     "plaid-colbertv2": "repro_torch.configs.colbertv2",
 }
-#: the reference's other arch ids -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "schnet": "Queue 1 item 9 (GNN scaffolding)",
-    "xdeepfm": "Queue 1 item 9 (recsys scaffolding)",
-    "bst": "Queue 1 item 9 (recsys scaffolding)",
-    "bert4rec": "Queue 1 item 9 (recsys scaffolding)",
-    "wide-deep": "Queue 1 item 9 (recsys scaffolding)",
-}
 
 #: the reference's ids, in its order
-ARCH_IDS = ["h2o-danube-3-4b", "yi-34b", "granite-34b", "granite-moe-1b-a400m",
-            "deepseek-moe-16b", "schnet", "xdeepfm", "bst", "bert4rec", "wide-deep",
-            "plaid-colbertv2"]
+ARCH_IDS = list(_MODULES)
 
 
 def get(arch_id: str):
     """Return the arch config module for ``--arch <id>``."""
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch (ROADMAP {_NOT_PORTED[arch_id]})"
-        )
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; available: {', '.join(ARCH_IDS)}")
     return importlib.import_module(_MODULES[arch_id])

@@ -1,12 +1,12 @@
 """Shared config machinery of the port (the counterpart of
-``repro/configs/common.py``): the shape cell and the LM family's cells.
+``repro/configs/common.py``): the shape cell and the LM, recsys and GNN
+families' cells.
 
 Every arch module exposes ``FAMILY``, ``full_config()`` (the published
 architecture), ``reduced_config()`` (a tiny config of the same family for
 CPU tests) and ``CELLS`` (its input shapes: the full parameters, the
-reduced ones and a skip reason).  The recsys, GNN and retrieval cell lists
-come with their families (ROADMAP Queue 1 item 9; the retrieval cells with
-the dry-run, item 8.5).
+reduced ones and a skip reason).  The retrieval family's cell list comes
+with the dry-run (ROADMAP Queue 1 item 8.5).
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ShapeCell:
     name: str
-    kind: str  # train | prefill | decode (the LM family's kinds)
+    kind: str  # train | prefill | decode | serve | retrieval | full_graph |
+    #            minibatch | molecule
     full: dict
     reduced: dict
     skip: str | None = None
@@ -49,6 +50,70 @@ def lm_cells(long_skip: str | None) -> list[ShapeCell]:
             full=dict(seq_len=524288, global_batch=1),
             reduced=dict(seq_len=128, global_batch=1),
             skip=long_skip,
+        ),
+    ]
+
+
+def recsys_cells() -> list[ShapeCell]:
+    """The recsys family's four cells, the reference's values."""
+    return [
+        ShapeCell(
+            "train_batch",
+            "train",
+            full=dict(batch=65536, n_micro=4),
+            reduced=dict(batch=32, n_micro=2),
+        ),
+        ShapeCell(
+            "serve_p99",
+            "serve",
+            full=dict(batch=512),
+            reduced=dict(batch=16),
+        ),
+        ShapeCell(
+            "serve_bulk",
+            "serve",
+            full=dict(batch=262144),
+            reduced=dict(batch=64),
+        ),
+        ShapeCell(
+            "retrieval_cand",
+            "retrieval",
+            full=dict(n_candidates=1_000_000, top_k=100),
+            reduced=dict(n_candidates=512, top_k=10),
+        ),
+    ]
+
+
+def gnn_cells() -> list[ShapeCell]:
+    """SchNet's four cells, the reference's values: cora's full graph,
+    reddit's sampled minibatch, ogbn-products' full graph and a batch of
+    molecules."""
+    return [
+        ShapeCell(
+            "full_graph_sm",
+            "full_graph",
+            full=dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7),
+            reduced=dict(n_nodes=128, n_edges=512, d_feat=33, n_classes=7),
+        ),
+        ShapeCell(
+            "minibatch_lg",
+            "minibatch",
+            full=dict(n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024,
+                      fanout=(15, 10), d_feat=602, n_classes=41),
+            reduced=dict(n_nodes=512, n_edges=4096, batch_nodes=16, fanout=(4, 3),
+                         d_feat=33, n_classes=7),
+        ),
+        ShapeCell(
+            "ogb_products",
+            "full_graph",
+            full=dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100, n_classes=47),
+            reduced=dict(n_nodes=256, n_edges=2048, d_feat=25, n_classes=11),
+        ),
+        ShapeCell(
+            "molecule",
+            "molecule",
+            full=dict(n_nodes=30, n_edges=64, batch=128),
+            reduced=dict(n_nodes=8, n_edges=16, batch=4),
         ),
     ]
 

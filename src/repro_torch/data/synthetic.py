@@ -7,8 +7,8 @@ noise, unit-normalized) so k-means centroids are meaningful and PLAID's
 centroid interaction behaves as it does on real embeddings; queries are
 derived from documents with noise so relevance is well-defined (the source
 doc is the gold passage).  ``colbert_batches`` gives ColBERT training
-triples, ``lm_batches`` the LM family's token streams.  The recsys
-generator is not ported (ROADMAP Queue 1 item 9).
+triples, ``lm_batches`` the LM family's token streams and
+``recsys_batches`` the recsys family's examples.
 """
 from __future__ import annotations
 
@@ -130,3 +130,32 @@ def lm_batches(vocab: int, batch: int, seq: int, *, seed: int = 0):
     while True:
         t = rng.choice(vocab, size=(batch, seq + 1), p=probs).astype(np.int32)
         yield {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+
+def recsys_batches(cfg, batch: int, *, seed: int = 0):
+    """The recsys family's examples (the reference's ``recsys_batches``,
+    draw for draw): ``labels`` (B,) click bits; for the CTR models
+    (``cin`` / ``concat``) ``sparse_ids`` (B, n_sparse) per-field ids and
+    ``dense_feats`` (B, n_dense); for the sequence models ``seq_ids`` (B,
+    seq_len), ``target_id`` (B,) and ``dense_feats`` when ``n_dense``.
+    BERT4Rec (``bidir-seq``) masks each position with probability
+    ``mask_frac``: ``seq_ids`` holds the ``[MASK]`` row ``item_vocab`` there
+    and ``labels`` (B, seq_len) the original id (-1 elsewhere)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        out = {"labels": rng.integers(0, 2, batch).astype(np.int32)}
+        if cfg.interaction in ("cin", "concat"):
+            out["sparse_ids"] = rng.integers(0, cfg.hash_size, (batch, cfg.n_sparse)).astype(np.int32)
+            out["dense_feats"] = rng.standard_normal((batch, cfg.n_dense)).astype(np.float32)
+        if cfg.seq_len:
+            out["seq_ids"] = rng.integers(0, cfg.item_vocab, (batch, cfg.seq_len)).astype(np.int32)
+            out["target_id"] = rng.integers(0, cfg.item_vocab, batch).astype(np.int32)
+            if cfg.n_dense:
+                out["dense_feats"] = rng.standard_normal((batch, cfg.n_dense)).astype(np.float32)
+        if cfg.interaction == "bidir-seq":
+            mask = rng.random((batch, cfg.seq_len)) < cfg.mask_frac
+            labels = np.where(mask, out["seq_ids"], -1).astype(np.int32)
+            seq = out["seq_ids"].copy()
+            seq[mask] = cfg.item_vocab  # the [MASK] row
+            out["seq_ids"], out["labels"] = seq, labels
+        yield out

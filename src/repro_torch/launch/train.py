@@ -4,8 +4,9 @@
 
 Trains a registry arch on the reference's synthetic data (``data_for``):
 an LM (``lm_batches``, 64 tokens a row, ``lm_loss``; a full config in
-float32, as the reference trains it) or ColBERTv2 (``colbert_batches``,
-8-token queries and 16-token passages), with AdamW on the cosine schedule
+float32, as the reference trains it), ColBERTv2 (``colbert_batches``,
+8-token queries and 16-token passages) or a recsys arch
+(``recsys_batches``, ``models.recsys.train_loss``), with AdamW on the cosine schedule
 (20 warm-up steps), microbatched gradient accumulation, optional int8
 gradient compression with error feedback, rolling checkpoints, the
 straggler watchdog and supervised restart; each step updates the
@@ -35,9 +36,11 @@ bit-identical at the end (a model group's in its replicated leaves).
 
 ``run(argv)`` does ``main``'s work and returns what it trained (the
 final state, the config, the losses, and on a model axis the
-parameters' placements).  The LM ids and
-``plaid-colbertv2`` train; the recsys and GNN ids raise
-and name ROADMAP Queue 1 item 9.
+parameters' placements).  The LM, recsys and ``plaid-colbertv2`` ids
+train; SchNet, as in the reference, trains through its cells
+(``launch.cells``), and ``data_for`` refuses the GNN family.  A recsys
+arch trains on one device (over several processes: ROADMAP Queue 1 item
+8.5).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from repro_torch.data import synthetic as syn
 from repro_torch.distributed import sharding
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import colbert as colbert_lib
+from repro_torch.models import recsys as recsys_lib
 from repro_torch.models import transformer as T
 from repro_torch.training import fault_tolerance as ft
 from repro_torch.training import loop as train_loop
@@ -65,7 +69,8 @@ from repro_torch.training import tree
 def data_for(cfg, batch: int, family: str, device):
     """``(batches, loss_fn, params, model)`` of a family: the reference's
     ``data_for``, with the model drawn from seed 0 on ``device`` (``params``
-    is its training tree).  ``recsys`` and ``gnn`` raise."""
+    is its training tree; a recsys family's ``model`` is None, its
+    functions read the tree).  Another family raises, as there."""
     gen = torch.Generator(device=device).manual_seed(0)
     if family == "lm":
         model = T.init_params(cfg, gen, device, head=True)
@@ -74,8 +79,10 @@ def data_for(cfg, batch: int, family: str, device):
         it = syn.colbert_batches(cfg.backbone.vocab, batch, q_len=8, d_len=16, nway=cfg.nway)
         model = colbert_lib.init_params(cfg, gen, device=device)
         return it, colbert_lib.loss_fn(model), colbert_lib.train_params(model), model
-    raise NotImplementedError(
-        f"family {family!r} is not ported to repro_torch (ROADMAP Queue 1 item 9)")
+    if family == "recsys":
+        loss = lambda p, b: recsys_lib.train_loss(p, cfg, b)
+        return syn.recsys_batches(cfg, batch), loss, recsys_lib.init_params(cfg, gen), None
+    raise ValueError(f"use examples/ for family {family}")
 
 
 def main(argv=None) -> int:
@@ -135,6 +142,9 @@ def _train(args, cfg, family, dev, mesh) -> dict:
         raise SystemExit(f"--batch {args.batch} does not split into {args.n_micro} "
                          f"microbatch(es) over {world} process(es)")
     lead = mesh is None or mesh.rank == 0
+    if family == "recsys" and data is not None:
+        raise NotImplementedError(
+            "the recsys family over several processes is not ported (ROADMAP Queue 1 item 8.5)")
     it, loss_fn, params, model = data_for(cfg, args.batch, family, dev)
     optimizer = opt_lib.adamw(
         opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(args.lr, 20, args.steps))

@@ -1,6 +1,6 @@
 """Shared neural layers in plain PyTorch (the counterpart of
-``repro.models.layers``): norms, RoPE, attention (chunked prefill and
-cached decode) and SwiGLU.
+``repro.models.layers``): dense layers with and without a bias, norms,
+RoPE, attention (chunked prefill and cached decode) and SwiGLU.
 
 Conventions are the reference's:
 
@@ -8,7 +8,9 @@ Conventions are the reference's:
   compute type each product runs in;
 * ``dense`` returns the compute type (the reference's
   ``preferred_element_type`` is the compute dtype by default);
-* ``rmsnorm`` and RoPE compute in float32 and cast back to the input type;
+* ``dense_bias`` casts the bias to the compute type with the operands;
+* ``rmsnorm``, ``layernorm`` (``eps=1e-6``, not ``torch.nn.LayerNorm``'s
+  1e-5) and RoPE compute in float32 and cast back to the input type;
 * ``chunked_attention`` is the reference's pure-JAX online softmax, chunk
   for chunk: ``-inf`` masks, the guarded correction, ``p`` cast to ``v``'s
   type before ``p . v``, and the ``1e-9`` floor on ``l``.
@@ -30,6 +32,45 @@ def dense(w: torch.Tensor, x: torch.Tensor, dtype: torch.dtype | None = None) ->
         w, x = w.to(dtype), x.to(dtype)
     with ieee_f32_matmul():
         return x @ w
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               scale: float | None = None) -> dict:
+    """``{"w": (d_in, d_out)}`` normal at the reference's scale
+    ``sqrt(2 / (d_in + d_out))`` (not its numbers), on the generator's
+    device."""
+    scale = scale if scale is not None else (2.0 / (d_in + d_out)) ** 0.5
+    return {"w": torch.randn((d_in, d_out), generator=generator, device=generator.device) * scale}
+
+
+def dense_bias_init(generator: torch.Generator, d_in: int, d_out: int,
+                    scale: float | None = None) -> dict:
+    """:func:`dense_init` and a zero bias ``"b"`` (d_out,)."""
+    p = dense_init(generator, d_in, d_out, scale)
+    p["b"] = torch.zeros((d_out,), device=generator.device)
+    return p
+
+
+def dense_bias(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w + b``, all three cast to ``dtype`` when it is given."""
+    if dtype is not None:
+        b = b.to(dtype)
+    return dense(w, x, dtype) + b
+
+
+def layernorm_init(d: int, device=None) -> dict:
+    return {"g": torch.ones((d,), device=device), "b": torch.zeros((d,), device=device)}
+
+
+def layernorm(g: torch.Tensor, b: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The reference's layernorm: statistics in f32 (the biased variance),
+    ``(x - mean) * rsqrt(var + eps) * g + b``, cast back to ``x``'s type."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    return (((x - mu) * torch.rsqrt(var + eps)) * g + b).to(dt)
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

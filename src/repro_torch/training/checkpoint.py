@@ -42,11 +42,13 @@ _SEP = "/"
 
 
 def _flatten(tree, prefix: str = "", out: dict | None = None) -> dict:
-    """A numpy tree (:func:`tree.to_numpy`'s) as ``{"a/b/c": array}``."""
+    """A numpy tree (:func:`tree.to_numpy`'s) as ``{"a/b/c": array}``; a
+    list of subtrees keys its elements "0", "1", ..."""
     out = {} if out is None else out
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k), out)
+    if isinstance(tree, (dict, list)):
+        items = sorted(tree.items()) if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            _flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k), out)
     else:
         out[prefix] = tree
     return out

@@ -1,10 +1,12 @@
 """Nested trees of tensors: the port's stand-in for ``jax.tree``.
 
-A tree is a dict of trees, a list of tensors or a leaf.  A list is a layer
-stack: the reference keeps it as ONE array with a leading ``L`` axis, the
-port as one tensor a layer, so that each layer's weight is a tensor of its
-own (no gather, no scatter of the stack in a step).  ``leaves`` counts each
-list element as a leaf.
+A tree is a dict of trees, a list of tensors, a list of dicts or a leaf.
+A list of tensors is a layer stack: the reference keeps it as ONE array
+with a leading ``L`` axis, the port as one tensor a layer, so that each
+layer's weight is a tensor of its own (no gather, no scatter of the stack
+in a step).  ``leaves`` counts each list element as a leaf.  A list of
+dicts is a Python list in the reference's tree too (an MLP's layers,
+``models.recsys``): each element is a subtree, kept as it is.
 
 The layer-stack rule between the two layouts lives here and nowhere else:
 :func:`to_numpy` stacks each list into the reference's one array,
@@ -28,7 +30,7 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     if isinstance(tree, list):
-        return list(tree)
+        return [x for t in tree for x in leaves(t)]
     return [tree]
 
 
@@ -40,7 +42,7 @@ def unflatten(template, flat: list):
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, list):
-            return [next(it) for _ in node]
+            return [build(n) for n in node]
         return next(it)
 
     out = build(template)
@@ -69,6 +71,8 @@ def to_numpy(tree):
     if isinstance(tree, Mapping):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, list):
+        if any(isinstance(x, Mapping) for x in tree):  # a list of subtrees
+            return [to_numpy(x) for x in tree]
         return np.stack([_host(x) for x in tree])
     return _host(tree)
 
@@ -88,12 +92,29 @@ def from_numpy(arrays: Mapping, like, path: str = ""):
     that ``like`` lacks are left out."""
     if isinstance(like, Mapping):
         return {k: from_numpy(arrays[k], v, f"{path}/{k}" if path else k) for k, v in like.items()}
+    if isinstance(like, list) and any(isinstance(x, Mapping) for x in like):
+        # a list of subtrees: a list, or a dict keyed "0", "1", ... (a checkpoint's)
+        items = [arrays[str(i)] for i in range(len(like))] if isinstance(arrays, Mapping) \
+            else list(arrays)
+        if len(items) != len(like):
+            raise ValueError(f"{path}: {len(items)} subtrees, expected {len(like)}")
+        return [from_numpy(a, v, f"{path}/{i}") for i, (a, v) in enumerate(zip(items, like))]
     if isinstance(like, list):
         a = np.asarray(arrays)
         if a.shape[0] != len(like):
             raise ValueError(f"{path}: {a.shape[0]} layers, expected {len(like)}")
         return [_like(x, leaf) for x, leaf in zip(a, like)]
     return _like(arrays, like)
+
+
+def tensors(tree, device):
+    """A numpy tree as tensors on ``device``, its structure kept as it is
+    (a list stays a list: nothing is stacked or split), value for value."""
+    if isinstance(tree, Mapping):
+        return {k: tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tensors(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree)).to(device)
 
 
 def place(tree, placement):

@@ -27,6 +27,10 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.core.pipeline" in mods and "repro_torch.kernels.ops" in mods
+    for m in ("models.recsys", "models.schnet", "data.graphs", "core.item_retrieval",
+              "configs.bert4rec", "configs.bst", "configs.schnet", "configs.wide_deep",
+              "configs.xdeepfm"):
+        assert f"repro_torch.{m}" in mods, m
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'repro'):\n"

@@ -81,8 +81,9 @@ def test_cells_the_port_lacks_raise_naming_the_roadmap():
         tcells.build_cell("yi-34b", "prefill_32k", mode="dry", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
         tcells.build_cell("plaid-colbertv2", "encode_corpus", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tcells.build_cell("xdeepfm", "serve_p99", device="cpu")
+    # the recsys and GNN cells are ported (ROADMAP Queue 1 item 9)
+    served = tcells.build_cell("xdeepfm", "serve_p99", device="cpu")
+    assert served.kind == "serve" and served.fn(*served.args).shape == (16,)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

@@ -564,10 +564,13 @@ def test_launch_train_trains_each_lm_arch_on_the_cpu(arch, tmp_path, capsys):
     assert out["cfg"].dtype == torch.float32 and "lm_head" in out["state"]["params"]
 
 
-def test_launch_train_refuses_the_families_it_lacks():
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9"):
-        ttrain.main(["--arch", "xdeepfm", "--reduced", "--device", "cpu", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 9"):
+def test_launch_train_refuses_the_families_it_lacks(tmp_path):
+    """The recsys family trains (ROADMAP Queue 1 item 9); the GNN family is
+    refused as the reference's ``data_for`` refuses it."""
+    out = ttrain.run(["--arch", "xdeepfm", "--reduced", "--device", "cpu", "--steps", "1",
+                      "--ckpt-dir", str(tmp_path)])
+    assert out["steps"] == 1 and np.isfinite(out["losses"]).all()
+    with pytest.raises(ValueError, match="use examples/ for family gnn"):
         ttrain.data_for(None, 4, "gnn", torch.device("cpu"))
 
 

@@ -137,12 +137,8 @@ def test_training_fields_match_reference(which):
 def test_arch_registry_resolves_colbert_and_names_the_roadmap_for_the_rest():
     assert tconfigs.ARCH_IDS == rconfigs.ARCH_IDS
     assert tconfigs.get("plaid-colbertv2") is tcfgs
-    for arch in tconfigs.ARCH_IDS:
-        if rconfigs.get(arch).FAMILY == "lm":  # ported with their serving path
-            assert tconfigs.get(arch).FAMILY == "lm"
-        elif arch != "plaid-colbertv2":
-            with pytest.raises(NotImplementedError, match=r"Queue 1 item 9"):
-                tconfigs.get(arch)
+    for arch in tconfigs.ARCH_IDS:  # every id resolves to the reference's family
+        assert tconfigs.get(arch).FAMILY == rconfigs.get(arch).FAMILY
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get("bert-large")
 
