@@ -345,6 +345,26 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                process of its own from the script's start): step ms, peak
                bytes; ``ogb_products`` is skipped with its reckoning (its
                (61.9M, 300) f32 radial basis alone is 74.2 GB).
+20. cells      the retrieval family's cells (``launch.cells.
+               retrieval_cell``) at full width, one ``cells`` line each:
+               ``train_triples`` (B 256 in 8 microbatches, a warm-up and 2
+               timed steps: step ms, tokens/s, ``mfu``, peak bytes, finite
+               losses); ``encode_corpus`` (4,096 x 180 tokens through K7:
+               p50, tokens/s, K7's launches an encode, then K7 at this
+               shape against its plain version, FLASH_TOL); ``search_9m``
+               and ``search_140m`` (one shard each: the index built as the
+               reference builds it, ``search_140m``'s corpus drawn in a
+               process of its own from the script's start; 32 queries x 32
+               tokens at k 100 through ``impl="cuda"`` and ``"ref"`` on the
+               card, pids and scores identical; build s, p50, K1 / K2
+               launches a batch, K1 and K2 at these shapes bit for bit
+               against their plain versions).  Then the dry sweep:
+               ``launch.dryrun --all --both-meshes`` in a subprocess that
+               sees no card, within 60 s; one ``dry_sweep`` line (the ok /
+               skip / fail tally, each fail with its ROADMAP item, the LM
+               train cells' per-rank bytes beside the rules' plan); every
+               LM and search record ``ok``, every fail an item-named
+               ``NotImplementedError``.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -391,6 +411,7 @@ from repro_torch.exec.sharded import clamp_to_shard, place_shards  # noqa: E402
 from repro_torch.exec.tiered import partition_tiered  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import costs as kcosts  # noqa: E402
 from repro_torch.kernels.costs import tiered_transfer_cost  # noqa: E402
 from repro_torch.launch import cells as cells_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
@@ -745,20 +766,22 @@ def n_unique(x) -> int:
 
 
 def k1_bound(s_cq, codes, keep):
-    """K1/K5: every code slot (pads too), each distinct kept score row and
-    each distinct keep flag (none for a null keep) once, q_mask and the
-    output; one max per (kept token, query) and the query sum."""
+    """K1/K5 (``costs.centroid_interaction_batched_cost``): every code slot
+    (pads too), each distinct kept score row and each distinct keep flag
+    (none for a null keep) once, q_mask and the output; one max per (kept
+    token, query) and the query sum."""
     B, K, nq = s_cq.shape
     nd, L = codes.shape[1:]
     valid = codes >= 0
     lane = torch.arange(B, device=codes.device)[:, None, None]
     safe = torch.where(valid, codes, 0).long()
     kept = valid if keep is None else valid & keep[lane, safe]
-    rows = n_unique((lane * K + safe)[kept])  # distinct score rows read
-    seen = 0 if keep is None else n_unique((lane * K + safe)[valid])  # keep flags read
-    nbytes = codes.numel() * 4 + rows * nq * 4 + seen + B * nq * 4 + B * nd * 4
-    flops = int(kept.sum()) * nq + B * nd * nq * 3
-    return bound(nbytes, flops)
+    c = kcosts.centroid_interaction_batched_cost(
+        B=B, nd=nd, L=L, K=K, nq=nq,
+        rows=n_unique((lane * K + safe)[kept]),  # distinct score rows read
+        flags=0 if keep is None else n_unique((lane * K + safe)[valid]),  # keep flags read
+        kept=int(kept.sum()))
+    return bound(c["hbm_bytes"], c["bound_ops"])
 
 
 def k1_stage3_check(s_cq, codes3, qm) -> dict:
@@ -789,17 +812,31 @@ def k1_stage3_check(s_cq, codes3, qm) -> dict:
 
 
 def k4_bound(n_bytes, nbits):
-    """K4: each packed byte read once, its 8/nbits f32 fields written once;
-    no arithmetic (a lookup)."""
-    return bound(n_bytes * (1 + (8 // nbits) * 4) + 4 * 2**nbits, 0.0)
+    """K4 (``costs.decompress_residuals_cost``): each packed byte read once,
+    its 8/nbits f32 fields written once; no arithmetic (a lookup)."""
+    return bound(kcosts.decompress_residuals_cost(n=n_bytes, pd=1, nbits=nbits)["hbm_bytes"], 0.0)
 
 
-def stage4_bound(n_tokens, codes_valid, nq, d, pd, B, n_out, extra_bytes):
-    """K2/K3: the valid tokens' codes and payload bytes, each distinct
-    centroid row once, the queries and the output; 2*nq*d flops per token."""
-    rows = n_unique(codes_valid)
-    nbytes = n_tokens * (4 + pd) + rows * d * 4 + B * nq * (d + 1) * 4 + n_out * 4
-    return bound(nbytes + extra_bytes, 2.0 * n_tokens * nq * d + n_tokens * nq)
+def k2_bound(codes4, valid4, nq, d, pd, K):
+    """K2/K6 (``costs.decompress_and_score_batched_cost``) over (B, nd, L)
+    blocks: the valid tokens' codes and payload bytes, each distinct
+    centroid row once, the queries, every slot's validity flag and the
+    output; 2*nq*d + nq operations a valid token."""
+    B, nd, L = codes4.shape
+    c = kcosts.decompress_and_score_batched_cost(
+        B=B, nd=nd, L=L, pd=pd, K=K, d=d, nq=nq, nbits=8 * pd // d,
+        tokens=int(valid4.sum()), rows=n_unique(codes4[valid4]))
+    return bound(c["hbm_bytes"], c["bound_ops"])
+
+
+def k3_bound(final_pids, codes_valid, nq, d, pd, K):
+    """K3 (``costs.gather_decompress_maxsim_cost``): K2's bytes read from
+    the CSR arrays, plus each finalist's pid, start and length."""
+    B, n3 = final_pids.shape
+    c = kcosts.gather_decompress_maxsim_cost(
+        B=B, n3=n3, L=1, pd=pd, K=K, d=d, nq=nq, nbits=8 * pd // d,
+        tokens=codes_valid.numel(), rows=n_unique(codes_valid))
+    return bound(c["hbm_bytes"], c["bound_ops"])
 
 
 def contract_bound_ms(n_tokens, nq, d) -> float:
@@ -860,6 +897,8 @@ def main(argv=None) -> int:
     # phase recsys's minibatch_lg block: the host sampler over a 114.6M-edge
     # graph runs in a process of its own while the earlier phases run
     gnn_job = start_gnn_block()
+    # phase cells' search_140m corpus: ~9.8M tokens of per-passage numpy draws
+    corpus_job = start_search_corpus()
 
     # ---- 3. index ---------------------------------------------------------
     with Phase("index") as info:
@@ -948,8 +987,7 @@ def main(argv=None) -> int:
                     qb, qm, codes4, res4, valid4, index.centroids, index.weights, nbits=NBITS),
                 lambda: ref.decompress_and_score_batched_ref(
                     qb, qm, codes4, res4, valid4, index.centroids, index.weights, nbits=NBITS),
-                stage4_bound(int(valid4.sum()), codes4[valid4], NQ, DIM,
-                             res4.shape[-1], BATCH, final_pids.numel(), valid4.numel()),
+                k2_bound(codes4, valid4, NQ, DIM, res4.shape[-1], index.num_centroids),
                 dict(shape, nd=codes4.shape[1], L=codes4.shape[2]),
             ),
         }
@@ -966,9 +1004,8 @@ def main(argv=None) -> int:
                 qb, qm, final_pids, index.codes, index.residuals, index.doc_offsets,
                 index.doc_lens, index.centroids, index.weights, nbits=NBITS,
                 doc_maxlen=index.doc_maxlen),
-            stage4_bound(int(valid3f.sum()), codes3f[valid3f], NQ, DIM,
-                         index.residuals.shape[1], BATCH, final_pids.numel(),
-                         final_pids.numel() * 12),
+            k3_bound(final_pids, codes3f[valid3f], NQ, DIM, index.residuals.shape[1],
+                     index.num_centroids),
             dict(shape, n3=final_pids.shape[1]),
         )
         # K4 at vanilla's stage-3 block: 4096 passages' padded rows
@@ -998,8 +1035,7 @@ def main(argv=None) -> int:
                                              index.weights, nbits=NBITS),
             lambda: ref.decompress_and_score_ref(q6, m1, c6, r6, v6, index.centroids,
                                                  index.weights, nbits=NBITS),
-            stage4_bound(int(v6.sum()), c6[v6], NQ, DIM, r6.shape[-1], 1, c6.shape[0],
-                         v6.numel()),
+            k2_bound(c6[None], v6[None], NQ, DIM, r6.shape[-1], index.num_centroids),
             dict(nd=c6.shape[0], L=c6.shape[1], pd=r6.shape[-1], nq=NQ, d=DIM),
         )
         contract = {  # K2/K3/K6: valid tokens under the no-FMA contract
@@ -1246,6 +1282,17 @@ def main(argv=None) -> int:
     for name, row in item_checks.items():
         kernels[name]["item_index_shapes"] = row
 
+    # ---- 20. the retrieval family's cells at full width; the dry sweep ------
+    torch.cuda.empty_cache()
+    with Phase("cells") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        # K1/K2's launches: the search cells' cuda batches; K7's: the
+        # encode_corpus cell's encodes (the checks at these shapes not)
+        cells_counts, cell_checks = cells_phase(args.seed, dev, info, corpus_job)
+    for name, rows in cell_checks.items():
+        kernels[name]["search_cell_shapes" if name != "flash_attention"
+                      else "encode_corpus_shape"] = rows
+
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
     # around the served runs with one dispatcher; sharded: around each
@@ -1253,11 +1300,12 @@ def main(argv=None) -> int:
     # around the serving of the trained weights): K1-K3 in search, live,
     # tiered, serve and sharded, K1/K2 in serve_driver, train and train_dp
     # too, K4 in vanilla and serve_driver, K5/K6 in oracle, K7 in encode,
-    # stream_build, train, train_dp, lm, lm_train and lm_tp; K1/K2 in recsys
-    # (the item index's batches)
+    # stream_build, train, train_dp, lm, lm_train, lm_tp and cells; K1/K2 in
+    # recsys (the item index's batches) and cells (the search cells' batches)
     launches = {name: search_counts[name] + live_counts[name] + tiered_counts[name]
                 + serve_counts[name] + sharded_counts[name] + driver_counts[name]
                 + train_counts[name] + dp_counts[name] + recsys_counts.get(name, 0)
+                + cells_counts.get(name, 0)
                 for name in SEARCH_KERNELS}
     launches["decompress_residuals"] = (vanilla_counts["decompress_residuals"]
                                         + driver_counts["decompress_residuals"])
@@ -1269,7 +1317,8 @@ def main(argv=None) -> int:
                                    + dp_counts["flash_attention"]
                                    + lm_counts["flash_attention"]
                                    + lm_train_counts["flash_attention"]
-                                   + lm_tp_counts["flash_attention"])
+                                   + lm_tp_counts["flash_attention"]
+                                   + cells_counts["flash_attention"])
     rows = [
         dict(
             name=name, route="cuda", source=REPLACES[name][0], replaces=REPLACES[name][1],
@@ -1279,6 +1328,8 @@ def main(argv=None) -> int:
             library_ms=kv.get("library_ms"), contract_bound_ms=kv.get("contract_bound_ms"),
             per_rank_shapes=kv.get("per_rank_shapes"),
             item_index_shapes=kv.get("item_index_shapes"),
+            search_cell_shapes=kv.get("search_cell_shapes"),
+            encode_corpus_shape=kv.get("encode_corpus_shape"),
         )
         for name, kv in kernels.items()
     ]
@@ -1355,7 +1406,7 @@ def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool, reps: int
     """K7 against its plain version on one seeded case; at the encoder's
     and the LM prefills' shapes also its time, the plain version's, SDPA's
     and the bound (``reps`` timed calls; the plain version's a fifth)."""
-    dev = "cuda"
+    dev = g.device
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, Hkv, dh, generator=g, device=dev).to(dtype)
@@ -1379,8 +1430,9 @@ def flash_check(name, B, S, H, Hkv, dh, causal, dtype, g, timed: bool, reps: int
                 is_causal=causal, enable_gqa=True)
 
         lib = sdpa().transpose(1, 2)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, o, k, v
-        flops = 4.0 * B * H * S * S * dh * (0.5 if causal else 1.0)
+        c = kcosts.flash_attention_cost(B=B, S=S, H=H, Hkv=Hkv, dh=dh, causal=causal,
+                                        itemsize=q.element_size())  # q, o, k, v
+        nbytes, flops = c["hbm_bytes"], c["flops"]
         peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound_ms, bound_by = bound(nbytes, flops, peak)
         row.update(
@@ -4742,14 +4794,21 @@ def _recall(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def item_kernel_checks(index, qn, dev) -> dict:
-    """K1 at stage 2's and stage 3's shapes and K2 at stage 4's for one
-    item-index batch (nq = 1, d = 64, one token a document), bit for bit
-    against their plain versions, timed as phase kernels times them
-    (these launches are not counted)."""
+    """K1 at stage 2's shape and K2 at stage 4's for one item-index batch
+    (nq = 1, d = 64, one token a document), bit for bit against their
+    plain versions, timed as phase kernels times them (these launches are
+    not counted)."""
     p = plaid.clamp_params(item_retrieval.item_search_params(ITEM_K, 8, 4096, "cuda"),
                            index.num_passages)
     qb = qn[:, None, :].contiguous()
-    qm = torch.ones(qb.shape[:2], device=dev)
+    return path_kernel_checks(index, qb, torch.ones(qb.shape[:2], device=dev), p, dev)
+
+
+def path_kernel_checks(index, qb, qm, p, dev) -> dict:
+    """K1 at stage 2's shape and K2 at stage 4's for one batch of the
+    unfused path at params ``p``, bit for bit against their plain
+    versions, with their bounds (``kernels.costs``) and, on the card, their
+    times (these launches are not counted)."""
     s_cq = pipeline.stage1_scores_batched(index, qb)
     cands = pipeline.candidate_generation_batched(index, s_cq, p.nprobe, p.candidate_cap)
     keep = scoring.prune_mask(s_cq, p.t_cs)
@@ -4759,13 +4818,13 @@ def item_kernel_checks(index, qn, dev) -> dict:
     res4, _ = scoring.gather_doc_tokens(index.residuals, index.doc_offsets, index.doc_lens,
                                         final_pids.reshape(-1), index.doc_maxlen, fill=0)
     res4 = res4.reshape(*codes4.shape, -1)
-    nbits, d = index.nbits, index.dim
+    nbits, d, nq = index.nbits, index.dim, qb.shape[1]
     cases = {
         "centroid_interaction_batched": (
             lambda: ops.centroid_interaction_batched(s_cq, codes_blk, qm, keep),
             lambda: ref.centroid_interaction_batched_ref(s_cq, codes_blk, keep, qm),
             k1_bound(s_cq, codes_blk, keep),
-            dict(B=qb.shape[0], nq=1, nd=codes_blk.shape[1], L=codes_blk.shape[2],
+            dict(B=qb.shape[0], nq=nq, nd=codes_blk.shape[1], L=codes_blk.shape[2],
                  K=s_cq.shape[1])),
         "decompress_and_score_batched": (
             lambda: ops.decompress_and_score_batched(qb, qm, codes4, res4, valid4,
@@ -4773,9 +4832,8 @@ def item_kernel_checks(index, qn, dev) -> dict:
             lambda: ref.decompress_and_score_batched_ref(qb, qm, codes4, res4, valid4,
                                                          index.centroids, index.weights,
                                                          nbits=nbits),
-            stage4_bound(int(valid4.sum()), codes4[valid4], 1, d, res4.shape[-1], qb.shape[0],
-                         final_pids.numel(), valid4.numel()),
-            dict(B=qb.shape[0], nq=1, d=d, nd=codes4.shape[1], L=codes4.shape[2],
+            k2_bound(codes4, valid4, nq, d, res4.shape[-1], index.num_centroids),
+            dict(B=qb.shape[0], nq=nq, d=d, nd=codes4.shape[1], L=codes4.shape[2],
                  pd=res4.shape[-1])),
     }
     out = {}
@@ -4967,6 +5025,242 @@ def recsys_phase(seed, dev, info: dict, gnn_job, reduced=False) -> tuple[dict, d
     info["in_phase_s"] = time.perf_counter() - t_phase
     if dev.type == "cuda":
         assert all(v > 0 for v in launches.values()), launches
+    return launches, checks
+
+
+# --------------------------------------------------------------------------
+# phase cells: the retrieval family's cells at full width, the dry sweep
+# --------------------------------------------------------------------------
+CELLS_ARCH = "plaid-colbertv2"
+CELLS_TRAIN_TIMED, CELLS_ENCODE_REPS, CELLS_SEARCH_REPS = 2, 3, 5
+#: the dry sweep's processes and its time limit
+DRYRUN_JOBS, DRYRUN_LIMIT_S = 8, 60.0
+
+
+def cells_values(name: str, reduced: bool) -> tuple:
+    """A retrieval cell, its config (full, or reduced for a CPU rehearsal)
+    and its values."""
+    mod = configs.get(CELLS_ARCH)
+    cell = configs.cells_of(CELLS_ARCH)[name]
+    if reduced:
+        return cell, mod.reduced_config(), cell.reduced
+    return cell, mod.full_config(), cell.full
+
+
+def cells_train_run(dev, reduced=False) -> dict:
+    """``train_triples`` through its cell's donating step: a warm-up and
+    CELLS_TRAIN_TIMED timed steps on the cell's batch (B 256 = 8
+    microbatches of 32 triples, 24,064 tokens each); step ms, tokens/s, mfu
+    against the bf16 peak with the cell's model FLOPs, peak bytes."""
+    cell, cfg, p = cells_values("train_triples", reduced)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    built = cells_mod.retrieval_cell(CELLS_ARCH, cfg, cell, p, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    params, opt_state, batch = built.args
+    ms, losses = [], []
+    for _ in range(1 + CELLS_TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, opt_state, m = built.fn(params, opt_state, batch)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    p50 = statistics.median(ms[1:])
+    tokens = p["global_batch"] * (p["q_len"] + p["nway"] * p["d_len"])
+    row = dict(cell="train_triples", values=p, init_s=init_s, warmup_ms=ms[0], step_ms=ms[1:],
+               step_p50_ms=p50, tokens_a_step=tokens, tokens_per_s=tokens / p50 * 1e3,
+               model_flops=built.model_flops,
+               mfu=built.model_flops / (p50 / 1e3) / BF16_FLOPS, losses=losses,
+               peak_device_bytes=_peak(dev))
+    assert all(math.isfinite(x) for x in losses), row
+    return row
+
+
+def cells_encode_run(dev, g, reduced=False) -> tuple[dict, int, dict]:
+    """``encode_corpus`` through its cell (K7, bf16): p50 of
+    CELLS_ENCODE_REPS encodes after a warm-up, tokens/s, peak bytes, K7's
+    launches an encode; then K7 at this shape against its plain version
+    (``flash_check``, FLASH_TOL).  Returns the line, K7's launches on the
+    cell's path and the check."""
+    cell, cfg, p = cells_values("encode_corpus", reduced)
+    _peak_reset(dev)
+    built = cells_mod.retrieval_cell(CELLS_ARCH, cfg, cell, p, dev)
+    ops.reset_launch_counts()
+    p50, times, out = wall_ms(lambda: built.fn(*built.args), dev, CELLS_ENCODE_REPS)
+    launches = ops.launch_counts()["flash_attention"]
+    B, S = p["batch"], p["d_len"]
+    assert out.shape == (B, S, cfg.out_dim) and bool(torch.isfinite(out).all())
+    row = dict(cell="encode_corpus", values=p, p50_ms=p50, ms=times,
+               tokens_per_s=B * S / p50 * 1e3, model_flops=built.model_flops,
+               mfu=built.model_flops / (p50 / 1e3) / BF16_FLOPS,
+               k7_launches_an_encode=launches / (1 + CELLS_ENCODE_REPS),
+               peak_device_bytes=_peak(dev))
+    del built, out
+    bb = cfg.backbone
+    check = flash_check("encode_corpus", B, S, bb.padded_heads, bb.n_kv_heads, bb.d_head,
+                        bb.causal, bb.dtype, g, timed=dev.type == "cuda", reps=5)
+    row["k7_check"] = {k: check[k] for k in ("max_abs_err", "ok", "tol") if k in check}
+    return row, launches, check
+
+
+def search_corpus_job(path: str, reduced: bool) -> None:
+    """The ``search_140m`` cell's corpus and queries (``cells.
+    search_corpus``: 273,438 passages, ~9.8M tokens of the reference's
+    per-passage numpy draws, ~55 s on one host core), drawn in a process of
+    its own from the script's start and saved under ``path`` (.npy) with
+    the draw's seconds."""
+    _, _, p = cells_values("search_140m", reduced)
+    t0 = time.perf_counter()
+    for name, a in zip(("packed", "lens", "qs"), cells_mod.search_corpus(p)):
+        np.save(os.path.join(path, f"{name}.npy"), a)
+    np.save(os.path.join(path, "seconds.npy"), np.float64(time.perf_counter() - t0))
+
+
+def start_search_corpus(reduced: bool = False):
+    """Start :func:`search_corpus_job` in a spawned process; returns
+    (process, directory).  The directory is removed when the script
+    exits."""
+    import atexit
+    import multiprocessing
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpus_")
+    atexit.register(shutil.rmtree, tmp, True)
+    proc = multiprocessing.get_context("spawn").Process(target=search_corpus_job,
+                                                        args=(tmp, reduced), daemon=True)
+    proc.start()
+    return proc, tmp
+
+
+def load_search_corpus(job) -> tuple[tuple, dict]:
+    """Wait for :func:`start_search_corpus`'s process; its arrays and
+    (wait, draw) seconds."""
+    proc, path = job
+    t0 = time.perf_counter()
+    proc.join(timeout=900)
+    wait = time.perf_counter() - t0
+    assert proc.exitcode == 0, f"the search corpus process exited with {proc.exitcode}"
+    arrays = tuple(np.load(os.path.join(path, f"{n}.npy")) for n in ("packed", "lens", "qs"))
+    return arrays, dict(wait_s=wait, draw_s=float(np.load(os.path.join(path, "seconds.npy"))))
+
+
+def cells_search_run(name: str, dev, reduced=False, corpus_job=None) -> tuple[dict, dict, dict]:
+    """One search cell at the cell's widths: its index built as the
+    reference builds it (one shard), its queries through the cell's
+    ``impl="cuda"`` search (K1 at stages 2 and 3, K2 at stage 4) and
+    through ``impl="ref"`` on the same card, pids and scores identical;
+    build s, p50 ms, launches a batch; K1 and K2 at these shapes against
+    their plain versions.  ``corpus_job``: the cell's corpus drawn in a
+    process of its own (:func:`start_search_corpus`), else drawn here.
+    Returns the line, K1/K2's launches on the cell's path and the checks."""
+    cell, cfg, p = cells_values(name, reduced)
+    corpus, corpus_s = (None, None) if corpus_job is None else load_search_corpus(corpus_job)
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    index, qs = cells_mod.search_index(p, dev, corpus=corpus)
+    del corpus
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    got_cell = cells_mod.retrieval_cell(CELLS_ARCH, cfg, cell, p, dev, index=(index, qs))
+    want_cell = cells_mod.retrieval_cell(CELLS_ARCH, cfg, cell, p, dev, index=(index, qs),
+                                         impl="ref")
+    ops.reset_launch_counts()
+    got_s, got_p = got_cell.fn(*got_cell.args)
+    _sync(dev)
+    per_batch = {k: v for k, v in ops.launch_counts().items() if v}
+    p50, times, _ = wall_ms(lambda: got_cell.fn(*got_cell.args), dev, CELLS_SEARCH_REPS,
+                            warmup=0)
+    counts = ops.launch_counts()
+    ref_p50, _, (want_s, want_p) = wall_ms(lambda: want_cell.fn(*want_cell.args), dev, 2)
+    qs, qm = got_cell.args[1:]
+    row = dict(cell=name, values=p, passages=index.num_passages, tokens=index.num_tokens,
+               centroids=index.num_centroids, nbits=index.nbits,
+               index_bytes=sum(index.nbytes().values()), build_s=build_s,
+               corpus_process=corpus_s,
+               queries=qs.shape[0], q_len=qs.shape[1], p50_ms=p50, ms=times, ref_p50_ms=ref_p50,
+               launches_a_batch=per_batch, pids_identical=torch.equal(got_p, want_p),
+               scores_identical=torch.equal(got_s, want_s), model_flops=got_cell.model_flops,
+               peak_device_bytes=_peak(dev))
+    assert row["pids_identical"] and row["scores_identical"], row
+    assert got_p.shape == (p["n_queries"], p["k"]) and bool(torch.isfinite(got_s).all()), row
+    sp = cells_mod.clamped_search_params(p, "cuda", index.num_passages)
+    checks = path_kernel_checks(index, qs, qm, sp, dev)
+    row["kernel_checks"] = checks
+    del index, got_cell, want_cell
+    return row, {k: counts[k] for k in SEARCH_KERNELS[:2]}, checks
+
+
+def cells_dry_sweep(info: dict) -> dict:
+    """(b) ``launch.dryrun --all --both-meshes`` in a subprocess that sees
+    no card, within DRYRUN_LIMIT_S: the tally of ok / skip / fail, each
+    fail with its ROADMAP item, and yi-34b train_4k's per-rank bytes (what
+    the port's rank holds beside the rules' plan).  Fails when an LM or
+    search record is not ok, or a fail is not an item-named
+    NotImplementedError."""
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_")) / "dry.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                           "--both-meshes", "--jobs", str(jobs), "--out", str(out)],
+                          env=env, capture_output=True, text=True, timeout=4 * DRYRUN_LIMIT_S)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    out.unlink()
+    out.parent.rmdir()
+    tally = collections.Counter(r["status"] for r in recs)
+    fails = [dict(arch=r["arch"], shape=r["shape"], mesh=r["mesh"], item=r["item"],
+                  error=r["error"][:160]) for r in recs if r["status"] == "fail"]
+    yi = {r["mesh"]: dict(mem_args=r["mem_args"], mem_args_plan=r["mem_args_plan"],
+                          mem_temp=r["mem_temp"], dominant=r["dominant"])
+          for r in recs if r["arch"] == "yi-34b" and r["shape"] == "train_4k"}
+    line = dict(records=len(recs), jobs=jobs, seconds=seconds, tally=dict(tally), fails=fails,
+                yi_34b_train_4k=yi,
+                lm_train_bytes={f"{r['arch']}|{r['mesh']}": [r.get("mem_args"),
+                                                             r.get("mem_args_plan")]
+                                for r in recs if r["kind"] == "train" and r["status"] == "ok"})
+    emit({"dry_sweep": line, "card": info["card"]})
+    lm = {a for a in configs.ARCH_IDS if configs.get(a).FAMILY == "lm"}
+    bad = [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in recs
+           if (r["arch"] in lm or r["kind"] == "search") and r["status"] not in ("ok", "skip")]
+    assert not bad, bad
+    assert all(f["item"] and f["error"].startswith("NotImplementedError") for f in fails), fails
+    assert len(recs) == 2 * sum(len(configs.cells_of(a)) for a in configs.ARCH_IDS), len(recs)
+    assert seconds <= DRYRUN_LIMIT_S, seconds
+    return line
+
+
+def cells_phase(seed, dev, info: dict, corpus_job, reduced=False) -> tuple[dict, dict]:
+    """Phase cells (see the module docstring, 20): (a) the retrieval
+    family's four cells at full width on the card, one ``cells`` line
+    each; (b) the dry sweep.  Returns the launches of K1, K2 and K7 on the
+    cells' paths, and the kernels' checks at the cells' shapes."""
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 131)
+    row = cells_train_run(dev, reduced)
+    emit({"cells": row, "card": info["card"]})
+    row, k7, k7_check = cells_encode_run(dev, g, reduced)
+    emit({"cells": row, "card": info["card"]})
+    launches = {"flash_attention": k7}
+    checks = {}
+    for name, job in (("search_9m", None), ("search_140m", corpus_job)):
+        row, counts, chk = cells_search_run(name, dev, reduced, job)
+        emit({"cells": row, "card": info["card"]})
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in chk.items():
+            checks.setdefault(k, {})[name] = v
+    info["a_s"] = time.perf_counter() - t_phase
+    info["dry_sweep"] = cells_dry_sweep(info)
+    info["launches"] = launches
+    info["in_phase_s"] = time.perf_counter() - t_phase
+    if dev.type == "cuda":
+        assert all(v > 0 for v in launches.values()), launches
+    checks["flash_attention"] = {"encode_corpus": {
+        k: k7_check.get(k) for k in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")}}
     return launches, checks
 
 

@@ -1,13 +1,15 @@
 """Model configurations of the port (torch dtypes) and the arch registry:
 ``--arch <id>`` resolves here (the counterpart of ``repro.configs``).
 
-Every id of the reference resolves: ``plaid-colbertv2`` (the paper's own
-encoder); the five LM archs (dense and MoE), which train (``lm_loss``)
+Every id of the reference resolves, with the reference's cells
+(``cells_of``): ``plaid-colbertv2`` (the paper's own encoder and PLAID
+search); the five LM archs (dense and MoE), which train (``lm_loss``)
 and serve (``prefill`` and ``decode_step`` with a KV cache) on one device,
 a data mesh or a mesh with a ``"model"`` axis (tensor and expert
-parallelism; its FSDP rules are ROADMAP Queue 1 item 8.3, planned with
-item 8.5); the four recsys archs (``models.recsys``) and SchNet
-(``models.schnet``), on one device.
+parallelism; the FSDP weight split is ROADMAP Queue 1 item 8.5.2); the
+four recsys archs (``models.recsys``) and SchNet (``models.schnet``), on
+one device.  ``launch.dryrun`` plans every cell on the reference's
+production meshes.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """plaid-colbertv2: the paper's own encoder, a BERT-base-class
 late-interaction model (~110M parameters) trained with ColBERTv2
-supervision, with torch dtypes (the counterpart of
-``repro/configs/colbertv2.py``; its dry-run cells stay in the reference)."""
+supervision and served through PLAID, with torch dtypes (the counterpart
+of ``repro/configs/colbertv2.py``): its cells are ColBERTv2 training,
+corpus encoding and two search shards (``common.retrieval_cells``)."""
 import torch
 
+from repro_torch.configs import common
 from repro_torch.models.colbert import ColBERTConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -43,3 +45,6 @@ def reduced_config() -> ColBERTConfig:
         k_chunk=8,
     )
     return ColBERTConfig(backbone=backbone, out_dim=16, nway=2)
+
+
+CELLS = common.retrieval_cells()

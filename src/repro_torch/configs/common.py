@@ -1,12 +1,11 @@
 """Shared config machinery of the port (the counterpart of
-``repro/configs/common.py``): the shape cell and the LM, recsys and GNN
-families' cells.
+``repro/configs/common.py``): the shape cell and the four families' cells
+(LM, recsys, GNN and the paper's retrieval family).
 
 Every arch module exposes ``FAMILY``, ``full_config()`` (the published
 architecture), ``reduced_config()`` (a tiny config of the same family for
 CPU tests) and ``CELLS`` (its input shapes: the full parameters, the
-reduced ones and a skip reason).  The retrieval family's cell list comes
-with the dry-run (ROADMAP Queue 1 item 8.5).
+reduced ones and a skip reason).
 """
 from __future__ import annotations
 
@@ -17,7 +16,7 @@ import dataclasses
 class ShapeCell:
     name: str
     kind: str  # train | prefill | decode | serve | retrieval | full_graph |
-    #            minibatch | molecule
+    #            minibatch | molecule | encode | search
     full: dict
     reduced: dict
     skip: str | None = None
@@ -114,6 +113,47 @@ def gnn_cells() -> list[ShapeCell]:
             "molecule",
             full=dict(n_nodes=30, n_edges=64, batch=128),
             reduced=dict(n_nodes=8, n_edges=16, batch=4),
+        ),
+    ]
+
+
+def retrieval_cells() -> list[ShapeCell]:
+    """The paper's own architecture: ColBERTv2 training, corpus encoding
+    and PLAID serving, the reference's values."""
+    return [
+        ShapeCell(
+            "train_triples",
+            "train",
+            full=dict(global_batch=256, q_len=32, d_len=180, nway=4, n_micro=8),
+            reduced=dict(global_batch=4, q_len=8, d_len=16, nway=2, n_micro=2),
+        ),
+        ShapeCell(
+            "encode_corpus",
+            "encode",
+            full=dict(batch=4096, d_len=180),
+            reduced=dict(batch=8, d_len=16),
+        ),
+        ShapeCell(
+            "search_9m",
+            "search",
+            # MS MARCO v1 scale: 8.8M passages over 512 shards
+            full=dict(n_queries=32, q_len=32, docs_per_shard=17_408, avg_doclen=68,
+                      n_centroids=65_536, k=100, candidate_cap=4096, ivf_list_cap=256,
+                      doc_maxlen=128),
+            reduced=dict(n_queries=2, q_len=8, docs_per_shard=128, avg_doclen=12,
+                         n_centroids=64, k=10, candidate_cap=64, ivf_list_cap=32,
+                         doc_maxlen=24),
+        ),
+        ShapeCell(
+            "search_140m",
+            "search",
+            # MS MARCO v2 scale: 140M passages, 1-bit residuals (paper §5.1)
+            full=dict(n_queries=32, q_len=32, docs_per_shard=273_438, avg_doclen=68,
+                      n_centroids=262_144, k=100, candidate_cap=8192, ivf_list_cap=256,
+                      doc_maxlen=128, nbits=1),
+            reduced=dict(n_queries=2, q_len=8, docs_per_shard=256, avg_doclen=12,
+                         n_centroids=128, k=10, candidate_cap=64, ivf_list_cap=32,
+                         doc_maxlen=24, nbits=1),
         ),
     ]
 

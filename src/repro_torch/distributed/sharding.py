@@ -28,13 +28,15 @@ device a process.  Eager PyTorch places every collective explicitly, so
   :func:`data_mesh` the sub-mesh over the other axes, which splits the
   batch and sums the gradients.
 
-Refused, naming ROADMAP Queue 1 item 8.3: a mesh with a ``"model"`` axis
-above 1 whose process holds several devices, and the FSDP rules
-(``"embed_fsdp"`` over ``"model"``, ``ZERO3_RULES``) on such a mesh.
+Refused, naming their ROADMAP items: a mesh with a ``"model"`` axis above
+1 whose process holds several devices (Queue 1 item 8.5.6), and the FSDP
+rules (``"embed_fsdp"`` over ``"model"``, ``ZERO3_RULES``) on such a mesh
+(item 8.5.2).
 Under ``DEFAULT_RULES`` ``"embed_fsdp"`` maps to ``"data"``: the reference
 would shard weights over the data axis there, the port keeps a whole
 replica on every data index (the same values; ROADMAP Queue 3 records the
-divergence), and a :class:`Placement` slices along ``"model"`` alone.
+divergence, item 8.5.2 ports the split), and a :class:`Placement` slices
+along ``"model"`` alone.  ``launch.dryrun`` reports both per rank.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ from typing import Any, NamedTuple
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.training import tree as T
 
-#: ROADMAP item that ports a "model" axis above 1
-_MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 8.3 (tensor-parallel and FSDP rules)"
+#: ROADMAP items that port a "model" axis over several devices of one
+#: process, and the FSDP weight split
+_DEVICES_ITEM = "ROADMAP Queue 1 item 8.5.6 (a model axis over several devices of one process)"
+_FSDP_ITEM = "ROADMAP Queue 1 item 8.5.2 (the FSDP weight split, ZERO3_RULES)"
 
 # Default physical rules for the ("pod", "data", "model") production mesh.
 # "batch" spans pod+data (pure DP across pods), "model-ish" axes span "model".
@@ -173,13 +177,13 @@ def _refuse_model_axis(mesh) -> None:
         raise NotImplementedError(
             f"a mesh with a 'model' extent of {m} whose process holds {len(mesh.devices)} "
             f"devices; the port lays the model axis over processes, one device each "
-            f"({_MODEL_AXIS_ITEM})"
+            f"({_DEVICES_ITEM})"
         )
     fsdp = _filter_axes(mesh, (_CTX.rules or DEFAULT_RULES).get("embed_fsdp"))
     if fsdp is not None and "model" in ((fsdp,) if isinstance(fsdp, str) else fsdp):
         raise NotImplementedError(
             f"'embed_fsdp' over the 'model' axis (FSDP, ZERO3_RULES) is not ported "
-            f"({_MODEL_AXIS_ITEM})"
+            f"({_FSDP_ITEM})"
         )
 
 

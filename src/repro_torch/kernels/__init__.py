@@ -11,11 +11,18 @@ wrapper                CUDA source (csrc/)             replaces (repro)
 =====================  ==============================  ===================
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
-(``ref``) for CPU tensors only; there is no other switch.  Each counts its
-launches in a module-level integer (``launches``; K5 and K6, the B=1
-launches of K1 and K2, in ``single_launches``; K4 in
-``residual_launches``); ``ops.launch_counts()`` reads them all.
+(``ref``) for CPU tensors only; there is no other switch.  A third branch
+is taken only for ``meta`` tensors (the dry-run, ``launch.dryrun``): it
+computes nothing, returns an empty meta tensor of the plain version's
+shape and dtype and charges its kernel's ``costs`` model to the active
+``launch.meta_cost`` counter.  Each counts its launches in a module-level
+integer (``launches``; K5 and K6, the B=1 launches of K1 and K2, in
+``single_launches``; K4 in ``residual_launches``); ``ops.launch_counts()``
+reads them all; a meta call counts none.
 
-``costs`` holds the tiered index's host-to-device transfer model
-(``tiered_transfer_cost``), which the tiered engine's counts must equal.
+``costs`` holds each kernel's cost model (``KERNEL_COSTS``: the
+reference's flops, the Hopper kernel's compulsory bytes, which
+``chip_smoke.py``'s bounds use) and the tiered index's host-to-device
+transfer model (``tiered_transfer_cost``), which the tiered engine's
+counts must equal.
 """

@@ -133,6 +133,24 @@ def c_function(lib_name: str, fn_name: str, n_pointers: int, n_ints: int):
     return fn
 
 
+def on_meta(t: torch.Tensor) -> bool:
+    """A wrapper's third branch, for the dry-run: True only for a tensor on
+    ``meta``, whose call computes nothing and charges its kernel's cost
+    model (:func:`dry_launch`).  Never true for a CPU or CUDA tensor."""
+    return t.device.type == "meta"
+
+
+def dry_launch(name: str, cost: dict, out: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The meta path's result: ``out`` (an empty meta tensor of the plain
+    version's shape and dtype), after charging ``cost`` (a
+    ``kernels.costs`` model's flops and bytes) to the active
+    ``launch.meta_cost`` counter.  It counts no launch."""
+    from repro_torch.launch import meta_cost
+
+    meta_cost.charge_kernel(name, cost["flops"], cost["hbm_bytes"], dtype)
+    return out
+
+
 def on_card(t: torch.Tensor, name: str) -> bool:
     """A wrapper's dispatch: True for a CUDA tensor (launch the kernel),
     False for a CPU tensor (run the plain version); other devices raise."""

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels import ref
 
 #: K2 launches made by this process (CPU calls are not launches)
@@ -79,6 +79,18 @@ def _launch_score(q, q_mask, codes, packed_res, tok_valid, centroids, weights, n
     return out
 
 
+def _meta_score(name, q, codes, packed_res, centroids, nbits) -> torch.Tensor:
+    """The dry-run's K2 / K6 call: the (*lead, nd) f32 scores as an empty
+    meta tensor, the model charged."""
+    nq, d = q.shape[-2:]
+    nd, L = codes.shape[-2:]
+    lead = tuple(codes.shape[:-2])
+    cost = costs.decompress_and_score_batched_cost(
+        B=lead[0] if lead else 1, nd=nd, L=L, pd=packed_res.shape[-1], K=centroids.shape[0],
+        d=d, nq=nq, nbits=nbits)
+    return _build.dry_launch(name, cost, torch.empty((*lead, nd), device=q.device))
+
+
 def decompress_and_score_batched(
     q: torch.Tensor,  # (B, nq, d) f32
     q_mask: torch.Tensor,  # (B, nq) f32
@@ -93,6 +105,8 @@ def decompress_and_score_batched(
     """K2 -> (B, nd) f32 exact scores of pre-gathered finalist blocks."""
     global launches
     args = (q, q_mask, codes, packed_res, tok_valid, centroids, weights)
+    if _build.on_meta(q):
+        return _meta_score("decompress_and_score_batched", q, codes, packed_res, centroids, nbits)
     if not _build.on_card(q, "decompress_and_score_batched"):
         return ref.decompress_and_score_batched_ref(*args, nbits=nbits)
     out = _launch_score(*args, nbits)
@@ -113,6 +127,8 @@ def decompress_and_score(
 ) -> torch.Tensor:
     """K6 -> (nd,) f32: K2 for one query, its arguments viewed as B=1."""
     global single_launches
+    if _build.on_meta(q):
+        return _meta_score("decompress_and_score", q, codes, packed_res, centroids, nbits)
     if not _build.on_card(q, "decompress_and_score"):
         return ref.decompress_and_score_ref(
             q, q_mask, codes, packed_res, tok_valid, centroids, weights, nbits=nbits
@@ -134,6 +150,11 @@ def decompress_residuals(
     """K4 -> (n, pd * 8 // nbits) f32: ``weights[unpack(packed)]``, fields
     MSB-first."""
     global residual_launches
+    if _build.on_meta(packed):
+        n, pd = packed.shape
+        return _build.dry_launch("decompress_residuals",
+                                 costs.decompress_residuals_cost(n=n, pd=pd, nbits=nbits),
+                                 torch.empty((n, pd * 8 // nbits), device=packed.device))
     if not _build.on_card(packed, "decompress_residuals"):
         return ref.decompress_residuals_ref(packed, weights, nbits=nbits)
     dev = packed.device

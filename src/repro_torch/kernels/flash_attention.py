@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels import ref
 
 #: kernel launches made by this process (CPU calls are not launches)
@@ -41,6 +41,11 @@ def flash_attention(
     keys after the query.  bf16 or f32; dh a multiple of 8 up to 128.  Any
     strides and offsets: a view the kernel cannot read is copied first."""
     global launches
+    if _build.on_meta(q):
+        B, S, H, dh = q.shape
+        cost = costs.flash_attention_cost(B=B, S=S, H=H, Hkv=k.shape[2], dh=dh, causal=causal,
+                                          itemsize=q.element_size())
+        return _build.dry_launch("flash_attention", cost, torch.empty_like(q), q.dtype)
     if not _build.on_card(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, causal=causal)
     dev = q.device

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels import ref
 from repro_torch.kernels.decompress import MAX_NQ, passages_per_block
 
@@ -33,6 +33,14 @@ def gather_decompress_maxsim(
     """(B, n3) f32 exact scores of the finalists, read straight from the
     CSR token arrays (``doc_maxlen`` sizes only the plain version's block)."""
     global launches
+    if _build.on_meta(qs):
+        B, nq, d = qs.shape
+        n3 = final_pids.shape[1]
+        cost = costs.gather_decompress_maxsim_cost(
+            B=B, n3=n3, L=doc_maxlen, pd=residuals_tok.shape[1], K=centroids.shape[0], d=d,
+            nq=nq, nbits=nbits)
+        return _build.dry_launch("gather_decompress_maxsim", cost,
+                                 torch.empty((B, n3), device=qs.device))
     if not _build.on_card(qs, "gather_decompress_maxsim"):
         return ref.gather_decompress_maxsim_ref(
             qs, q_masks, final_pids, codes_tok, residuals_tok, doc_offsets,

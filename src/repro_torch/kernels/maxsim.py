@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels import ref
 
 #: K1 launches made by this process (CPU calls are not launches)
@@ -60,6 +60,19 @@ def _launch(s_cq, codes, keep, q_mask, lead: tuple) -> torch.Tensor:
     return out
 
 
+def _meta_path(name, s_cq, codes, keep) -> torch.Tensor:
+    """The dry-run's call: the (*lead, nd) f32 result as an empty meta
+    tensor, the model charged (a null keep reads no flags)."""
+    K, nq = s_cq.shape[-2:]
+    nd, L = codes.shape[-2:]
+    lead = tuple(codes.shape[:-2])
+    B = lead[0] if lead else 1
+    cost = costs.centroid_interaction_batched_cost(B=B, nd=nd, L=L, K=K, nq=nq,
+                                                   flags=None if keep is not None else 0)
+    return _build.dry_launch(name, cost, torch.empty((*lead, nd), dtype=torch.float32,
+                                                     device=s_cq.device))
+
+
 def centroid_interaction_batched(
     s_cq: torch.Tensor,  # (B, K, nq) f32
     codes: torch.Tensor,  # (B, nd, L) i32, -1 pad
@@ -69,6 +82,8 @@ def centroid_interaction_batched(
     """K1 -> (B, nd) f32: ``sum_i q_mask * max(0, max over valid kept
     tokens of S_cq[b, code, i])``."""
     global launches
+    if _build.on_meta(s_cq):
+        return _meta_path("centroid_interaction_batched", s_cq, codes, keep)
     if not _build.on_card(s_cq, "centroid_interaction_batched"):
         return ref.centroid_interaction_batched_ref(s_cq, codes, keep, q_mask)
     out = _launch(s_cq, codes, keep, q_mask, tuple(s_cq.shape[:1]))
@@ -84,6 +99,8 @@ def centroid_interaction(
 ) -> torch.Tensor:
     """K5 -> (nd,) f32: K1 for one query, launched with B=1."""
     global single_launches
+    if _build.on_meta(s_cq):
+        return _meta_path("centroid_interaction", s_cq, codes, keep)
     if not _build.on_card(s_cq, "centroid_interaction"):
         return ref.centroid_interaction_ref(s_cq, codes, keep, q_mask)
     out = _launch(s_cq, codes, keep, q_mask, ())

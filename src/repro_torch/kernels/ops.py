@@ -5,7 +5,9 @@ when ``VanillaParams.impl == "cuda"``.
 
 Each adapts the engine's arguments (defaults, dtypes, contiguity) and calls
 its kernel wrapper, which dispatches by the tensors' device: the Hopper
-kernel for CUDA tensors, the plain version for CPU tensors.  There is
+kernel for CUDA tensors, the plain version for CPU tensors, and, for
+``meta`` tensors (the dry-run), the kernel's cost model and an empty
+result.  There is
 deliberately no environment override: a switch that swapped the kernel for
 its plain version on the card would hide the kernel.
 """

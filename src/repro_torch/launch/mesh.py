@@ -54,6 +54,16 @@ A gloo sum of bf16 or f16 values is taken in f32 and rounded once, as one
 rounding of the exact sum: gloo has no bf16 sum of its own everywhere,
 and one that rounded at each of its adds would depend on the ranks'
 order.
+
+A dry mesh (:func:`make_dry_mesh`) is one rank of the reference's
+production mesh, 16 x 16 ``("data", "model")`` or 2 x 16 x 16 ``("pod",
+"data", "model")``, with no process group and no peer started: its group
+and sub-groups are :class:`DryGroup` records of a rank and a size, its one
+device is ``meta``.  :meth:`Mesh.sub`, :func:`axis_index` and
+``distributed.sharding``'s ``data_mesh`` / ``model_mesh`` / ``Placement``
+read it as they read a real mesh.  Its collectives compute nothing: each
+returns a meta tensor of the shape the real collective gives and charges
+its bytes to the active ``launch.meta_cost`` counter (the dry-run).
 """
 from __future__ import annotations
 
@@ -66,6 +76,20 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.launch import meta_cost
+
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """A dry mesh's process group: this rank's index among ``size`` ranks
+    that are never started."""
+
+    rank: int
+    size: int
+
+
+def is_dry(mesh) -> bool:
+    return mesh is not None and isinstance(mesh.group, DryGroup)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,10 +117,14 @@ class Mesh:
 
     @property
     def rank(self) -> int:
+        if isinstance(self.group, DryGroup):
+            return self.group.rank
         return 0 if self.group is None else dist.get_rank(self.group)
 
     @property
     def world_size(self) -> int:
+        if isinstance(self.group, DryGroup):
+            return self.group.size
         return 1 if self.group is None else dist.get_world_size(self.group)
 
     @property
@@ -291,6 +319,41 @@ def _make_subgroups(mesh: Mesh) -> tuple:
     return tuple(out.items())
 
 
+def make_dry_mesh(*, multi_pod: bool = False, rank: int = 0, shape: dict | None = None) -> Mesh:
+    """Rank ``rank`` of the reference's production mesh (16 x 16 ``("data",
+    "model")``, or 2 x 16 x 16 ``("pod", "data", "model")``; ``shape``,
+    e.g. ``{"data": 1, "model": 2}``, for another), on the ``meta``
+    device: no process group, no rank started.  It holds a
+    :class:`DryGroup` along every set of its axes, so :meth:`Mesh.sub`
+    gives any sub-mesh."""
+    if shape is None:
+        shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
+    world = math.prod(shape.values())
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in a mesh of {world}")
+    names = tuple(shape)
+    coords = _coords(rank, shape)
+    subgroups = []
+    for mask in range(1, 2 ** len(names) - 1):
+        along = tuple(n for i, n in enumerate(names) if mask >> i & 1)
+        sub = {n: shape[n] for n in along}
+        extent = math.prod(sub.values())
+        if extent not in (1, world):
+            r = 0
+            for n in along:
+                r = r * shape[n] + coords[n]
+            subgroups.append((along, DryGroup(r, extent)))
+    return Mesh((torch.device("meta"),), DryGroup(rank, world), tuple(shape.items()),
+                tuple(subgroups))
+
+
+def _dry(kind: str, mesh: Mesh, t: torch.Tensor, copies: int = 1) -> None:
+    """Charge a dry mesh's collective whose result on this rank is
+    ``copies`` tensors like ``t`` (``meta_cost``)."""
+    meta_cost.charge_collective(kind, mesh.axis_names, mesh.world_size,
+                                copies * t.numel() * t.element_size())
+
+
 def axis_index(mesh: Mesh | None, name: str) -> int:
     """This process's index along ``name`` (0 without a mesh, or along an
     axis the mesh lacks)."""
@@ -353,6 +416,9 @@ def _wire(mesh: Mesh, t: torch.Tensor, dtype=None) -> torch.Tensor:
 
 
 def _all_gather_list(mesh: Mesh, t: torch.Tensor) -> list:
+    if is_dry(mesh):
+        _dry("all-gather", mesh, t, mesh.world_size)
+        return [torch.empty_like(t) for _ in range(mesh.world_size)]
     buf = _wire(mesh, t)
     out = [torch.empty_like(buf) for _ in range(mesh.world_size)]
     dist.all_gather(out, buf, group=mesh.group)
@@ -363,6 +429,9 @@ def _all_reduce(mesh: Mesh, t: torch.Tensor, op, axis) -> torch.Tensor:
     mesh = _along(mesh, axis)
     if mesh.world_size == 1:
         return t
+    if is_dry(mesh):
+        _dry("all-reduce", mesh, t)
+        return torch.empty_like(t)
     half = t.dtype in (torch.bfloat16, torch.float16) and _gloo(mesh)
     buf = _wire(mesh, t, torch.float32 if half else None)
     dist.all_reduce(buf, op=op, group=mesh.group)
@@ -401,6 +470,9 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, axis=None) -> torch.Tensor:
         return t
     if t.shape[0] != mesh.world_size:
         raise ValueError(f"all_to_all: leading axis {t.shape[0]} != {mesh.world_size} processes")
+    if is_dry(mesh):
+        _dry("all-to-all", mesh, t)
+        return torch.empty_like(t)
     buf = _wire(mesh, t)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=mesh.group)

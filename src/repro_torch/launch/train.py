@@ -40,7 +40,7 @@ parameters' placements).  The LM, recsys and ``plaid-colbertv2`` ids
 train; SchNet, as in the reference, trains through its cells
 (``launch.cells``), and ``data_for`` refuses the GNN family.  A recsys
 arch trains on one device (over several processes: ROADMAP Queue 1 item
-8.5).
+8.5.8).
 """
 from __future__ import annotations
 
@@ -144,7 +144,7 @@ def _train(args, cfg, family, dev, mesh) -> dict:
     lead = mesh is None or mesh.rank == 0
     if family == "recsys" and data is not None:
         raise NotImplementedError(
-            "the recsys family over several processes is not ported (ROADMAP Queue 1 item 8.5)")
+            "the recsys family over several processes is not ported (ROADMAP Queue 1 item 8.5.8)")
     it, loss_fn, params, model = data_for(cfg, args.batch, family, dev)
     optimizer = opt_lib.adamw(
         opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(args.lr, 20, args.steps))

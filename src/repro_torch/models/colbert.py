@@ -13,7 +13,7 @@ batch), and KL distillation against teacher scores.  Under a data-parallel
 mesh (``distributed.sharding.data_mesh``) the loss is still the global
 batch's: each process encodes its rows and gathers every process's passage
 vectors, differentiably, for its queries' in-batch negatives.  A mesh with
-a ``"model"`` axis above 1 is refused (ROADMAP Queue 1 item 8.3).
+a ``"model"`` axis above 1 is refused (ROADMAP Queue 1 item 8.5.5).
 
 The training state is a tree in the reference's layout (``{"backbone":
 {"embed", "final_norm", "dense_layers", ...}, "proj"}``, each layer stack a
@@ -60,7 +60,7 @@ class ColBERT(nn.Module):
         if backbone.tp is not None:
             raise NotImplementedError(
                 "the ColBERT encoder on a mesh with a 'model' axis above 1 is not ported "
-                "(ROADMAP Queue 1 item 8.3)")
+                "(ROADMAP Queue 1 item 8.5.5)")
         self.cfg = cfg
         self.backbone = backbone
         self.proj = nn.Parameter(
@@ -156,7 +156,7 @@ def train_loss(model: ColBERT, cfg: ColBERTConfig, batch: Mapping):
     if sharding.model_mesh() is not None:
         raise NotImplementedError(
             "ColBERT training on a mesh with a 'model' axis above 1 is not ported "
-            "(ROADMAP Queue 1 item 8.3)")
+            "(ROADMAP Queue 1 item 8.5.5)")
     mesh = sharding.data_mesh()
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     if B % world:

@@ -25,10 +25,17 @@ the FFN's GELU is the tanh approximation (``jax.nn.gelu``'s default),
 layernorm's ``eps`` is 1e-6, the BCE is written term for term as the
 reference writes it, and the tables' gradients are dense f32 (no sparse
 gradients).  No product runs in TF32 (``ieee_f32_matmul``).
+
+The family runs on one device.  On a mesh of several devices (the
+reference shards its tables over ``"table_rows"``, its batch and its
+candidates over the mesh) ``train_loss`` and ``retrieval_scores`` raise,
+naming ROADMAP Queue 1 item 8.5.8; ``serve_scores`` scores the rows it is
+handed, whole tables on every device.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping
 
 import torch
@@ -36,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch import ieee_f32_matmul
 from repro_torch.core.scoring import stable_topk
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
 
@@ -318,6 +326,18 @@ def pointwise_logits(params: Mapping, cfg: RecSysConfig, batch: Mapping) -> torc
     raise ValueError(cfg.interaction)
 
 
+#: the refusal of the family on a mesh of several devices
+MESH_ITEM = "ROADMAP Queue 1 item 8.5.8 (the recsys family over several processes)"
+
+
+def refuse_mesh(what: str) -> None:
+    """Raise when the active mesh has several devices (module docstring)."""
+    mesh = sharding.active_mesh()
+    n = 1 if mesh is None else math.prod(mesh.shape.values())
+    if n > 1:
+        raise NotImplementedError(f"{what} on a mesh of {n} devices is not ported ({MESH_ITEM})")
+
+
 def train_loss(params: Mapping, cfg: RecSysConfig, batch: Mapping,
                max_masked: int | None = None):
     """``(loss, {"loss": loss})``.  BERT4Rec: cross-entropy over the whole
@@ -325,6 +345,7 @@ def train_loss(params: Mapping, cfg: RecSysConfig, batch: Mapping,
     positions of each row (a stable partition; masked positions past M are
     dropped, as the reference drops them); the others: the mean BCE of the
     logits against ``labels``."""
+    refuse_mesh("recsys training")
     if cfg.interaction == "bidir-seq":
         x = seq_encode(params, cfg, batch["seq_ids"])
         labels = batch["labels"]  # (B, S) original ids, -1 unmasked
@@ -386,5 +407,6 @@ def retrieval_scores(params: Mapping, cfg: RecSysConfig, batch: Mapping, top_k: 
     """batch: one user's context and ``candidate_ids`` (n,) -> the top-k
     ``(scores, positions in candidate_ids)``, ties toward the lower
     position (``jax.lax.top_k``'s order); positions int32 as there."""
+    refuse_mesh("recsys candidate retrieval")
     scores, idx = stable_topk(candidate_scores(params, cfg, batch), top_k)
     return scores, idx.to(torch.int32)

@@ -19,7 +19,7 @@ a leading axis (one tensor a leaf, ``n_interactions`` long); ``forward``
 loops over that axis where the reference scans it.  The reference splits
 the edges over the mesh axes that ``"edges"`` maps to (``shard_map``, one
 ``psum``); the port runs them on one device and refuses a mesh whose edge
-axes exceed 1 (ROADMAP Queue 1 item 8.5).
+axes exceed 1 (ROADMAP Queue 1 item 8.5.7).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
 
 #: the refusal of an edge split over a mesh
-EDGE_MESH_ITEM = "ROADMAP Queue 1 item 8.5 (SchNet's edge split over a mesh)"
+EDGE_MESH_ITEM = "ROADMAP Queue 1 item 8.5.7 (SchNet's edge split over a mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +140,15 @@ def _edge_shards() -> int:
     return math.prod(mesh.shape[a] for a in axes if a in mesh.axis_names)
 
 
+def refuse_edge_split() -> None:
+    """Raise when the active mesh and rules split the edges (module
+    docstring)."""
+    if _edge_shards() > 1:
+        raise NotImplementedError(
+            f"SchNet on a mesh that splits the edges over {_edge_shards()} devices is not "
+            f"ported ({EDGE_MESH_ITEM})")
+
+
 def _dense_bias(p: Mapping, x: torch.Tensor) -> torch.Tensor:
     return L.dense_bias(p["w"], p["b"], x)
 
@@ -154,10 +163,7 @@ def _cfconv_aggregate(p: Mapping, xw, edge_src, edge_dst, rbf, n_nodes: int, edg
 def interaction(p: Mapping, x, edge_src, edge_dst, rbf, n_nodes: int, edge_mask):
     """One continuous-filter convolution block (cfconv + atom-wise), ``p``
     one block's leaves."""
-    if _edge_shards() > 1:
-        raise NotImplementedError(
-            f"SchNet on a mesh that splits the edges over {_edge_shards()} devices is not "
-            f"ported ({EDGE_MESH_ITEM})")
+    refuse_edge_split()
     xw = L.dense(p["w_in"]["w"], x)  # (N, d)
     agg = _cfconv_aggregate(p, xw, edge_src, edge_dst, rbf, n_nodes, edge_mask)
     v = shifted_softplus(_dense_bias(p["w_out"], agg))

@@ -74,7 +74,8 @@ attention reduces the softmax over the processes
 (``layers.decode_attention`` with ``mesh``).  The batch stays whole on
 every process of a model group.  Not ported: the FSDP rules
 (``ZERO3_RULES``), a model axis over several devices of one process
-(ROADMAP Queue 1 item 8.3; ``distributed.sharding`` refuses both).
+(ROADMAP Queue 1 items 8.5.2 and 8.5.6; ``distributed.sharding`` refuses
+both).
 """
 from __future__ import annotations
 

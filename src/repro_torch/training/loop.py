@@ -127,7 +127,7 @@ def make_train_step(
                                  "(Transformer.placement_tree())")
             if compression is not None:
                 raise NotImplementedError(
-                    "int8 compression on a 'model' axis above 1 (ROADMAP Queue 1 item 8.3)")
+                    "int8 compression on a 'model' axis above 1 (ROADMAP Queue 1 item 8.5.4)")
         dev = T.leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if n_micro == 1:

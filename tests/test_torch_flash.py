@@ -17,6 +17,7 @@ Tolerances, with their reasons:
   emulation tests below hold that arithmetic to the same one ulp on the CPU.
 """
 import itertools
+import types
 
 import numpy as np
 import pytest
@@ -127,9 +128,16 @@ def test_cpu_calls_are_not_launches():
     q, k, v = (torch.from_numpy(x) for x in qkv(4, 1, 8, 2, 1, 8))
     tfa.flash_attention(q, k, v, causal=False)
     assert tops.launch_counts()["flash_attention"] == 0
+    # a meta tensor takes the dry-run's branch: q's shape and dtype, no launch
     meta = torch.empty((1, 8, 2, 8), device="meta")
+    out = tfa.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+    assert out.device.type == "meta" and out.shape == meta.shape and out.dtype == meta.dtype
+    assert tops.launch_counts()["flash_attention"] == 0
+    # any other device is refused
+    from repro_torch.kernels import _build
+
     with pytest.raises(ValueError, match="unsupported device"):
-        tfa.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+        _build.on_card(types.SimpleNamespace(device=torch.device("xpu")), "flash_attention")
 
 
 # --------------------------------------------------------------------------

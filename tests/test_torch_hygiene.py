@@ -29,7 +29,7 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.core.pipeline" in mods and "repro_torch.kernels.ops" in mods
     for m in ("models.recsys", "models.schnet", "data.graphs", "core.item_retrieval",
               "configs.bert4rec", "configs.bst", "configs.schnet", "configs.wide_deep",
-              "configs.xdeepfm"):
+              "configs.xdeepfm", "launch.dryrun", "launch.meta_cost", "kernels.costs"):
         assert f"repro_torch.{m}" in mods, m
     code = (
         "import sys\n"

@@ -9,6 +9,8 @@ float32 sum of 32 terms; on the card, kernel and plain version share one
 order and agree bit for bit: K1, K2, K3, K5 and K6 are held with
 ``torch.equal``.  K4 is a table lookup and is held exactly.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -325,11 +327,19 @@ def test_cpu_calls_are_not_launches_and_other_devices_are_refused():
         "centroid_interaction": 0,
         "decompress_and_score": 0,
     }
+    # a meta tensor takes the dry-run's branch: the plain version's shape,
+    # nothing computed, no launch counted
     meta = torch.empty((1, 4, 2), device="meta")
+    out = tms.centroid_interaction_batched(meta, meta.int(), meta.bool()[..., 0], meta[..., 0])
+    assert out.device.type == "meta" and out.shape == (1, 4) and out.dtype == torch.float32
+    res = tdec.decompress_residuals(meta.to(torch.uint8)[0], meta[0, 0], nbits=2)
+    assert res.device.type == "meta" and res.shape == (4, 8)
+    assert sum(tops.launch_counts().values()) == 0
+    # any other device is refused
+    from repro_torch.kernels import _build
+
     with pytest.raises(ValueError, match="unsupported device"):
-        tms.centroid_interaction_batched(meta, meta.int(), meta.bool()[..., 0], meta[..., 0])
-    with pytest.raises(ValueError, match="unsupported device"):
-        tdec.decompress_residuals(meta.to(torch.uint8)[0], meta[0, 0], nbits=2)
+        _build.on_card(types.SimpleNamespace(device=torch.device("xpu")), "centroid_interaction")
 
 
 def test_kernel_modules_import_without_building():

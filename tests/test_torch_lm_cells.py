@@ -21,7 +21,9 @@ from repro import configs as rconfigs  # noqa: E402
 from repro.launch import cells as rcells  # noqa: E402
 from repro.models import transformer as rT  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.distributed import sharding as tsharding  # noqa: E402
 from repro_torch.launch import cells as tcells  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 
 LM_ARCHS = ["h2o-danube-3-4b", "yi-34b", "granite-34b", "granite-moe-1b-a400m",
@@ -77,10 +79,17 @@ def test_smoke_cell_matches_reference(ref_init, arch, cell):
 
 
 def test_cells_the_port_lacks_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
-        tcells.build_cell("yi-34b", "prefill_32k", mode="dry", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8.5"):
-        tcells.build_cell("plaid-colbertv2", "encode_corpus", device="cpu")
+    # dry mode and the retrieval family's cells build now (ROADMAP Queue 1
+    # item 8.5.1): rank 0's piece of a 16 x 16 mesh on meta, and the encoder
+    with tsharding.use_mesh(tmesh.make_dry_mesh(), dict(tsharding.SERVE_RULES)):
+        dry = tcells.build_cell("yi-34b", "prefill_32k", mode="dry")
+        assert dry.args[1].shape == (2, 32768) and dry.args[1].device.type == "meta"
+        assert dry.plan["params/embed"] == ((4000, 7168), torch.bfloat16)
+        # what is left raises naming its item: the encoder on a model mesh
+        with pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.5\.5"):
+            tcells.build_cell("plaid-colbertv2", "encode_corpus", mode="dry")
+    enc = tcells.build_cell("plaid-colbertv2", "encode_corpus", device="cpu")
+    assert enc.kind == "encode" and enc.fn(*enc.args).shape == (8, 16, 16)
     # the recsys and GNN cells are ported (ROADMAP Queue 1 item 9)
     served = tcells.build_cell("xdeepfm", "serve_p99", device="cpu")
     assert served.kind == "serve" and served.fn(*served.args).shape == (16,)

@@ -374,8 +374,8 @@ def test_ranks_lie_row_major_on_the_mesh_and_refuse_what_is_not_ported(tp, mesh)
         np.testing.assert_array_equal(rec["coords"], [d, m, m, m, d])
         refused = json.loads(str(rec["refusals"]))
         assert len(refused) == 2, refused  # FSDP rules; the ColBERT encoder
-        assert "embed_fsdp" in refused[0] and "Queue 1 item 8.3" in refused[0]
-        assert "ColBERT" in refused[1] and "Queue 1 item 8.3" in refused[1]
+        assert "embed_fsdp" in refused[0] and "Queue 1 item 8.5.2" in refused[0]
+        assert "ColBERT" in refused[1] and "Queue 1 item 8.5.5" in refused[1]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

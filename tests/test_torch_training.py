@@ -296,7 +296,7 @@ def test_train_step_refuses_what_is_not_ported(reduced_tree):
     opt = topt.adamw(topt.AdamWConfig())
     tp = tmesh.Mesh(("cpu",) * 4, axes=(("data", 2), ("model", 2)))
     axes_step = tloop.make_train_step(lambda p, b: None, opt, param_axes={})
-    with tsharding.use_mesh(tp), pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.3"):
+    with tsharding.use_mesh(tp), pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.5\.6"):
         axes_step({}, {}, {})
     with pytest.raises(ValueError, match="compression"):
         tloop.make_train_step(lambda p, b: None, opt, compression="fp8")
