@@ -363,8 +363,42 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                sees no card, within 60 s; one ``dry_sweep`` line (the ok /
                skip / fail tally, each fail with its ROADMAP item, the LM
                train cells' per-rank bytes beside the rules' plan); every
-               LM and search record ``ok``, every fail an item-named
-               ``NotImplementedError``.
+               LM, recsys, SchNet and search record ``ok``, every fail an
+               item-named ``NotImplementedError``.
+21. family_mesh the recsys family and SchNet over processes: two gloo
+               ranks sharing ``cuda:0`` on a 1 x 2 ``("data", "model")``
+               mesh (NCCL refuses two ranks on one card), each holding its
+               piece of every split leaf (the tables by rows, BERT4Rec's
+               1,000,002 items too; the dense layers by ``"mlp"``).  Each
+               check first runs the one-process port on the card from the
+               same seeded weights and inputs, keeps its results on the
+               host (the stepped weights as .npy files) and frees the
+               card; the ranks then run it once, through the cells' own
+               callables (``recsys_cell`` / ``gnn_cell`` with ``mesh=``):
+               (a) the four recsys archs at full width: ``train_batch``
+               (n_micro 4; one warm-up and FAMILY_MESH_TIMED timed steps of
+               one batch), each loss within LM_TP_LOSS_RTOL of the one
+               process's, the replicated leaves bit-identical on both
+               ranks, the stepped weights within FAMILY_MESH_PARAM_TOL of
+               the one process's but for at most FAMILY_MESH_OUTLIER_SHARE
+               of them, each within ``adam_flip_bound`` (AdamW turns
+               where a gradient element is within a few eps of 0);
+               ``serve_p99`` (B 512) scores and ``retrieval_cand`` top-100
+               scores within FAMILY_MESH_SCORE_RTOL, its positions
+               identical wherever neighbouring scores differ by more than
+               that (``topk_agree``).  Cuts (values only, never a width),
+               each listed in its line: RECSYS_CUTS' for memory (BERT4Rec
+               train B 64) and FAMILY_MESH_CUTS' for time (the ranks'
+               collectives cross the host: wide-deep, xDeepFM and BST
+               train B 16,384, wide-deep and BST 65,536 candidates) and
+               memory (xDeepFM 32,768 candidates: each rank builds the
+               whole CIN product, 312 KB a row, beside the other rank).  (b) SchNet's ``molecule``, ``full_graph_sm``
+               and ``minibatch_lg`` (phase recsys's sampled block): one
+               step each, the edges split in two, loss and weights held as
+               in (a).  (c) Each ``family_mesh`` line: step ms a rank,
+               examples/s, peak bytes a rank beside the one process's, and
+               the collectives' calls, bytes and ms (host traffic under
+               gloo).  Launches no port kernel; budget 150 s.
 
 Then the ``{"kernels": [...]}`` line, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.  Imports nothing of ``jax`` or ``repro``.
@@ -417,7 +451,7 @@ from repro_torch.launch import cells as cells_mod  # noqa: E402
 from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import colbert, recsys, transformer  # noqa: E402
+from repro_torch.models import colbert, recsys, schnet, transformer  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.obs.funnel import FunnelStats  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
@@ -1292,6 +1326,12 @@ def main(argv=None) -> int:
     for name, rows in cell_checks.items():
         kernels[name]["search_cell_shapes" if name != "flash_attention"
                       else "encode_corpus_shape"] = rows
+
+    # ---- 21. the recsys family and SchNet over two processes ----------------
+    torch.cuda.empty_cache()
+    with Phase("family_mesh") as info:
+        info["card"] = smi  # beside every number of the phase's lines
+        family_mesh_phase(args.seed, dev, info, gnn_job[1])  # launches no port kernel
 
     # launches: each kernel's from the paths that run it, its counts zeroed
     # just before each path (tiered: taken around each tiered call; serve:
@@ -4451,6 +4491,28 @@ def lm_tp_train(argv, dev, tmp) -> dict:
                 resident_bytes=resident)
 
 
+def spy_collectives(dev) -> list:
+    """Time every collective of this process from here on (each between two
+    device synchronizes) and count its bytes on the wire (a bf16 or f16 sum
+    crosses gloo in f32); returns the list each one's ``(kind, bytes, ms)``
+    is appended to."""
+    wire = []
+    reduce_, gather_ = mesh_mod._all_reduce, mesh_mod._all_gather_list
+
+    def timed(kind, fn, t, *a):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn(*a)
+        _sync(dev)
+        n = t.numel() * (4 if t.dtype in (torch.bfloat16, torch.float16) else t.element_size())
+        wire.append((kind, n, (time.perf_counter() - t0) * 1e3))
+        return res
+
+    mesh_mod._all_reduce = lambda m, t, op, axis: timed("all_reduce", reduce_, t, m, t, op, axis)
+    mesh_mod._all_gather_list = lambda m, t: timed("all_gather", gather_, t, m, t)
+    return wire
+
+
 def lm_tp_rank(rank: int, tmp: str, seed: int, device: str, reduced: bool) -> None:
     """One of the LM_TP_MODEL ranks sharing ``device`` over gloo on a 1 x
     LM_TP_MODEL mesh: each of LM_TP_RUNS served (the one-process run's
@@ -4468,20 +4530,7 @@ def lm_tp_rank(rank: int, tmp: str, seed: int, device: str, reduced: bool) -> No
             _build.on_card = on_card
         mesh = mesh_mod.make_production_mesh(device=device, model=LM_TP_MODEL)
         assert mesh.shape == {"data": 1, "model": LM_TP_MODEL} and mesh.devices == (dev,)
-        wire = []  # (kind, bytes on the wire, ms) of every collective
-        reduce_, gather_ = mesh_mod._all_reduce, mesh_mod._all_gather_list
-
-        def timed(kind, fn, t, *a):
-            _sync(dev)
-            t0 = time.perf_counter()
-            res = fn(*a)
-            _sync(dev)
-            n = t.numel() * (4 if t.dtype in (torch.bfloat16, torch.float16) else t.element_size())
-            wire.append((kind, n, (time.perf_counter() - t0) * 1e3))
-            return res
-
-        mesh_mod._all_reduce = lambda m, t, op, axis: timed("all_reduce", reduce_, t, m, t, op, axis)
-        mesh_mod._all_gather_list = lambda m, t: timed("all_gather", gather_, t, m, t)
+        wire = spy_collectives(dev)
         out = {}
         with sharding.use_mesh(mesh):
             for i, (arch, layers, pbs, dbs) in enumerate(LM_TP_RUNS):
@@ -5195,9 +5244,9 @@ def cells_dry_sweep(info: dict) -> dict:
     """(b) ``launch.dryrun --all --both-meshes`` in a subprocess that sees
     no card, within DRYRUN_LIMIT_S: the tally of ok / skip / fail, each
     fail with its ROADMAP item, and yi-34b train_4k's per-rank bytes (what
-    the port's rank holds beside the rules' plan).  Fails when an LM or
-    search record is not ok, or a fail is not an item-named
-    NotImplementedError."""
+    the port's rank holds beside the rules' plan).  Fails when an LM,
+    recsys, SchNet or search record is not ok, or a fail is not an
+    item-named NotImplementedError."""
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_")) / "dry.jsonl"
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
@@ -5222,9 +5271,9 @@ def cells_dry_sweep(info: dict) -> dict:
                                                              r.get("mem_args_plan")]
                                 for r in recs if r["kind"] == "train" and r["status"] == "ok"})
     emit({"dry_sweep": line, "card": info["card"]})
-    lm = {a for a in configs.ARCH_IDS if configs.get(a).FAMILY == "lm"}
+    placed = {a for a in configs.ARCH_IDS if configs.get(a).FAMILY in ("lm", "recsys", "gnn")}
     bad = [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in recs
-           if (r["arch"] in lm or r["kind"] == "search") and r["status"] not in ("ok", "skip")]
+           if (r["arch"] in placed or r["kind"] == "search") and r["status"] not in ("ok", "skip")]
     assert not bad, bad
     assert all(f["item"] and f["error"].startswith("NotImplementedError") for f in fails), fails
     assert len(recs) == 2 * sum(len(configs.cells_of(a)) for a in configs.ARCH_IDS), len(recs)
@@ -5262,6 +5311,339 @@ def cells_phase(seed, dev, info: dict, corpus_job, reduced=False) -> tuple[dict,
         k: k7_check.get(k) for k in ("shape", "max_abs_err", "ms", "device_ms", "plain_ms",
                                      "library_ms", "bound_ms", "bound_by")}}
     return launches, checks
+
+
+# --------------------------------------------------------------------------
+# phase family_mesh: the recsys family and SchNet over two processes
+# --------------------------------------------------------------------------
+#: two gloo ranks on one card, a 1 x FAMILY_MESH_MODEL ("data", "model")
+#: mesh; the values the ranks and the one-process run take beside the
+#: recsys phase's memory cuts (RECSYS_CUTS): FAMILY_MESH_CUTS, each with
+#: its reason (every collective crosses the host under gloo; two ranks
+#: share the card's memory); one warm-up and
+#: FAMILY_MESH_TIMED timed train steps; the bars: losses LM_TP_LOSS_RTOL,
+#: the stepped weights FAMILY_MESH_PARAM_TOL, scores FAMILY_MESH_SCORE_RTOL
+FAMILY_MESH_MODEL = 2
+_HOST = "time: the ranks' collectives cross the host (gloo)"
+FAMILY_MESH_CUTS = {
+    ("wide-deep", "train_batch"): (dict(batch=16384), _HOST),
+    ("xdeepfm", "train_batch"): (dict(batch=16384), _HOST),
+    ("bst", "train_batch"): (dict(batch=16384), _HOST),
+    ("wide-deep", "retrieval_cand"): (dict(n_candidates=65536), _HOST),
+    ("bst", "retrieval_cand"): (dict(n_candidates=65536), _HOST),
+    # each rank builds the whole (B, 200, 39, 10) f32 CIN product: 20 GB a
+    # rank at 65,536, beside the other rank's on the same card
+    ("xdeepfm", "retrieval_cand"): (dict(n_candidates=32768), "memory: two ranks on one card"),
+}
+FAMILY_MESH_TIMED, FAMILY_MESH_CALL_REPS = 2, 2
+FAMILY_MESH_PARAM_TOL = dict(rtol=1e-4, atol=1e-6)
+#: the share of a run's weights allowed outside FAMILY_MESH_PARAM_TOL, each
+#: within adam_flip_bound (where a gradient element is within a few eps of
+#: 0, the last bits of the ranks' partial sums turn AdamW's step), as
+#: tests/test_torch_tensor_parallel.py holds the LM ranks
+FAMILY_MESH_OUTLIER_SHARE = 1e-3
+FAMILY_MESH_SCORE_RTOL = 1e-5
+FAMILY_MESH_CELLS = ("train_batch", "serve_p99", "retrieval_cand")
+
+
+def family_values(arch: str, name: str, reduced: bool) -> tuple:
+    """A recsys cell, its values (reduced, or full with the memory cut and
+    then the time cut where they bind: the smaller value wins) and the
+    cuts applied ``[(value, full, cut, reason)]``."""
+    cell = configs.cells_of(arch)[name]
+    if reduced:
+        return cell, dict(cell.reduced), []
+    p, cuts = dict(cell.full), []
+    for cut, what in ((RECSYS_CUTS.get((arch, name), {}), "memory (RECSYS_CUTS)"),
+                      FAMILY_MESH_CUTS.get((arch, name), ({}, None))):
+        for k, v in cut.items():
+            if v < p[k]:
+                cuts.append((k, cell.full[k], v, what))
+                p[k] = v
+    return cell, p, cuts
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> tuple[int, float]:
+    """(elements outside ``atol + rtol |want|``, max |got - want|)."""
+    d = (got.float() - want.float()).abs()
+    return int((d > atol + rtol * want.float().abs()).sum()), float(d.max()) if d.numel() else 0.0
+
+
+def adam_flip_bound(steps: int) -> float:
+    """The most ``steps`` AdamW steps of a cell (``cells.DEFAULT_SCHEDULE``,
+    AdamWConfig's b1 / b2) can move one weight apart in two runs whose
+    gradients for it differ near 0: twice each step's lr times the largest
+    |m^ / sqrt(v^)| that step can give (Cauchy-Schwarz over the moments'
+    weights; 1 at the first step, 1.0012 by the third)."""
+    cfg, lr = train_opt.AdamWConfig(), train_opt.cosine_schedule(*cells_mod.DEFAULT_SCHEDULE)
+    b1, b2 = cfg.b1, cfg.b2
+    out = 0.0
+    for t in range(1, steps + 1):
+        s = sum((b1 * b1 / b2) ** k for k in range(t))
+        r = (1 - b1) / math.sqrt(1 - b2) * math.sqrt(s * (1 - b2**t)) / (1 - b1**t)
+        out += 2 * float(lr(torch.tensor(t))) * r
+    return out
+
+
+def params_agree(outside: int, held: int, worst: float, steps: int) -> bool:
+    """At most FAMILY_MESH_OUTLIER_SHARE of ``held`` weights outside
+    FAMILY_MESH_PARAM_TOL, and none further than ``adam_flip_bound``."""
+    return (outside <= FAMILY_MESH_OUTLIER_SHARE * held
+            and worst <= adam_flip_bound(steps) + FAMILY_MESH_PARAM_TOL["atol"])
+
+
+def family_recsys_run(arch: str, seed: int, dev, tmp: str, reduced: bool, mesh=None) -> dict:
+    """(a) One recsys arch: the cells' own callables (``cells.recsys_cell``)
+    on seeded weights drawn whole on ``dev``: ``train_batch`` (one warm-up
+    and FAMILY_MESH_TIMED timed steps of the same batch), ``serve_p99`` and
+    ``retrieval_cand`` (these two on the weights as drawn).  Without
+    ``mesh`` (the one-process run) the stepped weights are saved whole to
+    ``{tmp}/{arch}/`` (.npy a leaf); with it each process holds its pieces
+    and holds them to those files."""
+    mod = configs.get(arch)
+    cfg = mod.reduced_config() if reduced else mod.full_config()
+    rec = dict(arch=arch, cuts=[])
+    _peak_reset(dev)
+    whole = recsys.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+    rec["param_bytes"] = sum(x.numel() * x.element_size() for x in train_tree.leaves(whole))
+    built = {}
+    for name in FAMILY_MESH_CELLS:
+        cell, p, cuts = family_values(arch, name, reduced)
+        rec["cuts"] += [dict(cell=name, value=k, full=f, cut=c, reason=r) for k, f, c, r in cuts]
+        # the train step donates its weights: it would step the leaves the
+        # serving cells share with it (every leaf that is not split)
+        prm = train_tree.tree_map(torch.clone, whole) if name == "train_batch" else whole
+        built[name] = (cells_mod.recsys_cell(arch, cfg, cell, p, dev, params=prm, mesh=mesh), p)
+        del prm
+    del whole
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    train, p = built.pop("train_batch")
+    params, opt_state, batch = train.args
+    rec["held_param_bytes"] = sum(x.numel() * x.element_size() for x in train_tree.leaves(params))
+    losses, ms = [], []
+    for _ in range(1 + FAMILY_MESH_TIMED):
+        t0 = time.perf_counter()
+        params, opt_state, m = train.fn(params, opt_state, batch)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    p50 = statistics.median(ms[1:])
+    rec["train"] = dict(batch=p["batch"], n_micro=p.get("n_micro", 1), losses=losses,
+                        warmup_ms=ms[0], step_ms=ms[1:], step_p50_ms=p50,
+                        examples_per_s=p["batch"] / p50 * 1e3, peak_device_bytes=_peak(dev))
+    assert all(math.isfinite(x) for x in losses), rec
+    out_dir = Path(tmp) / arch
+    leaves = train_tree.leaves(params)
+    if mesh is None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i, x in enumerate(leaves):
+            np.save(out_dir / f"{i}.npy", x.cpu().numpy())
+    else:
+        with sharding.use_mesh(mesh):
+            place = train_tree.leaves(recsys.placements(cfg))
+        outside, worst, split, held = 0, 0.0, [], 0
+        for i, (x, pl) in enumerate(zip(leaves, place)):
+            want = torch.from_numpy(np.ascontiguousarray(
+                pl.piece(np.load(out_dir / f"{i}.npy", mmap_mode="r")))).to(dev)
+            n, d = _within(x, want, **FAMILY_MESH_PARAM_TOL)
+            outside, worst, held = outside + n, max(worst, d), held + x.numel()
+            split.append(pl.split)
+            del want
+        rec["train"].update(params_outside=outside, max_param_abs_diff=worst, params_held=held,
+                            split_leaves=sum(split), whole_leaves=len(split) - sum(split),
+                            replicated_checksums=train_loop.replica_checksums(
+                                [x for x, s in zip(leaves, split) if not s]).cpu())
+    del params, opt_state, batch, train, leaves
+    with torch.no_grad():
+        for name, (b, p) in built.items():
+            _peak_reset(dev)
+            p50, times, out = wall_ms(lambda: b.fn(*b.args), dev, FAMILY_MESH_CALL_REPS)
+            row = dict(values=p, p50_ms=p50, ms=times, peak_device_bytes=_peak(dev))
+            if name == "serve_p99":
+                row["scores"] = out.cpu()
+                row["examples_per_s"] = p["batch"] / p50 * 1e3
+            else:
+                row["topk_scores"], row["topk_ids"] = out[0].cpu(), out[1].cpu()
+            rec[name] = row
+            del out
+    del built
+    return rec
+
+
+def family_gnn_run(name: str, dev, block, reduced: bool, mesh=None) -> dict:
+    """(b) One SchNet cell through its own donating step (``cells.gnn_cell``)
+    on seeded weights: one step, its loss and the stepped weights (host),
+    step ms and peak bytes; with ``mesh`` the edges split over it."""
+    cell = configs.cells_of("schnet")[name]
+    base = configs.get("schnet").reduced_config() if reduced else configs.get("schnet").full_config()
+    p = cell.reduced if reduced else cell.full
+    _peak_reset(dev)
+    built = cells_mod.gnn_cell("schnet", base, cell, p, dev,
+                               batch=block if name == "minibatch_lg" else None, mesh=mesh)
+    t0 = time.perf_counter()
+    params, _, m = built.fn(*built.args)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    _, N, E = cells_mod.gnn_shape(base, cell.kind, p)
+    rec = dict(cell=name, nodes=N, edges=E, loss=float(m["loss"]), step_ms=ms,
+               params=[x.cpu() for x in train_tree.leaves(params)], peak_device_bytes=_peak(dev))
+    if mesh is not None:
+        with sharding.use_mesh(mesh):
+            rec["edge_shards"] = schnet.edge_mesh().world_size
+    assert math.isfinite(rec["loss"]), rec
+    del built, params
+    return rec
+
+
+def family_mesh_rank(rank: int, tmp: str, seed: int, device: str, block_path, reduced: bool) -> None:
+    """One of two ranks sharing ``device`` over gloo on a 1 x
+    FAMILY_MESH_MODEL mesh: (a) and (b) as the one-process run ran them,
+    every collective timed; writes ``{tmp}/rank{r}.pt``."""
+    mesh_mod.init_distributed(f"file://{tmp}/rendezvous", FAMILY_MESH_MODEL, rank, backend="gloo")
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        mesh = mesh_mod.make_production_mesh(device=device, model=FAMILY_MESH_MODEL)
+        assert mesh.shape == {"data": 1, "model": FAMILY_MESH_MODEL} and mesh.devices == (dev,)
+        wire = spy_collectives(dev)
+        block = None
+        if block_path is not None:
+            with np.load(block_path) as z:
+                block = {k: z[k] for k in z.files if not k.startswith("_")}
+        out = {}
+        runs = [(arch, lambda arch=arch, i=i: family_recsys_run(arch, seed + 141 + i, dev, tmp,
+                                                                 reduced, mesh))
+                for i, arch in enumerate(RECSYS_ARCHS)]
+        runs += [(name, lambda name=name: family_gnn_run(name, dev, block, reduced, mesh))
+                 for name in GNN_RUNS]
+        for name, run in runs:
+            n, t0 = len(wire), time.perf_counter()
+            out[name] = dict(run(), wire=wire[n:], seconds=time.perf_counter() - t0)
+            print(json.dumps({"family_mesh_rank": rank, "run": name,
+                              "seconds": out[name]["seconds"]}), flush=True)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def topk_agree(got_ids, want_ids, want_scores, rtol: float) -> bool:
+    """Top-k positions identical wherever the one-process run's neighbouring
+    scores differ by more than ``rtol`` relative (a near tie may swap)."""
+    gap = (want_scores[1:] - want_scores[:-1]).abs() > rtol * want_scores[:-1].abs()
+    firm = torch.ones_like(want_ids, dtype=torch.bool)
+    firm[1:] &= gap
+    firm[:-1] &= gap
+    return bool(torch.equal(got_ids[firm], want_ids[firm]))
+
+
+def family_mesh_phase(seed, dev, info: dict, block_path, reduced=False) -> None:
+    """Phase family_mesh (see the module docstring, 21): the one-process
+    runs, then the two ranks, then the checks; one ``family_mesh`` line a
+    run.  Launches no port kernel."""
+    t_phase = time.perf_counter()
+    block = None
+    if block_path is not None:
+        with np.load(block_path) as z:
+            block = {k: z[k] for k in z.files if not k.startswith("_")}
+    with tempfile.TemporaryDirectory() as tmp:
+        one = {}
+        for i, arch in enumerate(RECSYS_ARCHS):
+            t0 = time.perf_counter()
+            one[arch] = family_recsys_run(arch, seed + 141 + i, dev, tmp, reduced)
+            one[arch]["seconds"] = time.perf_counter() - t0
+        for name in GNN_RUNS:
+            t0 = time.perf_counter()
+            one[name] = family_gnn_run(name, dev, block, reduced)
+            one[name]["seconds"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        info["one_process_s"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        ranks = spawn_gloo_ranks(tmp, family_mesh_rank, seed, str(dev), block_path, reduced,
+                                 n=FAMILY_MESH_MODEL)
+        info["ranks_s"] = time.perf_counter() - t0
+    mesh = {"data": 1, "model": FAMILY_MESH_MODEL}
+    for arch in RECSYS_ARCHS:
+        o, recs = one[arch], [r[arch] for r in ranks]
+        rels = [max(abs(a / b - 1) for a, b in zip(r["train"]["losses"], o["train"]["losses"]))
+                for r in recs]
+        serve = [_within(r["serve_p99"]["scores"], o["serve_p99"]["scores"],
+                         FAMILY_MESH_SCORE_RTOL, 0.0) for r in recs]
+        ret = [dict(ids=topk_agree(r["retrieval_cand"]["topk_ids"], o["retrieval_cand"]["topk_ids"],
+                                   o["retrieval_cand"]["topk_scores"], FAMILY_MESH_SCORE_RTOL),
+                    scores=_within(r["retrieval_cand"]["topk_scores"],
+                                   o["retrieval_cand"]["topk_scores"], FAMILY_MESH_SCORE_RTOL,
+                                   0.0)) for r in recs]
+        line = dict(
+            arch=arch, mesh=mesh, cuts=o["cuts"], param_bytes=o["param_bytes"],
+            held_param_bytes=[r["held_param_bytes"] for r in recs],
+            train=dict(batch=o["train"]["batch"], n_micro=o["train"]["n_micro"],
+                       losses=recs[0]["train"]["losses"], one_process_losses=o["train"]["losses"],
+                       max_loss_rel=max(rels),
+                       params_outside=[r["train"]["params_outside"] for r in recs],
+                       params_held=[r["train"]["params_held"] for r in recs],
+                       max_param_abs_diff=[r["train"]["max_param_abs_diff"] for r in recs],
+                       adam_flip_bound=adam_flip_bound(1 + FAMILY_MESH_TIMED),
+                       split_leaves=recs[0]["train"]["split_leaves"],
+                       whole_leaves=recs[0]["train"]["whole_leaves"],
+                       replicated_identical=all(torch.equal(
+                           r["train"]["replicated_checksums"],
+                           recs[0]["train"]["replicated_checksums"]) for r in recs),
+                       step_p50_ms=[r["train"]["step_p50_ms"] for r in recs],
+                       one_process_step_p50_ms=o["train"]["step_p50_ms"],
+                       examples_per_s=[r["train"]["examples_per_s"] for r in recs],
+                       one_process_examples_per_s=o["train"]["examples_per_s"],
+                       peak_device_bytes=[r["train"]["peak_device_bytes"] for r in recs],
+                       one_process_peak_device_bytes=o["train"]["peak_device_bytes"]),
+            serve_p99=dict(batch=o["serve_p99"]["values"]["batch"],
+                           outside=[n for n, _ in serve], max_abs_diff=[d for _, d in serve],
+                           p50_ms=[r["serve_p99"]["p50_ms"] for r in recs],
+                           one_process_p50_ms=o["serve_p99"]["p50_ms"]),
+            retrieval_cand=dict(n_candidates=o["retrieval_cand"]["values"]["n_candidates"],
+                                top_k=o["retrieval_cand"]["values"]["top_k"],
+                                ids_agree=[x["ids"] for x in ret],
+                                scores_outside=[x["scores"][0] for x in ret],
+                                p50_ms=[r["retrieval_cand"]["p50_ms"] for r in recs],
+                                one_process_p50_ms=o["retrieval_cand"]["p50_ms"]),
+            collectives=[_wire_summary(r["wire"], 1) for r in recs],
+            collectives_note="gloo through the host: NCCL refuses two ranks on one card",
+            seconds=[r["seconds"] for r in recs], one_process_seconds=o["seconds"])
+        emit({"family_mesh": line, "card": info["card"]})
+        t = line["train"]
+        assert t["max_loss_rel"] <= LM_TP_LOSS_RTOL and t["replicated_identical"], line
+        assert t["split_leaves"] > 0 and all(
+            params_agree(n, h, d, 1 + FAMILY_MESH_TIMED)
+            for n, h, d in zip(t["params_outside"], t["params_held"], t["max_param_abs_diff"])), line
+        assert line["serve_p99"]["outside"] == [0] * FAMILY_MESH_MODEL, line
+        assert all(x["ids"] and x["scores"][0] == 0 for x in ret), line
+    for name in GNN_RUNS:
+        o, recs = one[name], [r[name] for r in ranks]
+        diffs = [[_within(a, b, **FAMILY_MESH_PARAM_TOL) for a, b in zip(r["params"], o["params"])]
+                 for r in recs]
+        line = dict(run="schnet", cell=name, mesh=mesh, nodes=o["nodes"], edges=o["edges"],
+                    edge_shards=[r["edge_shards"] for r in recs],
+                    loss=[r["loss"] for r in recs], one_process_loss=o["loss"],
+                    max_loss_rel=max(abs(r["loss"] / o["loss"] - 1) for r in recs),
+                    params_outside=[sum(n for n, _ in d) for d in diffs],
+                    params_held=sum(x.numel() for x in o["params"]),
+                    max_param_abs_diff=[max(x for _, x in d) for d in diffs],
+                    adam_flip_bound=adam_flip_bound(1),
+                    step_ms=[r["step_ms"] for r in recs], one_process_step_ms=o["step_ms"],
+                    peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+                    one_process_peak_device_bytes=o["peak_device_bytes"],
+                    collectives=[_wire_summary(r["wire"], 1) for r in recs],
+                    collectives_note="gloo through the host: NCCL refuses two ranks on one card",
+                    seconds=[r["seconds"] for r in recs], one_process_seconds=o["seconds"])
+        emit({"family_mesh": line, "card": info["card"]})
+        assert line["max_loss_rel"] <= LM_TP_LOSS_RTOL, line
+        assert all(params_agree(n, line["params_held"], d, 1)
+                   for n, d in zip(line["params_outside"], line["max_param_abs_diff"])), line
+        assert line["edge_shards"] == [FAMILY_MESH_MODEL] * FAMILY_MESH_MODEL, line
+    info["runs"] = list(RECSYS_ARCHS) + list(GNN_RUNS)
+    info["in_phase_s"] = time.perf_counter() - t_phase
 
 
 if __name__ == "__main__":

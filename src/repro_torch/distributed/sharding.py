@@ -301,14 +301,37 @@ def tree_shardings(tree_axes, tree_shapes=None):
                       tree_axes, tree_shapes)
 
 
+def state_placements(place, state):
+    """The placements of a training state ``{"params", "opt": {"mu", "nu",
+    "step"[, "ef"]}}`` whose parameters ``place`` places (the moments as
+    their parameters, the step replicated), or None when ``place`` is
+    None."""
+    if place is None:
+        return None
+    first = T.leaves(place)[0]
+    out = {"params": place}
+    if "opt" in state:
+        step = Placement(first.device, (), first.model)
+        out["opt"] = {k: (step if k == "step" else place) for k in state["opt"]}
+    return out
+
+
 def place_tree(tree, shardings):
     """``tree``'s whole leaves (tensors or numpy) as tensors where
     ``shardings`` (:func:`tree_shardings`'s tree, or one device) puts
     them: each cut to this process's piece where a :class:`Placement`
-    splits it (``training.tree.place``)."""
+    splits it, a piece of a tensor copied into a storage of its own (so
+    the whole leaf can be freed; ``training.tree.place``)."""
     if not isinstance(shardings, (dict, list)):
         return T.place(tree, shardings)
-    cut = T.tree_map(lambda x, p: p.piece(x) if isinstance(p, Placement) else x, tree, shardings)
+
+    def cut(x, p):
+        if not (isinstance(p, Placement) and p.split):
+            return x
+        piece = p.piece(x)
+        return piece.clone() if hasattr(piece, "clone") else piece
+
+    cut = T.tree_map(cut, tree, shardings)
     return T.place(cut, T.tree_map(lambda p: p.device if isinstance(p, Placement) else p,
                                    shardings))
 

@@ -70,6 +70,7 @@ from repro_torch.models import schnet as schnet_lib
 from repro_torch.models import transformer as T
 from repro_torch.training import loop as train_loop
 from repro_torch.training import optimizer as opt_lib
+from repro_torch.training import tree as tree_lib
 
 META = torch.device("meta")
 
@@ -96,20 +97,50 @@ def _lm_attn_flops(cfg: T.TransformerConfig, B, Sq, Skv_avg) -> float:
     return cfg.n_layers * 4.0 * B * Sq * Skv_avg * cfg.n_heads * cfg.d_head
 
 
+#: a train cell's schedule, the reference's: (peak lr, warm-up, total steps)
+DEFAULT_SCHEDULE = (3e-4, 100, 10000)
+
+
 def _default_optimizer() -> opt_lib.Optimizer:
     return opt_lib.adamw(
-        opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(3e-4, 100, 10000))
+        opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(*DEFAULT_SCHEDULE))
     )
 
 
-def _train_pieces(loss_fn, params, n_micro: int, batch: dict, cast_dtype=None):
+def _train_pieces(loss_fn, params, n_micro: int, batch: dict, cast_dtype=None,
+                  placements=None):
     """A train cell's step and arguments, the reference's smoke-mode
     ``_train_pieces``: AdamW on the default schedule, fresh state, the
-    parameters and state donated to the step."""
+    parameters and state donated to the step (``placements``: the
+    parameters' on a ``"model"`` axis above 1)."""
     optimizer = _default_optimizer()
     step = train_loop.make_train_step(loss_fn, optimizer, n_micro=n_micro,
-                                      cast_dtype=cast_dtype, donate=True)
+                                      cast_dtype=cast_dtype, donate=True, placements=placements)
     return step, (params, optimizer.init(params), batch)
+
+
+def _on_mesh(mesh, fn):
+    """``fn`` run under ``sharding.use_mesh(mesh)`` (``fn`` itself without a
+    mesh)."""
+    if mesh is None:
+        return fn
+
+    def run(*args, **kwargs):
+        with sharding.use_mesh(mesh):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def _data_rows(B: int) -> slice:
+    """This process's rows of a served batch of B under the active mesh:
+    its piece over the data axes (``sharding.data_mesh``), or all of them
+    where the processes do not divide B (the reference's fallback)."""
+    data = sharding.data_mesh()
+    n = 1 if data is None else data.world_size
+    if n == 1 or B % n:
+        return slice(0, B)
+    return slice(data.rank * (B // n), (data.rank + 1) * (B // n))
 
 
 def lm_model_flops(cfg: T.TransformerConfig, kind: str, seq_len: int, batch: int) -> float:
@@ -226,18 +257,29 @@ def gnn_batch(kind: str, p: dict, graph=None, block=None) -> dict:
 
 
 def gnn_cell(arch, base_cfg: schnet_lib.SchNetConfig, cell: ShapeCell, p: dict, device,
-             batch=None, params=None) -> BuiltCell:
+             batch=None, params=None, mesh=None) -> BuiltCell:
     """A SchNet train cell at the values ``p`` (``cell.reduced`` in smoke
     mode): one donating AdamW step of ``params`` (seeded weights when
-    None) over ``batch`` (``gnn_batch``'s, drawn here when None)."""
+    None) over ``batch`` (``gnn_batch``'s, drawn here when None).  Under
+    ``mesh`` (one device a process; or the active mesh) the step splits
+    the edges over it (``models.schnet``)."""
+    if mesh is not None:
+        with sharding.use_mesh(mesh):
+            built = gnn_cell(arch, base_cfg, cell, p, device, batch, params)
+        built.fn = _on_mesh(mesh, built.fn)
+        return built
     cfg, N, E = gnn_shape(base_cfg, cell.kind, p)
     if batch is None:
         batch = gnn_batch(cell.kind, p)
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     if params is None:
         params = schnet_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    place = None
+    if sharding.model_mesh() is not None:  # every leaf whole: the norm counts each once
+        place = sharding.tree_shardings(schnet_lib.param_axes(cfg),
+                                        tree_lib.tree_map(lambda x: tuple(x.shape), params))
     loss_fn = lambda prm, b: schnet_lib.train_loss(prm, cfg, b)
-    fn, args = _train_pieces(loss_fn, params, 1, batch)
+    fn, args = _train_pieces(loss_fn, params, 1, batch, placements=place)
     return BuiltCell(arch, cell.name, cell.kind, fn, args, schnet_flops(cfg, N, E))
 
 
@@ -308,17 +350,26 @@ def recsys_batch(cfg: recsys_lib.RecSysConfig, B: int, rng, with_labels: bool = 
 
 
 def recsys_cell(arch, cfg: recsys_lib.RecSysConfig, cell: ShapeCell, p: dict, device,
-                params=None) -> BuiltCell:
+                params=None, mesh=None) -> BuiltCell:
     """A recsys cell at the values ``p`` (``cell.reduced`` in smoke mode),
     its batch from ``default_rng(0)`` as the reference draws it: a train
     step (``n_micro`` microbatches, BERT4Rec's labels masked at
     ``mask_frac``), ``serve_scores`` over a batch, or ``retrieval_scores``
-    of one user against ``n_candidates`` ids.  ``params`` defaults to
-    seeded weights."""
+    of one user against ``n_candidates`` ids.  ``params`` (whole) defaults
+    to seeded weights.  Under ``mesh`` (one device a process; or the active
+    mesh) each process holds its piece of every leaf
+    (``recsys.place_params``), a served batch is cut to its rows over the
+    data axes, and the callable runs under the mesh."""
+    if mesh is not None:
+        with sharding.use_mesh(mesh):
+            built = recsys_cell(arch, cfg, cell, p, device, params)
+        built.fn = _on_mesh(mesh, built.fn)
+        return built
     kind = cell.kind
     rng = np.random.default_rng(0)
     if params is None:
         params = recsys_lib.init_params(cfg, torch.Generator(device=device).manual_seed(0))
+    params, place = recsys_lib.place_params(params, cfg)
     flops = recsys_flops(cfg, kind, p)
     put = lambda b: {k: torch.as_tensor(v, device=device) for k, v in b.items()}
     if kind == "train":
@@ -328,12 +379,15 @@ def recsys_cell(arch, cfg: recsys_lib.RecSysConfig, cell: ShapeCell, p: dict, de
             mask = rng.random((B, cfg.seq_len)) < cfg.mask_frac
             batch["labels"] = np.where(mask, batch["seq_ids"], -1).astype(np.int32)
         loss_fn = lambda prm, b: recsys_lib.train_loss(prm, cfg, b)
-        fn, args = _train_pieces(loss_fn, params, p.get("n_micro", 1), put(batch))
+        fn, args = _train_pieces(loss_fn, params, p.get("n_micro", 1), put(batch),
+                                 placements=place)
         return BuiltCell(arch, cell.name, kind, fn, args, flops)
     if kind == "serve":
         batch = recsys_batch(cfg, p["batch"], rng, with_labels=False)
+        rows = _data_rows(p["batch"])
         fn = lambda prm, b: recsys_lib.serve_scores(prm, cfg, b)
-        return BuiltCell(arch, cell.name, kind, fn, (params, put(batch)), flops)
+        return BuiltCell(arch, cell.name, kind, fn,
+                         (params, put({k: v[rows] for k, v in batch.items()})), flops)
     if kind == "retrieval":
         batch = recsys_batch(cfg, 1, rng, with_labels=False)
         batch["candidate_ids"] = rng.integers(
@@ -607,9 +661,8 @@ def _retrieval_dry(arch, cfg: colbert_lib.ColBERTConfig, cell: ShapeCell, p) -> 
 
 def _recsys_dry(arch, cfg: recsys_lib.RecSysConfig, cell: ShapeCell, p) -> BuiltCell:
     kind = cell.kind
-    if kind in ("train", "retrieval"):  # refused before the step's own checks
-        recsys_lib.refuse_mesh(f"the recsys {kind} cell")
-    params = _meta_tree(recsys_lib.init_params, cfg)
+    # each leaf at this rank's piece, in a storage of its own
+    params, place = recsys_lib.place_params(_meta_tree(recsys_lib.init_params, cfg), cfg)
     flops = recsys_flops(cfg, kind, p)
     meta_batch = lambda spec: {k: _meta(shape, torch.int32 if hi is not None else torch.float32)  # noqa: E731
                                for k, (shape, hi) in spec.items()}
@@ -622,7 +675,7 @@ def _recsys_dry(arch, cfg: recsys_lib.RecSysConfig, cell: ShapeCell, p) -> Built
         if cfg.interaction == "bidir-seq":
             batch["labels"] = _meta((B, cfg.seq_len), torch.int32)
         loss_fn = lambda prm, b: recsys_lib.train_loss(prm, cfg, b)  # noqa: E731
-        fn, args = _train_pieces(loss_fn, params, n_micro, batch)
+        fn, args = _train_pieces(loss_fn, params, n_micro, batch, placements=place)
         return BuiltCell(arch, cell.name, kind, fn, args, flops)
     if kind == "serve":
         batch = meta_batch(recsys_batch_spec(cfg, _rows_here(p["batch"]), with_labels=False))
@@ -657,7 +710,6 @@ def _gnn_batch_spec(cfg, kind: str, p: dict) -> dict:
 
 
 def _gnn_dry(arch, base_cfg: schnet_lib.SchNetConfig, cell: ShapeCell, p) -> BuiltCell:
-    schnet_lib.refuse_edge_split()  # before the step's own checks
     cfg = gnn_shape(base_cfg, cell.kind, p)[0]
     batch = {k: _meta(shape, dt) for k, (shape, dt, _) in _gnn_batch_spec(cfg, cell.kind, p).items()}
     params = _meta_tree(schnet_lib.init_params, cfg)

@@ -22,25 +22,27 @@ process, NCCL; gloo with ``--device cpu``), laid out as the reference's
 ``("data", "model")`` / ``("pod", "data", "model")`` meshes
 (``launch.mesh.make_production_mesh``) with a model extent of ``--model``
 (default 1: data parallelism over every process).  ``--model m`` (an LM
-arch) splits the weights over groups of ``m`` processes, the reference's
-tensor and expert parallelism on its 16-way axis laid over fewer
-processes; checkpoints hold the whole leaves.  ``--batch`` is the global
-batch, split over the data axis, and each step is the global batch's.
-Only rank 0 prints and writes checkpoints; the replicas are checked
-bit-identical at the end (a model group's in its replicated leaves).
+or recsys arch) splits the weights over groups of ``m`` processes, the
+reference's tensor and expert parallelism on its 16-way axis laid over
+fewer processes (a recsys arch's tables by rows, its dense layers by
+``"mlp"``: ``models.recsys``); checkpoints hold the whole leaves.
+``--batch`` is the global batch, split over the data axis, and each step
+is the global batch's.  Only rank 0 prints and writes checkpoints; the
+replicas are checked bit-identical at the end (a model group's in its
+replicated leaves).
 
     torchrun --nproc_per_node=8 -m repro_torch.launch.train \
         --arch plaid-colbertv2 --mesh single --batch 32
     torchrun --nproc_per_node=2 -m repro_torch.launch.train \
         --arch granite-moe-1b-a400m --mesh single --model 2
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train \
+        --arch wide-deep --mesh single --model 2
 
 ``run(argv)`` does ``main``'s work and returns what it trained (the
 final state, the config, the losses, and on a model axis the
 parameters' placements).  The LM, recsys and ``plaid-colbertv2`` ids
 train; SchNet, as in the reference, trains through its cells
-(``launch.cells``), and ``data_for`` refuses the GNN family.  A recsys
-arch trains on one device (over several processes: ROADMAP Queue 1 item
-8.5.8).
+(``launch.cells``), and ``data_for`` refuses the GNN family.
 """
 from __future__ import annotations
 
@@ -70,7 +72,9 @@ def data_for(cfg, batch: int, family: str, device):
     """``(batches, loss_fn, params, model)`` of a family: the reference's
     ``data_for``, with the model drawn from seed 0 on ``device`` (``params``
     is its training tree; a recsys family's ``model`` is None, its
-    functions read the tree).  Another family raises, as there."""
+    functions read the tree, whose leaves are this process's pieces under
+    a ``"model"`` axis: ``recsys.place_params``).  Another family raises,
+    as there."""
     gen = torch.Generator(device=device).manual_seed(0)
     if family == "lm":
         model = T.init_params(cfg, gen, device, head=True)
@@ -81,7 +85,8 @@ def data_for(cfg, batch: int, family: str, device):
         return it, colbert_lib.loss_fn(model), colbert_lib.train_params(model), model
     if family == "recsys":
         loss = lambda p, b: recsys_lib.train_loss(p, cfg, b)
-        return syn.recsys_batches(cfg, batch), loss, recsys_lib.init_params(cfg, gen), None
+        params, _ = recsys_lib.place_params(recsys_lib.init_params(cfg, gen), cfg)
+        return syn.recsys_batches(cfg, batch), loss, params, None
     raise ValueError(f"use examples/ for family {family}")
 
 
@@ -106,7 +111,7 @@ def run(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", choices=["none", "local", "single", "multi"], default="none")
     ap.add_argument("--model", type=int, default=1,
-                    help="the mesh's model extent (--mesh single|multi, an LM arch)")
+                    help="the mesh's model extent (--mesh single|multi, an LM or recsys arch)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -115,8 +120,9 @@ def run(argv=None) -> dict:
     if mod.FAMILY == "lm" and not args.reduced:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     dev = resolve_device(args.device)
-    if args.model > 1 and (args.mesh not in ("single", "multi") or mod.FAMILY != "lm"):
-        raise SystemExit("--model above 1 takes an LM arch and --mesh single or multi")
+    if args.model > 1 and (args.mesh not in ("single", "multi")
+                           or mod.FAMILY not in ("lm", "recsys")):
+        raise SystemExit("--model above 1 takes an LM or recsys arch and --mesh single or multi")
     joined = False
     if args.mesh in ("single", "multi"):
         joined = mesh_mod.init_distributed(backend="gloo" if dev.type == "cpu" else None)
@@ -142,21 +148,20 @@ def _train(args, cfg, family, dev, mesh) -> dict:
         raise SystemExit(f"--batch {args.batch} does not split into {args.n_micro} "
                          f"microbatch(es) over {world} process(es)")
     lead = mesh is None or mesh.rank == 0
-    if family == "recsys" and data is not None:
-        raise NotImplementedError(
-            "the recsys family over several processes is not ported (ROADMAP Queue 1 item 8.5.8)")
     it, loss_fn, params, model = data_for(cfg, args.batch, family, dev)
     optimizer = opt_lib.adamw(
         opt_lib.AdamWConfig(schedule=opt_lib.cosine_schedule(args.lr, 20, args.steps))
     )
     comp = None if args.compression == "none" else args.compression
-    place = model.placement_tree() if family == "lm" else None  # None without a model axis
+    # None without a model axis
+    place = (model.placement_tree() if family == "lm"
+             else recsys_lib.placements(cfg) if family == "recsys"
+             else None)
     step = train_loop.make_train_step(loss_fn, optimizer, n_micro=args.n_micro, compression=comp,
                                       donate=True, placements=place)
     train_loop.assert_replicas_agree(params, mesh, place)
     opt_state = train_loop.init_opt_state(optimizer, params, comp)
-    state_place = None if place is None else T.state_placements(
-        model, {"params": params, "opt": opt_state})
+    state_place = sharding.state_placements(place, {"params": params, "opt": opt_state})
     n_params = sum(x.numel() for x in tree.leaves(params)) if place is None else sum(
         x.numel() * (p.model.world_size if p.split else 1)
         for x, p in zip(tree.leaves(params), tree.leaves(place)))

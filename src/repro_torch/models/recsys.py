@@ -26,16 +26,42 @@ layernorm's ``eps`` is 1e-6, the BCE is written term for term as the
 reference writes it, and the tables' gradients are dense f32 (no sparse
 gradients).  No product runs in TF32 (``ieee_f32_matmul``).
 
-The family runs on one device.  On a mesh of several devices (the
-reference shards its tables over ``"table_rows"``, its batch and its
-candidates over the mesh) ``train_loss`` and ``retrieval_scores`` raise,
-naming ROADMAP Queue 1 item 8.5.8; ``serve_scores`` scores the rows it is
-handed, whole tables on every device.
+On a mesh of several processes (``distributed.sharding.use_mesh``, one
+device a process) each process holds the piece of every leaf that
+``sharding.logical_to_spec`` gives it under the rules (:func:`param_axes`,
+the whole leaf's shape for the divisibility fallback; :func:`place_params`):
+
+* ``table``, ``wide`` and ``items`` split by rows over ``"model"``
+  (``"table_rows"``): a lookup gathers the rows held here, zero elsewhere,
+  and sums the pieces over the model group (``launch.mesh.reduce_from``),
+  so a table's gradient stays in the process that holds its rows;
+* the columns of every MLP layer and CIN layer, of ``wq`` / ``wk`` /
+  ``wv`` and of ``ffn.w1`` (``"mlp"``), and the rows of ``cin_out.w``,
+  ``attn.wo`` and ``ffn.w2``: a replicated input enters a split product
+  through ``copy_to`` (its gradient summed over the group), a column-split
+  result is gathered (``gather_along``) where the next product needs it
+  whole, and a row-split product is summed (``reduce_from``);
+* BERT4Rec's masked-item cross-entropy is vocab-split as ``items`` is:
+  the max over the logits held here (``all_reduce_max``), their sum of
+  exponentials and the target's logit (``reduce_from``); no process
+  gathers the logits.
+
+A leaf whose split dimension its mesh extent does not divide stays whole
+(BERT4Rec's 1,000,002 items on a 16-way axis); where a process's columns
+of ``wq`` cut a head, the processes gather ``q`` and ``k`` and score every
+head.  The batch splits over the other axes (``sharding.data_mesh``):
+``train_loss`` is handed the global batch, takes this process's rows and
+returns its share of the global mean, so the processes' losses and
+gradients sum to the global batch's (``training.loop``).
+``serve_scores`` scores the rows it is handed.  ``retrieval_scores``
+splits the candidates over the data axes (a model group scores its piece
+together) and merges the pieces' top-k (``distributed.topk.merge_topk``,
+ties toward the lower position); the reference also splits them over
+``"model"`` (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Mapping
 
 import torch
@@ -44,8 +70,42 @@ import torch.nn.functional as F
 from repro_torch import ieee_f32_matmul
 from repro_torch.core.scoring import stable_topk
 from repro_torch.distributed import sharding
+from repro_torch.distributed.topk import merge_topk
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
+
+
+# --------------------------------------------------------------------------
+# the "model" axis
+# --------------------------------------------------------------------------
+def _split(local: int, whole: int):
+    """The ``"model"`` sub-mesh when a leaf's dimension of ``whole`` is held
+    here as a piece of ``local``, else None (a whole leaf)."""
+    if local == whole:
+        return None
+    tp = sharding.model_mesh()
+    if tp is None or local * tp.world_size != whole:
+        raise ValueError(f"a dimension of {local} is no piece of {whole} on this mesh")
+    return tp
+
+
+def _held_rows(table: torch.Tensor, rows: torch.Tensor, tp) -> torch.Tensor:
+    """``table``'s rows ``rows`` (global int64 ids): with the rows split
+    over ``tp``, the ones held here and zero for the others."""
+    if tp is None:
+        return F.embedding(rows, table)
+    n = table.shape[0]
+    t = rows - tp.rank * n
+    here = (t >= 0) & (t < n)
+    return torch.where(here[..., None], F.embedding(t.clamp(0, n - 1), table), 0.0)
+
+
+def _rows(table: torch.Tensor, rows: torch.Tensor, whole_rows: int) -> torch.Tensor:
+    """``table``'s rows ``rows`` (global ids), summed over the model group
+    where the rows are split."""
+    tp = _split(table.shape[0], whole_rows)
+    return mesh_mod.reduce_from(tp, _held_rows(table, rows, tp))
 
 
 # --------------------------------------------------------------------------
@@ -58,15 +118,18 @@ def embedding_bag(
     n_bags: int,
     weights: torch.Tensor | None = None,  # (n,) per-id weights
     mode: str = "sum",
+    whole_rows: int | None = None,  # the whole table's rows (a row-split table)
 ) -> torch.Tensor:
     """PyTorch-EmbeddingBag semantics as the reference builds them: a
     gather, then a segment sum over ``bag_ids`` (``index_add``: on the card
-    an atomic sum in no fixed order)."""
-    vecs = F.embedding(ids.long(), table)  # (n, dim)
+    an atomic sum in no fixed order).  A row-split table sums each bag over
+    the rows held here, then the bags over the model group."""
+    tp = None if whole_rows is None else _split(table.shape[0], whole_rows)
+    vecs = _held_rows(table, ids.long(), tp)  # (n, dim)
     if weights is not None:
         vecs = vecs * weights[:, None]
     bags = bag_ids.long()
-    out = vecs.new_zeros((n_bags, vecs.shape[1])).index_add(0, bags, vecs)
+    out = mesh_mod.reduce_from(tp, vecs.new_zeros((n_bags, vecs.shape[1])).index_add(0, bags, vecs))
     if mode == "mean":
         cnt = vecs.new_zeros((n_bags,)).index_add(0, bags, torch.ones_like(vecs[:, 0]))
         out = out / torch.clamp(cnt, min=1.0)[:, None]
@@ -78,16 +141,21 @@ def field_lookup(table: torch.Tensor, ids: torch.Tensor, hash_size: int) -> torc
     B, nf = ids.shape
     offsets = torch.arange(nf, device=ids.device, dtype=torch.int64) * hash_size
     rows = ids.long() + offsets[None, :]
-    return F.embedding(rows.reshape(-1), table).reshape(B, nf, -1)
+    return _rows(table, rows.reshape(-1), nf * hash_size).reshape(B, nf, -1)
 
 
 def mlp_init(generator: torch.Generator, dims) -> list:
     return [L.dense_bias_init(generator, dims[i], dims[i + 1]) for i in range(len(dims) - 1)]
 
 
-def mlp_apply(params: list, x: torch.Tensor, dtype=None, final_act: bool = False) -> torch.Tensor:
+def mlp_apply(params: list, x: torch.Tensor, dtype=None, final_act: bool = False,
+              widths=None) -> torch.Tensor:
+    """The MLP on ``x`` (whole).  ``widths``, the layers' whole output
+    widths, marks the column-split layers: each takes its input through
+    ``copy_to`` and its output is gathered whole."""
     for i, p in enumerate(params):
-        x = L.dense_bias(p["w"], p["b"], x, dtype)
+        tp = None if widths is None else _split(p["w"].shape[1], widths[i])
+        x = mesh_mod.gather_along(tp, L.dense_bias(p["w"], p["b"], mesh_mod.copy_to(tp, x), dtype), -1)
         if final_act or i < len(params) - 1:
             x = torch.relu(x)
     return x
@@ -172,7 +240,8 @@ def _encoder_block_init(generator: torch.Generator, d: int, d_ff: int) -> dict:
 def init_params(cfg: RecSysConfig, generator: torch.Generator) -> dict:
     """Random weights with the reference's tree, shapes and scales (not its
     numbers: ``torch.Generator`` is not ``jax.random``), f32 on the
-    generator's device."""
+    generator's device, every leaf whole (:func:`place_params` cuts a
+    mesh's pieces)."""
     g = generator
     p = {}
     if cfg.interaction in ("cin", "concat"):
@@ -226,6 +295,49 @@ def param_axes(cfg: RecSysConfig) -> dict:
     return ax
 
 
+def param_shapes(cfg: RecSysConfig) -> dict:
+    """The whole leaves' shapes, in :func:`init_params`' tree."""
+    d = cfg.embed_dim
+    dense = lambda a, b: {"w": (a, b), "b": (b,)}  # noqa: E731
+    p = {}
+    if cfg.interaction in ("cin", "concat"):
+        rows = cfg.n_sparse * cfg.hash_size
+        p["table"], p["wide"] = (rows, d), (rows, 1)
+    if cfg.item_vocab:
+        p["items"], p["pos"] = (cfg.item_vocab + 2, d), (cfg.seq_len + 1, d)
+    if cfg.cin_layers:
+        fans = (cfg.n_sparse,) + cfg.cin_layers[:-1]
+        p["cin"] = [{"w": (h0 * cfg.n_sparse, h)} for h0, h in zip(fans, cfg.cin_layers)]
+        p["cin_out"] = dense(sum(cfg.cin_layers), 1)
+    if cfg.n_blocks:
+        ln = {"g": (d,), "b": (d,)}
+        blk = {"attn": {n: {"w": (d, d)} for n in ("wq", "wk", "wv", "wo")}, "ln1": ln,
+               "ffn": {"w1": dense(d, 4 * d), "w2": dense(4 * d, d)}, "ln2": ln}
+        p["blocks"] = [blk for _ in range(cfg.n_blocks)]
+    if cfg.interaction != "bidir-seq":
+        dims = (cfg._mlp_in(),) + cfg.mlp + (1,)
+        p["mlp"] = [dense(a, b) for a, b in zip(dims[:-1], dims[1:])]
+    return p
+
+
+def placements(cfg: RecSysConfig):
+    """Each leaf's ``sharding.Placement`` under the active mesh, or None
+    without a ``"model"`` axis above 1."""
+    if sharding.model_mesh() is None:
+        return None
+    return sharding.tree_shardings(param_axes(cfg), param_shapes(cfg))
+
+
+def place_params(whole: Mapping, cfg: RecSysConfig):
+    """``(params, placements)``: this process's piece of each of ``whole``'s
+    leaves (tensors), on the mesh's device, and their placements
+    (:func:`placements`); ``(whole, None)`` without a ``"model"`` axis."""
+    place = placements(cfg)
+    if place is None:
+        return whole, None
+    return sharding.place_tree(whole, place), place
+
+
 def params_from_numpy(tree: Mapping, device: str | torch.device = "cuda") -> dict:
     """The reference's ``init_params`` tree (as numpy) as the port's tree on
     ``device``, value for value."""
@@ -240,48 +352,84 @@ def numpy_params(params: Mapping) -> dict:
 # --------------------------------------------------------------------------
 # Interactions
 # --------------------------------------------------------------------------
-def cin_apply(params: Mapping, emb: torch.Tensor, dtype=None) -> torch.Tensor:
+def cin_apply(params: Mapping, emb: torch.Tensor, dtype=None, widths=None) -> torch.Tensor:
     """Compressed Interaction Network (xDeepFM eq. 6-8).
 
     emb: (B, m, D).  Layer k: z = outer(X_k, X_0) over fields, 1x1 conv.
-    Sum-pool each layer over D, concat, project to a logit -> (B,)."""
-    x0 = xk = emb
+    Sum-pool each layer over D, concat, project to a logit -> (B,).
+    ``widths`` (the config's ``cin_layers``) marks the split layers: a
+    layer's inputs enter through ``copy_to``, its columns and pooled sums
+    are gathered whole, and ``cin_out``'s rows take this process's slice of
+    the pooled features, summed over the group."""
+    xk = emb
+    x0 = {}  # X_0 as it enters a split layer (its gradient summed once) or a whole one
     pooled = []
-    with ieee_f32_matmul():
-        for lp in params["cin"]:
-            z = torch.einsum("bhd,bmd->bhmd", xk, x0)  # (B, Hk, m, D)
+    n = len(params["cin"])
+    for i, lp in enumerate(params["cin"]):
+        tp = None if widths is None else _split(lp["w"].shape[1], widths[i])
+        if (tp is None) not in x0:
+            x0[tp is None] = mesh_mod.copy_to(tp, emb)
+        x0c = x0[tp is None]
+        with ieee_f32_matmul():
+            z = torch.einsum("bhd,bmd->bhmd", x0c if i == 0 else mesh_mod.copy_to(tp, xk), x0c)
             B, Hk, m, D = z.shape
             # (B, Hnext, D): the 1x1 "conv" over field pairs
             xk = torch.relu(torch.einsum("bqd,qh->bhd", z.reshape(B, Hk * m, D),
                                          lp["w"].to(z.dtype)))
-            pooled.append(xk.sum(dim=-1))  # (B, Hnext)
+        pooled.append(mesh_mod.gather_along(tp, xk.sum(dim=-1), -1))  # (B, Hnext)
+        if i < n - 1:
+            xk = mesh_mod.gather_along(tp, xk, 1)
     feats = torch.cat(pooled, dim=-1)
-    return L.dense_bias(params["cin_out"]["w"], params["cin_out"]["b"], feats)[:, 0]
+    w, b = params["cin_out"]["w"], params["cin_out"]["b"]
+    tp = _split(w.shape[0], feats.shape[-1])
+    if tp is not None:
+        r = w.shape[0]
+        feats = mesh_mod.copy_to(tp, feats)[:, tp.rank * r:(tp.rank + 1) * r]
+    return (mesh_mod.reduce_from(tp, L.dense(w, feats)) + b)[:, 0]
+
+
+def _attend(q, k, v, dh: int, tp) -> torch.Tensor:
+    """Softmax attention of this process's columns (B, S, c) of q, k and v:
+    on whole heads where its columns hold them; else every head scored from
+    the gathered q and k, and this process's columns of the output."""
+    B, S, c = q.shape
+    with ieee_f32_matmul():
+        if c % dh == 0:
+            q, k, v = (t.reshape(B, S, -1, dh) for t in (q, k, v))
+            s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh**-0.5
+            w = torch.softmax(s.float(), dim=-1).to(q.dtype)
+            return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, c)
+        qg, kg = (mesh_mod.copy_to(tp, mesh_mod.gather_along(tp, t, -1)).reshape(B, S, -1, dh)
+                  for t in (q, k))
+        s = torch.einsum("bqhd,bkhd->bhqk", qg, kg) * dh**-0.5
+        w = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        heads = torch.arange(tp.rank * c, (tp.rank + 1) * c, device=q.device) // dh
+        return torch.einsum("bjqk,bkj->bqj", w[:, heads], v)
 
 
 def encoder_block(p: Mapping, x: torch.Tensor, n_heads: int, dtype=None) -> torch.Tensor:
-    """Post-LN transformer encoder block (BST / BERT4Rec style)."""
+    """Post-LN transformer encoder block (BST / BERT4Rec style); ``x`` whole,
+    the attention's and the FFN's products split where their leaves are."""
     B, S, d = x.shape
     dh = d // n_heads
-    a = p["attn"]
-    q = L.dense(a["wq"]["w"], x, dtype).reshape(B, S, -1, dh)
-    k = L.dense(a["wk"]["w"], x, dtype).reshape(B, S, -1, dh)
-    v = L.dense(a["wv"]["w"], x, dtype).reshape(B, S, -1, dh)
-    with ieee_f32_matmul():
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * dh**-0.5
-        w = torch.softmax(s.float(), dim=-1).to(q.dtype)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, S, -1)
-    x = L.layernorm(p["ln1"]["g"], p["ln1"]["b"], x + L.dense(a["wo"]["w"], o, dtype))
-    f = p["ffn"]
-    h = F.gelu(L.dense_bias(f["w1"]["w"], f["w1"]["b"], x, dtype), approximate="tanh")
-    return L.layernorm(p["ln2"]["g"], p["ln2"]["b"],
-                       x + L.dense_bias(f["w2"]["w"], f["w2"]["b"], h, dtype))
+    a, f = p["attn"], p["ffn"]
+    tp = _split(a["wq"]["w"].shape[1], d)
+    xin = mesh_mod.copy_to(tp, x)
+    q, k, v = (L.dense(a[n]["w"], xin, dtype) for n in ("wq", "wk", "wv"))
+    o = mesh_mod.reduce_from(tp, L.dense(a["wo"]["w"], _attend(q, k, v, dh, tp), dtype))
+    x = L.layernorm(p["ln1"]["g"], p["ln1"]["b"], x + o)
+    tp = _split(f["w1"]["w"].shape[1], 4 * d)
+    h = F.gelu(L.dense_bias(f["w1"]["w"], f["w1"]["b"], mesh_mod.copy_to(tp, x), dtype),
+               approximate="tanh")
+    b2 = f["w2"]["b"] if dtype is None else f["w2"]["b"].to(dtype)
+    y = mesh_mod.reduce_from(tp, L.dense(f["w2"]["w"], h, dtype)) + b2
+    return L.layernorm(p["ln2"]["g"], p["ln2"]["b"], x + y)
 
 
 def seq_encode(params: Mapping, cfg: RecSysConfig, seq_ids: torch.Tensor,
                extra_emb: torch.Tensor | None = None) -> torch.Tensor:
     """Embed + position + transformer blocks.  seq_ids (B, S) -> (B, S', d)."""
-    x = F.embedding(seq_ids.long(), params["items"])  # (B, S, d)
+    x = _rows(params["items"], seq_ids.long(), cfg.item_vocab + 2)  # (B, S, d)
     if extra_emb is not None:
         x = torch.cat([x, extra_emb], dim=1)
     x = x + params["pos"][None, : x.shape[1], :]
@@ -295,47 +443,80 @@ def seq_encode(params: Mapping, cfg: RecSysConfig, seq_ids: torch.Tensor,
 # --------------------------------------------------------------------------
 def pointwise_logits(params: Mapping, cfg: RecSysConfig, batch: Mapping) -> torch.Tensor:
     """One logit an example -> (B,)."""
+    widths = cfg.mlp + (1,)
     if cfg.interaction in ("cin", "concat"):
         ids = batch["sparse_ids"]
         emb = field_lookup(params["table"], ids, cfg.hash_size)
         flat = emb.reshape(emb.shape[0], -1)
         if cfg.n_dense:
             flat = torch.cat([flat, batch["dense_feats"]], dim=-1)
-        deep = mlp_apply(params["mlp"], flat.to(cfg.dtype), cfg.dtype)[:, 0]
+        deep = mlp_apply(params["mlp"], flat.to(cfg.dtype), cfg.dtype, widths=widths)[:, 0]
         B, nf = ids.shape
         fields = torch.arange(nf, device=ids.device, dtype=torch.int64)[None, :] * cfg.hash_size
         wide = embedding_bag(
             params["wide"], (ids.long() + fields).reshape(-1),
             torch.arange(B, device=ids.device).repeat_interleave(nf), B,
+            whole_rows=nf * cfg.hash_size,
         )[:, 0]
         logit = deep + wide
         if cfg.interaction == "cin":
-            logit = logit + cin_apply(params, emb.to(cfg.dtype), cfg.dtype)
+            logit = logit + cin_apply(params, emb.to(cfg.dtype), cfg.dtype, cfg.cin_layers)
         return logit
     if cfg.interaction == "transformer-seq":  # BST
-        tgt = F.embedding(batch["target_id"].long(), params["items"])[:, None]
+        tgt = _rows(params["items"], batch["target_id"].long(), cfg.item_vocab + 2)[:, None]
         x = seq_encode(params, cfg, batch["seq_ids"], extra_emb=tgt)
         flat = x.reshape(x.shape[0], -1)
         if cfg.n_dense:
             flat = torch.cat([flat, batch["dense_feats"]], dim=-1)
-        return mlp_apply(params["mlp"], flat.to(cfg.dtype), cfg.dtype)[:, 0]
+        return mlp_apply(params["mlp"], flat.to(cfg.dtype), cfg.dtype, widths=widths)[:, 0]
     if cfg.interaction == "bidir-seq":  # BERT4Rec: score the target at the last position
         state = seq_encode(params, cfg, batch["seq_ids"])[:, -1]  # (B, d)
-        tgt = F.embedding(batch["target_id"].long(), params["items"])
+        tgt = _rows(params["items"], batch["target_id"].long(), cfg.item_vocab + 2)
         return (state * tgt.to(state.dtype)).sum(dim=-1)
     raise ValueError(cfg.interaction)
 
 
-#: the refusal of the family on a mesh of several devices
-MESH_ITEM = "ROADMAP Queue 1 item 8.5.8 (the recsys family over several processes)"
+def _my_rows(B: int) -> slice:
+    """This process's rows of a global batch of B split over the data axes
+    (``sharding.data_mesh``); all of them without one."""
+    mesh = sharding.data_mesh()
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    if B % world:
+        raise ValueError(f"batch {B} does not split over {world} processes")
+    b = B // world
+    return slice(rank * b, (rank + 1) * b)
 
 
-def refuse_mesh(what: str) -> None:
-    """Raise when the active mesh has several devices (module docstring)."""
-    mesh = sharding.active_mesh()
-    n = 1 if mesh is None else math.prod(mesh.shape.values())
-    if n > 1:
-        raise NotImplementedError(f"{what} on a mesh of {n} devices is not ported ({MESH_ITEM})")
+def _masked_ce(params: Mapping, cfg: RecSysConfig, x: torch.Tensor, labels: torch.Tensor,
+               M: int) -> torch.Tensor:
+    """BERT4Rec's cross-entropy summed over the first M masked positions of
+    each row of ``labels`` (B, S), the encoder's output ``x`` (B, S, d);
+    vocab-split where ``items`` is."""
+    B = labels.shape[0]
+    is_masked = labels >= 0
+    # the first M masked slots of each row, in order, then unmasked ones
+    order = torch.argsort((~is_masked).to(torch.uint8), dim=1, stable=True)[:, :M]
+    lmask = torch.gather(is_masked, 1, order).float()
+    xm = torch.gather(x, 1, order[..., None].expand(B, M, x.shape[-1]))  # (B, M, d)
+    lab = torch.gather(labels, 1, order)
+    safe = torch.where(lab >= 0, lab, 0).long()
+    items = params["items"]
+    tp = _split(items.shape[0], cfg.item_vocab + 2)
+    with ieee_f32_matmul():
+        logits = mesh_mod.copy_to(tp, xm.float()) @ items.t()  # (B, M, V or a piece)
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        top = mesh_mod.all_reduce_max(tp, logits.detach().amax(dim=-1))
+        t = safe - tp.rank * n
+        here = (t >= 0) & (t < n)
+        tgt = torch.where(here, torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+        sum_exp, tgt = mesh_mod.reduce_from(
+            tp, torch.stack([torch.exp(logits - top[..., None]).sum(dim=-1), tgt]))
+        logz = top + torch.log(sum_exp)
+    return ((logz - tgt) * lmask).sum()
 
 
 def train_loss(params: Mapping, cfg: RecSysConfig, batch: Mapping,
@@ -343,31 +524,27 @@ def train_loss(params: Mapping, cfg: RecSysConfig, batch: Mapping,
     """``(loss, {"loss": loss})``.  BERT4Rec: cross-entropy over the whole
     catalog at the first ``M = max(int(2 * mask_frac * S), 1)`` masked
     positions of each row (a stable partition; masked positions past M are
-    dropped, as the reference drops them); the others: the mean BCE of the
-    logits against ``labels``."""
-    refuse_mesh("recsys training")
+    dropped, as the reference drops them), over their count; the others:
+    the mean BCE of the logits against ``labels``.
+
+    Under a mesh that splits the batch (``sharding.data_mesh``) ``batch`` is
+    the global batch and this process takes its rows: its loss is their
+    sum over the global batch's count (examples, or masked positions), so
+    the processes' losses sum to the global mean."""
+    labels = batch["labels"]
+    rows = _my_rows(labels.shape[0])
+    mine = {k: v[rows] for k, v in batch.items()}
     if cfg.interaction == "bidir-seq":
-        x = seq_encode(params, cfg, batch["seq_ids"])
-        labels = batch["labels"]  # (B, S) original ids, -1 unmasked
-        B, S = labels.shape
+        S = labels.shape[1]
         M = max_masked or max(int(2 * cfg.mask_frac * S), 1)
-        is_masked = labels >= 0
-        # the first M masked slots of each row, in order, then unmasked ones
-        order = torch.argsort((~is_masked).to(torch.uint8), dim=1, stable=True)[:, :M]
-        sel_valid = torch.gather(is_masked, 1, order)
-        xm = torch.gather(x, 1, order[..., None].expand(B, M, x.shape[-1]))  # (B, M, d)
-        lab = torch.gather(labels, 1, order)
-        with ieee_f32_matmul():
-            logits = xm.float() @ params["items"].t()  # (B, M, V)
-        lmask = sel_valid.float()
-        safe = torch.where(lab >= 0, lab, 0).long()
-        logz = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
-        loss = ((logz - tgt) * lmask).sum() / torch.clamp(lmask.sum(), min=1.0)
+        x = seq_encode(params, cfg, mine["seq_ids"])
+        count = torch.clamp((labels >= 0).sum(dim=1), max=M).sum().float()
+        loss = _masked_ce(params, cfg, x, mine["labels"], M) / torch.clamp(count, min=1.0)
         return loss, {"loss": loss}
-    logit = pointwise_logits(params, cfg, batch)
-    y = batch["labels"].float()
-    loss = torch.mean(torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit))))
+    logit = pointwise_logits(params, cfg, mine)
+    y = mine["labels"].float()
+    bce = torch.clamp(logit, min=0) - logit * y + torch.log1p(torch.exp(-torch.abs(logit)))
+    loss = bce.sum() / labels.shape[0]
     return loss, {"loss": loss}
 
 
@@ -388,7 +565,7 @@ def candidate_scores(params: Mapping, cfg: RecSysConfig, batch: Mapping) -> torc
     cand = batch["candidate_ids"]
     if cfg.interaction == "bidir-seq":
         state = seq_encode(params, cfg, batch["seq_ids"])[0, -1]
-        emb = F.embedding(cand.long(), params["items"])  # (n, d)
+        emb = _rows(params["items"], cand.long(), cfg.item_vocab + 2)  # (n, d)
         with ieee_f32_matmul():
             return emb.float() @ state.float()
     n = cand.shape[0]
@@ -406,7 +583,23 @@ def candidate_scores(params: Mapping, cfg: RecSysConfig, batch: Mapping) -> torc
 def retrieval_scores(params: Mapping, cfg: RecSysConfig, batch: Mapping, top_k: int = 100):
     """batch: one user's context and ``candidate_ids`` (n,) -> the top-k
     ``(scores, positions in candidate_ids)``, ties toward the lower
-    position (``jax.lax.top_k``'s order); positions int32 as there."""
-    refuse_mesh("recsys candidate retrieval")
-    scores, idx = stable_topk(candidate_scores(params, cfg, batch), top_k)
+    position (``jax.lax.top_k``'s order); positions int32 as there.
+
+    Under a mesh that splits the batch over W processes
+    (``sharding.data_mesh``) with n a multiple of W, each process scores
+    its contiguous piece of the candidates, takes its top-k with the
+    positions made global, and the pieces merge over those processes
+    (``merge_topk``: by score, then the lower position)."""
+    cand = batch["candidate_ids"]
+    n = cand.shape[0]
+    mesh = sharding.data_mesh()
+    world = 1 if mesh is None else mesh.world_size
+    if world == 1 or n % world:
+        scores, idx = stable_topk(candidate_scores(params, cfg, batch), top_k)
+        return scores, idx.to(torch.int32)
+    c = n // world
+    first = mesh.rank * c
+    piece = dict(batch, candidate_ids=cand[first:first + c])
+    scores, idx = stable_topk(candidate_scores(params, cfg, piece), min(top_k, c))
+    scores, idx = merge_topk([scores], [idx + first], top_k, mesh=mesh)
     return scores, idx.to(torch.int32)

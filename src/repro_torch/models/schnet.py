@@ -16,10 +16,22 @@ Two input regimes:
 
 The parameters are the reference's tree, the interaction blocks stacked on
 a leading axis (one tensor a leaf, ``n_interactions`` long); ``forward``
-loops over that axis where the reference scans it.  The reference splits
-the edges over the mesh axes that ``"edges"`` maps to (``shard_map``, one
-``psum``); the port runs them on one device and refuses a mesh whose edge
-axes exceed 1 (ROADMAP Queue 1 item 8.5.7).
+loops over that axis where the reference scans it.
+
+On a mesh whose axes ``"edges"`` maps to hold several processes (one
+device a process, ``distributed.sharding.use_mesh``) the edges split as
+the reference's ``shard_map`` splits them: each process takes its
+contiguous slice of the edge arrays (E padded to a multiple of the
+processes with ``edge_mask`` 0), computes the radial basis and every
+interaction's edge work (the filter MLP, the gather, the multiply and the
+segment sum) on that slice, and one all-reduce a block sums the (N, d)
+partial aggregates (``launch.mesh.reduce_from``).  ``xw`` and the filter
+layers enter through ``copy_to``, so their gradients, partial in each
+process, are summed too.  The nodes and every node-space product are
+whole on each process, so each process's loss and gradients are the
+whole graph's: ``train_loss`` returns its share over the processes that
+split the batch (``sharding.data_mesh``), which ``training.loop`` sums
+back to the whole.
 """
 from __future__ import annotations
 
@@ -30,12 +42,9 @@ from typing import Mapping
 import torch
 
 from repro_torch.distributed import sharding
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import layers as L
 from repro_torch.training import tree as tree_lib
-
-#: the refusal of an edge split over a mesh
-EDGE_MESH_ITEM = "ROADMAP Queue 1 item 8.5.7 (SchNet's edge split over a mesh)"
-
 
 @dataclasses.dataclass(frozen=True)
 class SchNetConfig:
@@ -130,23 +139,38 @@ def numpy_params(params: Mapping) -> dict:
     return tree_lib.to_numpy(params)
 
 
-def _edge_shards() -> int:
-    """How many pieces the active mesh and rules cut the edge axis into."""
+def edge_mesh():
+    """The sub-mesh of the active mesh's axes that ``"edges"`` maps to under
+    the active rules when it holds several processes, else None."""
     mesh = sharding.active_mesh()
     if mesh is None:
-        return 1
+        return None
     phys = sharding.active_rules().get("edges") or ()
-    axes = (phys,) if isinstance(phys, str) else tuple(phys)
-    return math.prod(mesh.shape[a] for a in axes if a in mesh.axis_names)
+    axes = tuple(a for a in ((phys,) if isinstance(phys, str) else phys) if a in mesh.axis_names)
+    if math.prod(mesh.shape[a] for a in axes) <= 1:
+        return None
+    return mesh.sub(*axes)
 
 
-def refuse_edge_split() -> None:
-    """Raise when the active mesh and rules split the edges (module
-    docstring)."""
-    if _edge_shards() > 1:
-        raise NotImplementedError(
-            f"SchNet on a mesh that splits the edges over {_edge_shards()} devices is not "
-            f"ported ({EDGE_MESH_ITEM})")
+def _edge_slice(batch: Mapping, mesh) -> dict:
+    """This process's contiguous slice of ``batch``'s edge arrays (E padded
+    to a multiple of ``mesh``'s processes, padding masked out)."""
+    names = [k for k in ("edge_src", "edge_dst", "edge_dist", "edge_mask") if k in batch]
+    E = batch["edge_src"].shape[0]
+    c = -(-E // mesh.world_size)
+    lo, hi = mesh.rank * c, min((mesh.rank + 1) * c, E)
+    out = {}
+    for k in names:
+        x = batch[k][lo:hi]
+        pad = c - x.shape[0]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+        out[k] = x
+    if "edge_mask" not in batch:
+        mask = torch.zeros((c,), device=batch["edge_src"].device)
+        mask[: max(hi - lo, 0)] = 1.0
+        out["edge_mask"] = mask
+    return out
 
 
 def _dense_bias(p: Mapping, x: torch.Tensor) -> torch.Tensor:
@@ -160,12 +184,14 @@ def _cfconv_aggregate(p: Mapping, xw, edge_src, edge_dst, rbf, n_nodes: int, edg
     return msg.new_zeros((n_nodes, msg.shape[1])).index_add(0, edge_dst.long(), msg)
 
 
-def interaction(p: Mapping, x, edge_src, edge_dst, rbf, n_nodes: int, edge_mask):
+def interaction(p: Mapping, x, edge_src, edge_dst, rbf, n_nodes: int, edge_mask, mesh=None):
     """One continuous-filter convolution block (cfconv + atom-wise), ``p``
-    one block's leaves."""
-    refuse_edge_split()
+    one block's leaves; with ``mesh`` (:func:`edge_mesh`) the edge arrays
+    are this process's slice and the aggregates are summed over it."""
     xw = L.dense(p["w_in"]["w"], x)  # (N, d)
-    agg = _cfconv_aggregate(p, xw, edge_src, edge_dst, rbf, n_nodes, edge_mask)
+    filt = {k: {n: mesh_mod.copy_to(mesh, t) for n, t in p[k].items()} for k in ("filter1", "filter2")}
+    agg = mesh_mod.reduce_from(mesh, _cfconv_aggregate(
+        filt, mesh_mod.copy_to(mesh, xw), edge_src, edge_dst, rbf, n_nodes, edge_mask))
     v = shifted_softplus(_dense_bias(p["w_out"], agg))
     return x + _dense_bias(p["w_post"], v)
 
@@ -175,13 +201,15 @@ def forward(params: Mapping, cfg: SchNetConfig, batch: Mapping) -> torch.Tensor:
     (E,), graph_id (N,), edge_mask (E,), node_mask (N,)} or the graph
     regime {feat (N, d_feat), edge_src / edge_dst (E,), edge_dist (E,),
     ...} -> (N, n_classes or 1)."""
-    src, dst = batch["edge_src"], batch["edge_dst"]
-    edge_mask = batch.get("edge_mask")
+    mesh = edge_mesh()
+    edges = batch if mesh is None else _edge_slice(batch, mesh)
+    src, dst = edges["edge_src"], edges["edge_dst"]
+    edge_mask = edges.get("edge_mask")
     if edge_mask is None:
         edge_mask = torch.ones(src.shape[0], device=src.device)
     if cfg.d_feat:
         x = L.dense(params["input"]["w"], batch["feat"].to(cfg.dtype))
-        dist = batch["edge_dist"]
+        dist = edges["edge_dist"]
     else:
         x = params["input"]["embed"][batch["z"].long()]
         pos = batch["pos"]
@@ -192,14 +220,17 @@ def forward(params: Mapping, cfg: SchNetConfig, batch: Mapping) -> torch.Tensor:
     inters = params["interactions"]
     for i in range(cfg.n_interactions):
         p = tree_lib.tree_map(lambda a: a[i], inters)
-        x = interaction(p, x, src, dst, rbf, n_nodes, edge_mask)
+        x = interaction(p, x, src, dst, rbf, n_nodes, edge_mask, mesh)
     h = shifted_softplus(_dense_bias(params["head"]["h1"], x))
     return _dense_bias(params["head"]["h2"], h)
 
 
 def train_loss(params: Mapping, cfg: SchNetConfig, batch: Mapping):
     """``(loss, {"loss": loss})``: the masked mean node NLL (graph regime)
-    or the mean squared error of each molecule's summed atom energies."""
+    or the mean squared error of each molecule's summed atom energies;
+    under a mesh that splits the batch over W processes
+    (``sharding.data_mesh``) each process's share, 1 / W of it (module
+    docstring)."""
     out = forward(params, cfg, batch)
     if cfg.n_classes:
         labels = batch["labels"].long()
@@ -217,4 +248,7 @@ def train_loss(params: Mapping, cfg: SchNetConfig, batch: Mapping):
         n_graphs = batch["energy"].shape[0]
         energy = atom_e.new_zeros((n_graphs,)).index_add(0, batch["graph_id"].long(), atom_e)
         loss = torch.mean((energy - batch["energy"]) ** 2)
+    data = sharding.data_mesh()
+    if data is not None:
+        loss = loss / data.world_size
     return loss, {"loss": loss}

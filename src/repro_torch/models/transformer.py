@@ -1055,14 +1055,7 @@ def state_placements(model: Transformer, state: Mapping):
     "opt": {"mu", "nu", "step"[, "ef"]}}`` of ``model`` (the moments
     placed as the parameters, the step replicated), or None without a
     ``"model"`` axis."""
-    place = model.placement_tree()
-    if place is None:
-        return None
-    out = {"params": place}
-    if "opt" in state:
-        step = sharding.Placement(model.device, (), model.tp)
-        out["opt"] = {k: (step if k == "step" else place) for k in state["opt"]}
-    return out
+    return sharding.state_placements(model.placement_tree(), state)
 
 
 def _normal(shape, scale: float, g: torch.Generator) -> torch.Tensor:

@@ -20,9 +20,10 @@ the kernels' meta paths and cost models (``kernels.costs``).
   output shape and dtype and charges its model, counting no launch; a CPU
   tensor never takes it.
 * The sweep: every LM serving cell and both search cells are ``ok`` on
-  both meshes, one LM train cell of each kind (dense, MoE) too, and every
-  ``fail`` of the other families is a ``NotImplementedError`` naming its
-  ROADMAP item.
+  both meshes, one LM train cell of each kind (dense, MoE) too, every
+  recsys and SchNet cell as well (a recsys rank holding the plan's bytes
+  but for the leaves the port keeps whole), and every ``fail`` of the
+  other families is a ``NotImplementedError`` naming its ROADMAP item.
 
 This file imports no JAX (the reference's plan comes from a subprocess),
 so its ``gpu`` case runs on the card: the search cells at reduced width,
@@ -382,6 +383,37 @@ def test_the_sweep_records_are_ok_or_fail_naming_their_item(arch, cell):
             assert rec["mem_args_plan"] > 0 and rec["dominant"] in ("compute", "memory",
                                                                      "collective")
             json.dumps(rec)
+
+
+FAMILY_MESH = [(a, c.name) for a in ("wide-deep", "xdeepfm", "bst", "bert4rec", "schnet")
+               for c in tconfigs.get(a).CELLS]
+#: what a rank of the port holds unsplit where the plan splits it, by cell
+#: kind: the global batch of a train step (every process is handed it) with
+#: the "embed_fsdp" leaves whole over "data" (ROADMAP Queue 1 item 8.5.2),
+#: and a retrieval cell's candidate ids
+WHOLE_IN_THE_PORT = {"train": {"embed_fsdp": None, "batch": None}, "serve": {},
+                     "retrieval": {"candidates": None}}
+
+
+@pytest.mark.parametrize("arch,cell", FAMILY_MESH, ids=[f"{a}-{c}" for a, c in FAMILY_MESH])
+def test_the_recsys_and_schnet_records_are_ok_on_both_meshes(arch, cell):
+    """The recsys family over several processes and SchNet's edge split:
+    every record ``ok`` on 16 x 16 and 2 x 16 x 16.  Wide&Deep's and
+    xDeepFM's ranks hold what the plan holds but for WHOLE_IN_THE_PORT,
+    byte for byte (serve_p99: ~0.35 GB, not the whole 5.54 GB table)."""
+    kind = tconfigs.cells_of(arch)[cell].kind
+    for multi in (False, True):
+        rec = dryrun.run_cell(arch, cell, multi, verbose=False)
+        assert rec["status"] == "ok", rec
+        if arch not in ("wide-deep", "xdeepfm"):
+            continue
+        mesh = tmesh.make_dry_mesh(multi_pod=multi)
+        with sharding.use_mesh(mesh, dict(dryrun.dry_rules(kind), **WHOLE_IN_THE_PORT[kind])):
+            held = tcells.plan_bytes(tcells.cell_plan(arch, cell))
+        assert rec["mem_args"] == held, (rec["mem_args"], held, rec["mem_args_plan"])
+        assert (rec["mem_args"] > rec["mem_args_plan"]) == (kind == "train"), rec
+        if arch == "wide-deep" and cell == "serve_p99":
+            assert 0.3e9 < rec["mem_args"] < 0.4e9, rec
 
 
 def test_the_search_cells_launch_k1_and_k2_meta_paths():

@@ -273,15 +273,36 @@ def test_embedding_bag_sums_and_means_by_bag():
     assert torch.equal(mean, torch.stack([want[0], want[1], want[2] * 2 / 3, want[3]]))
 
 
+@needs_ref
 def test_the_recsys_family_refuses_a_data_mesh(monkeypatch):
-    """Over several processes the recsys family is not ported: the refusal
-    names ROADMAP Queue 1 item 8.5 before anything is drawn."""
+    """The refusal of a data mesh is gone: under a mesh that splits the
+    batch over two processes (each stood in for here by its rank and size)
+    ``train_loss`` takes that process's rows of the global batch, and the
+    two shares' losses and gradients sum to the reference's global ones
+    (the BCE over the global batch's size; BERT4Rec's cross-entropy over
+    the global batch's masked count).  ``tests/test_torch_recsys_mesh.py``
+    runs real process groups."""
     import types
 
-    monkeypatch.setattr(ttrain.sharding, "data_mesh", lambda: types.SimpleNamespace(world_size=2))
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.5"):
-        ttrain.run(["--arch", "wide-deep", "--reduced", "--device", "cpu", "--steps", "1",
-                    "--batch", "8"])
+    for arch in ("wide-deep", "bert4rec"):
+        rcfg, tcfg = cfgs(arch)
+        tree = ref_tree(arch)
+        b = next(rsyn.recsys_batches(rcfg, B, seed=1))
+        (want, _), wgrads = jax.jit(jax.value_and_grad(
+            lambda p, bb: rR.train_loss(p, rcfg, bb), has_aux=True))(
+                jax.tree_util.tree_map(jnp.asarray, tree), jbatch(b))
+        shares = []
+        for rank in range(2):
+            monkeypatch.setattr(tR.sharding, "data_mesh",
+                                lambda r=rank: types.SimpleNamespace(rank=r, world_size=2))
+            shares.append(tloop.value_and_grad(lambda p, bb: tR.train_loss(p, tcfg, bb),
+                                               tR.params_from_numpy(tree, "cpu"), tbatch(b)))
+        monkeypatch.undo()
+        (l0, _), g0 = shares[0]
+        (l1, _), g1 = shares[1]
+        assert float(l0) != float(l1), arch  # two different halves of the batch
+        np.testing.assert_allclose(float(l0 + l1), float(want), **TOL)
+        assert_trees_close(ttree.tree_map(torch.add, g0, g1), wgrads, **TOL)
 
 
 # --------------------------------------------------------------------------
@@ -309,3 +330,68 @@ def test_reduced_step_on_the_card_equals_the_host(arch):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for g, w in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def _card_rank(rank, tmp, arch, tree, batch):
+    """One of two gloo ranks sharing ``cuda:0`` on a 1 x 2 mesh: one AdamW
+    step of the reduced config from ``tree``, the weights gathered whole."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.init_distributed(f"file://{tmp}/rendezvous", 2, rank, backend="gloo")
+    try:
+        torch.cuda.set_device(0)
+        cfg = tconfigs.get(arch).reduced_config()
+        mesh = tmesh.make_production_mesh(device="cuda", model=2)
+        with sharding.use_mesh(mesh):
+            params, place = tR.place_params(tR.params_from_numpy(tree, "cuda"), cfg)
+            opt = topt.adamw(topt.AdamWConfig(schedule=topt.cosine_schedule(1e-3, 2, 10)))
+            step = tloop.make_train_step(lambda p, bb: tR.train_loss(p, cfg, bb), opt, n_micro=2,
+                                         placements=place)
+            p, _, m = step(params, tloop.init_opt_state(opt, params), tbatch(batch, "cuda"))
+            whole = ttree.leaves(ttree.to_numpy(sharding.gather_tree(p, place)))
+        np.savez(f"{tmp}/rank{rank}.npz", np.array(float(m["loss"])), *whole)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_equal_the_host(tmp_path):
+    """BERT4Rec's reduced config (its 202 items split in two) over two gloo
+    ranks sharing the card (NCCL refuses two ranks on one card) against one
+    process on the host, from the same weights and batch: the losses rtol
+    1e-5, the gathered weights after one AdamW step rtol 1e-4 / atol
+    1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs two ranks on the card against the host")
+    import torch.multiprocessing as mp
+
+    arch = "bert4rec"
+    cfg = tconfigs.get(arch).reduced_config()
+    tree = tR.numpy_params(tR.init_params(cfg, torch.Generator().manual_seed(0)))
+    b = next(tsyn.recsys_batches(cfg, 16, seed=1))
+    procs = [mp.get_context("spawn").Process(target=_card_rank, args=(r, str(tmp_path), arch, tree, b))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        opt = topt.adamw(topt.AdamWConfig(schedule=topt.cosine_schedule(1e-3, 2, 10)))
+        params = tR.params_from_numpy(tree, "cpu")
+        step = tloop.make_train_step(lambda p, bb: tR.train_loss(p, cfg, bb), opt, n_micro=2)
+        host, _, m = step(params, tloop.init_opt_state(opt, params), tbatch(b))
+    finally:
+        for p in procs:
+            p.join(240)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+    assert [p.exitcode for p in procs] == [0, 0], [p.exitcode for p in procs]
+    for r in range(2):
+        z = np.load(tmp_path / f"rank{r}.npz")
+        got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        np.testing.assert_allclose(float(got[0]), float(m["loss"]), rtol=1e-5)
+        for g, w in zip(got[1:], ttree.leaves(ttree.to_numpy(host)), strict=True):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)

@@ -196,20 +196,72 @@ def test_model_flops_of_the_full_cells_equal_the_reference():
                 rcfg, N, E, train), c.name
 
 
-def test_an_edge_split_over_a_mesh_is_refused_naming_the_roadmap():
-    """The reference splits the edges over the mesh axes ``"edges"`` maps
-    to; the port refuses such a mesh, naming ROADMAP Queue 1 item 8.5."""
+def _edge_rank(rank, tmp, tree, batch):
+    """One of two gloo ranks of a 2 x 1 mesh: SchNet's forward and loss with
+    the edges split in two, written to ``{tmp}/rank{rank}.npz``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    torch.set_num_threads(1)
+    tmesh.init_distributed(f"file://{tmp}/rendezvous", 2, rank, backend="gloo")
+    try:
+        cfg = tconfigs.get("schnet").reduced_config()
+        mesh = tmesh.make_production_mesh(device="cpu")
+        params = tS.params_from_numpy(tree, "cpu")
+        b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        with tsharding.use_mesh(mesh):
+            out = tS.forward(params, cfg, b)
+            loss, _ = tS.train_loss(params, cfg, b)
+            shards = tS.edge_mesh().world_size
+        np.savez(f"{tmp}/rank{rank}.npz", out=out.numpy(), loss=loss.numpy(), shards=shards)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@needs_ref
+def test_an_edge_split_over_a_mesh_is_refused_naming_the_roadmap(tmp_path):
+    """The refusal of an edge split is gone: on a 2 x 1 mesh of two gloo
+    ranks (``"edges"`` over both) the forward over 21 edges, split 11 + 10
+    and padded, equals the reference's, and each rank's loss is half the
+    reference's (its share: the data axis sums the two).  One edge shard
+    (no mesh) takes the single-device path."""
+    import torch.multiprocessing as mp
+
+    rcfg = rconfigs.get("schnet").reduced_config()
     cfg = tconfigs.get("schnet").reduced_config()
-    params = tS.init_params(cfg, torch.Generator().manual_seed(0))
-    batch = {k: torch.as_tensor(v) for k, v in tgraphs.molecule_batch(2, 5, 6).items()}
-    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1}, axis_names=("data", "model"))
-    with tsharding.use_mesh(mesh):
-        with pytest.raises(NotImplementedError,
-                           match=r"splits the edges over 2 devices .*Queue 1 item 8\.5"):
-            tS.forward(params, cfg, batch)
-    one = types.SimpleNamespace(shape={"data": 1, "model": 1}, axis_names=("data", "model"))
-    with tsharding.use_mesh(one):  # one edge shard: the single-device path
-        assert torch.isfinite(tS.forward(params, cfg, batch)).all()
+    tree = ref_tree(rcfg)
+    batch = tgraphs.molecule_batch(3, 5, 7, seed=2)
+    procs = [mp.get_context("spawn").Process(target=_edge_rank, args=(r, str(tmp_path), tree, batch))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        jb = {k: jnp.asarray(v) for k, v in batch.items()}
+        params = jax.tree_util.tree_map(jnp.asarray, tree)
+        want_out = np.asarray(rS.forward(params, rcfg, jb))
+        want_loss = float(rS.train_loss(params, rcfg, jb)[0])
+    finally:
+        for p in procs:
+            p.join(240)
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.terminate()
+            p.join(10)
+    assert not alive and [p.exitcode for p in procs] == [0, 0], [p.exitcode for p in procs]
+    for r in range(2):
+        rec = np.load(tmp_path / f"rank{r}.npz")
+        assert int(rec["shards"]) == 2
+        np.testing.assert_allclose(rec["out"], want_out, **TOL)
+        np.testing.assert_allclose(float(rec["loss"]), want_loss / 2, **TOL)
+    assert tS.edge_mesh() is None
+    with tsharding.use_mesh(types.SimpleNamespace(shape={"data": 1, "model": 1},
+                                                  axis_names=("data", "model"))):
+        assert tS.edge_mesh() is None  # one edge shard: the single-device path
+        params = tS.init_params(cfg, torch.Generator().manual_seed(0))
+        b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        assert torch.isfinite(tS.forward(params, cfg, b)).all()
 
 
 def test_launch_train_sends_schnet_to_its_cells_as_the_reference_does():
@@ -244,3 +296,63 @@ def test_reduced_step_on_the_card_equals_the_host(cell):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for g, w in zip(out["cuda"][1], out["cpu"][1]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def _card_rank(rank, tmp, tree, batch):
+    """One of two gloo ranks sharing ``cuda:0`` on a 1 x 2 mesh: the
+    molecule cell's donating step (``gnn_cell(mesh=)``), the edges split."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+
+    tmesh.init_distributed(f"file://{tmp}/rendezvous", 2, rank, backend="gloo")
+    try:
+        torch.cuda.set_device(0)
+        c = cell_of("molecule")
+        mesh = tmesh.make_production_mesh(device="cuda", model=2)
+        built = tcells.gnn_cell("schnet", tconfigs.get("schnet").reduced_config(), c, c.reduced,
+                                "cuda", batch=batch, params=tS.params_from_numpy(tree, "cuda"),
+                                mesh=mesh)
+        params, _, m = built.fn(*built.args)
+        np.savez(f"{tmp}/rank{rank}.npz", np.array(float(m["loss"])),
+                 *ttree.leaves(ttree.to_numpy(params)))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_the_molecule_cell_over_two_ranks_on_the_card_equals_the_host(tmp_path):
+    """The ``molecule`` cell's step with its edges split over two gloo ranks
+    sharing the card against the same cell in one process on the host,
+    from the same weights and batch: the losses rtol 1e-5, the weights
+    after the step rtol 1e-4 / atol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: runs two ranks on the card against the host")
+    import torch.multiprocessing as mp
+
+    c = cell_of("molecule")
+    base = tconfigs.get("schnet").reduced_config()
+    tree = tS.numpy_params(tS.init_params(base, torch.Generator().manual_seed(0)))
+    b = tcells.gnn_batch(c.kind, c.reduced)
+    procs = [mp.get_context("spawn").Process(target=_card_rank, args=(r, str(tmp_path), tree, b))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        built = tcells.gnn_cell("schnet", base, c, c.reduced, "cpu", batch=b,
+                                params=tS.params_from_numpy(tree, "cpu"))
+        host, _, m = built.fn(*built.args)
+    finally:
+        for p in procs:
+            p.join(240)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+    assert [p.exitcode for p in procs] == [0, 0], [p.exitcode for p in procs]
+    for r in range(2):
+        z = np.load(tmp_path / f"rank{r}.npz")
+        got = [z[f"arr_{i}"] for i in range(len(z.files))]
+        np.testing.assert_allclose(float(got[0]), float(m["loss"]), rtol=1e-5)
+        for g, w in zip(got[1:], ttree.leaves(ttree.to_numpy(host)), strict=True):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
