@@ -310,8 +310,22 @@ Phases, one JSON line each, any failure ends the run with a non-zero exit:
                steps, each loss within 1e-4 of the one-process run's, the
                replicated leaves bit-identical on both ranks (checkpoint
                writes skipped for time on both sides; the CPU tests hold
-               them).  Step ms, the collectives' ms and bytes (host
-               traffic under gloo) and peak bytes a rank.
+               them).  Then ColBERTv2 at full width (12 layers, 48 padded
+               heads: 24 over 6 a rank): (a) 256 passages of 180 tokens in
+               encodes of 64 and 32 queries of 32 through K7, every
+               vector within cosine LM_TP_COS_MIN of the one process's
+               and, against the one process's f32 twin, within
+               LM_TP_BF16_SPREAD of its own bf16 distance; (b) 3
+               AdamW steps of the train_triples cell (B 8, nway 4, q 32, d
+               180, n_micro 1) in f32, losses within LM_TP_LOSS_RTOL and
+               the stepped weights held as phase family_mesh holds them
+               (params_agree); (c) one int8 step the same way; (d)
+               ``launch.train --arch plaid-colbertv2 --mesh single --model
+               2`` (3 steps in bf16, the first loss within DP_LOSS_RTOL
+               as phase train_dp holds its bf16 ranks).  Step ms, encode
+               ms, the
+               collectives' ms and bytes (host traffic under gloo) and peak
+               bytes a rank.
 19. recsys     the recsys family, PLAID as an item index and SchNet, one
                ``recsys`` line a run: (a) wide-deep, xDeepFM, BST and
                BERT4Rec at full width, each through ``launch.train``'s
@@ -585,6 +599,9 @@ LM_FLASH_CASES = [("yi-34b", 1, 32768, 64, 8, 128), ("granite-34b", 1, 4096, 48,
                   # phase lm_tp's per-rank shapes: half the heads a rank
                   ("granite-34b-tp2", 1, 4096, 24, 1, 128),
                   ("granite-moe-1b-a400m-tp2", 8, 4096, 8, 4, 64)]
+#: K7 at phase lm_tp's ColBERT rank shape: an encode of ENCODE_BATCH
+#: passages, 24 of the 48 padded heads over 6 of the 12 KV heads, not causal
+COLBERT_FLASH_CASE = ("colbert-tp2", ENCODE_BATCH, DOC_MAXLEN, 24, 6, 64, False, torch.bfloat16)
 LM_FLASH_REPS = 5
 #: phase lm: (arch, layers kept or None for all, prefill (B, S), decode (B,
 #: the cell's seq_len, cache_len)).  Cuts: yi-34b keeps 16 of 60 layers
@@ -655,6 +672,28 @@ LM_TP_STEPS = 16
 LM_TP_COS_MIN, LM_TP_ERR_SHARE, LM_TP_LOSS_RTOL = 0.9999, 0.02, 1e-4
 LM_TP_BF16_SPREAD = 2.0
 LM_TP_TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--steps", "5"]
+#: phase lm_tp's ColBERT runs at the full config's widths (12 layers, d 768,
+#: 48 padded heads: 24 over 6 KV heads a rank; the vocabulary split in two),
+#: cut for time (each layer's two all-reduces cross the host): (a)
+#: COLBERT_TP_PASSAGES passages of DOC_MAXLEN tokens (encode_corpus' 4,096
+#: -> 256) in encodes of ENCODE_BATCH, and COLBERT_TP_QUERIES queries of NQ
+#: tokens, through K7; (b) COLBERT_TP_STEPS AdamW steps of train_triples
+#: (nway 4, q NQ, d DOC_MAXLEN; the batch 256 -> 8, n_micro 8 -> 1) in f32,
+#: the precision of the LM_TP_LOSS_RTOL bar; (c) one int8 step of the same
+#: batch from the seeded weights; (d) launch.train's flags: the full config
+#: in its bf16 compute dtype, so its first loss is held at DP_LOSS_RTOL, as
+#: phase train_dp holds its bf16 ranks' first losses (later ones follow
+#: AdamW steps taken on bf16 gradients rounded in other places: on an H100
+#: the second loss of 3 moved 1.3e-3 apart).  (a)'s vectors are held to the one
+#: process's by cosine (LM_TP_COS_MIN) and to its f32 twin by the spread
+#: (LM_TP_BF16_SPREAD, cosine gap and |diff| share): a unit vector's
+#: largest |diff| share is not LM_TP_ERR_SHARE's, made for logit rows (on
+#: an H100 the one process's own bf16 vectors are 2.6% of the largest
+#: element from its f32 twin's)
+COLBERT_TP_PASSAGES, COLBERT_TP_QUERIES = 256, 32
+COLBERT_TP_TRAIN = dict(global_batch=8, q_len=NQ, d_len=DOC_MAXLEN, nway=4, n_micro=1)
+COLBERT_TP_STEPS = 3
+COLBERT_TP_TRAIN_ARGV = ["--arch", "plaid-colbertv2", "--steps", "3"]
 #: the reference's flash test shapes (tests/test_flash_attention.py:10-18):
 #: B, S, H, Hkv, dh, causal
 JAX_FLASH_SHAPES = [(2, 64, 4, 2, 16, True), (1, 128, 8, 1, 32, True),
@@ -1303,7 +1342,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     with Phase("lm_tp") as info:
         info["card"] = smi  # beside every number of the phase's lines
-        # K7's launches: the ranks' prefills (each rank counts its own)
+        # K7's launches: the ranks' prefills and ColBERT encodes (each rank
+        # counts its own)
         lm_tp_counts = lm_tp_phase(args.seed, dev, info)
 
     # ---- 19. the recsys family, PLAID as an item index, SchNet -------------
@@ -1497,7 +1537,7 @@ def flash_cases(dev) -> list:
                   for i, shape in enumerate(JAX_FLASH_SHAPES)]
     lm = [(f"lm_{arch}", B, S, H, Hkv, dh, True, torch.bfloat16)
           for arch, B, S, H, Hkv, dh in LM_FLASH_CASES]
-    return ([flash_check(*c, g, timed=True) for c in enc]
+    return ([flash_check(*c, g, timed=True) for c in enc + [COLBERT_FLASH_CASE]]
             + [flash_check(*c, g, timed=False) for c in jax_shapes]
             + flash_view_cases(dev, g)
             + [flash_check(*c, g, timed=True, reps=LM_FLASH_REPS) for c in lm])
@@ -4516,8 +4556,10 @@ def spy_collectives(dev) -> list:
 def lm_tp_rank(rank: int, tmp: str, seed: int, device: str, reduced: bool) -> None:
     """One of the LM_TP_MODEL ranks sharing ``device`` over gloo on a 1 x
     LM_TP_MODEL mesh: each of LM_TP_RUNS served (the one-process run's
-    expert choices replayed from ``{tmp}/routes{i}.pt``), then (c); every
-    collective timed and its bytes counted.  Writes ``{tmp}/rank{r}.pt``."""
+    expert choices replayed from ``{tmp}/routes{i}.pt``), then (c), then
+    ColBERT's runs (colbert_tp_*; the one process's stepped weights read
+    from ``tmp``); every collective timed and its bytes counted.  Writes
+    ``{tmp}/rank{r}.pt``."""
     mesh_mod.init_distributed(f"file://{tmp}/rendezvous", LM_TP_MODEL, rank, backend="gloo")
     try:
         dev = torch.device(device)
@@ -4541,10 +4583,20 @@ def lm_tp_rank(rank: int, tmp: str, seed: int, device: str, reduced: bool) -> No
                 rec = lm_tp_serve(arch, layers, pbs, dbs, seed + 91 + i, dev, reduced, replay)
                 rec["wire"] = wire[n:]
                 out[arch] = rec
-            n = len(wire)
-            argv = LM_TP_TRAIN_ARGV + ["--mesh", "single", "--model", str(LM_TP_MODEL)]
-            out["train"] = lm_tp_train(argv + (["--reduced"] if reduced else []), dev, f"{tmp}/ckpt")
-            out["train"]["wire"] = wire[n:]
+            red = ["--reduced"] if reduced else []
+            on_mesh = ["--mesh", "single", "--model", str(LM_TP_MODEL)]
+            runs = {
+                "train": lambda: lm_tp_train(LM_TP_TRAIN_ARGV + on_mesh + red, dev, f"{tmp}/ckpt"),
+                "colbert_encode": lambda: colbert_tp_encode(seed + 95, dev, reduced),
+                "colbert_train": lambda: colbert_tp_train(dev, tmp, reduced, mesh),
+                "colbert_int8": lambda: colbert_tp_int8(dev, tmp, reduced, mesh),
+                "colbert_cli": lambda: lm_tp_train(COLBERT_TP_TRAIN_ARGV + on_mesh + red, dev,
+                                                   f"{tmp}/ckpt_colbert"),
+            }
+            for key, run in runs.items():
+                n, t0 = len(wire), time.perf_counter()
+                out[key] = run()
+                out[key].update(wire=wire[n:], run_s=time.perf_counter() - t0)
         torch.save(out, f"{tmp}/rank{rank}.pt")
         torch.distributed.barrier()
     finally:
@@ -4574,24 +4626,263 @@ def _wire_summary(wire, steps: int) -> dict:
                     ms=sum(ms for kk, _, ms in wire if kk == k) / steps) for k in kinds}
 
 
+def colbert_tp_values(reduced: bool) -> tuple:
+    """ColBERT's config and phase lm_tp's cut values: (cfg, passages, their
+    tokens, queries, their tokens, an encode's passages, train_triples'
+    values); a CPU rehearsal's at the reduced config."""
+    if reduced:
+        return (colbert_cfg.reduced_config(), 8, 16, 4, 8, 4,
+                dict(global_batch=4, q_len=8, d_len=16, nway=2, n_micro=1))
+    return (colbert_cfg.full_config(), COLBERT_TP_PASSAGES, DOC_MAXLEN, COLBERT_TP_QUERIES, NQ,
+            ENCODE_BATCH, COLBERT_TP_TRAIN)
+
+
+def colbert_f32_twin(model):
+    """``model``'s weights in an f32 encoder with plain (chunked) attention:
+    the yardstick of the bf16 encodes' distance."""
+    bb = lm_twin(model.backbone, torch.float32, attn_impl="chunked")
+    twin = colbert.ColBERT(dataclasses.replace(model.cfg, backbone=bb.cfg), bb)
+    with torch.no_grad():
+        twin.proj.copy_(model.proj)
+    return twin
+
+
+def colbert_tp_encode(seed, dev, reduced=False, twin=False) -> dict:
+    """(a) The encoder through K7 under the active mesh, from weights and
+    tokens drawn from ``seed`` (whole on every process, each keeping its
+    piece): the valid passage vectors and the query vectors (host), each
+    encode's ms, K7's launches and the peak bytes; with ``twin`` the same
+    vectors from the f32 twin too."""
+    cfg, P, L, Q, Lq, chunk, _ = colbert_tp_values(reduced)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, attn_impl="flash"))
+    _peak_reset(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = colbert.init_params(cfg, g, device=dev)
+    lens = torch.randint(Lq, L + 1, (P,), generator=g, device=dev)
+    toks = torch.randint(0, cfg.backbone.vocab, (P, L), generator=g, device=dev)
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]).float()
+    calls = [(toks[i : i + chunk], mask[i : i + chunk]) for i in range(0, P, chunk)]
+    calls.append((toks[:Q, :Lq], None))  # the queries: a passage's head
+
+    def vectors(m, ms=None):
+        out = []
+        for t, msk in calls:
+            _sync(dev)
+            t0 = time.perf_counter()
+            e = colbert.encode(m, t, msk)
+            _sync(dev)
+            if ms is not None:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out.append((e if msk is None else e[msk.bool()]).reshape(-1, e.shape[-1]).cpu())
+        return torch.cat(out)
+
+    fa.launches = 0
+    ms = []
+    rec = dict(vectors=vectors(model, ms), k7_launches=fa.launches, calls=len(calls),
+               layers=cfg.backbone.n_layers, passages=P, doc_len=L, queries=Q, q_len=Lq,
+               chunk=chunk, encode_ms=ms[:-1], query_ms=ms[-1], peak_device_bytes=_peak(dev),
+               weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    if twin:
+        rec["vectors32"] = vectors(colbert_f32_twin(model))
+    del model
+    return rec
+
+
+def colbert_tp_train(dev, tmp: str, reduced=False, mesh=None) -> dict:
+    """(b) COLBERT_TP_STEPS steps of the train_triples cell
+    (``cells.retrieval_cell``, its seeded weights, batch and donating
+    AdamW step) in f32 at the cut values, under ``mesh`` (None: one
+    process): losses, step ms, peak bytes; the stepped weights saved by
+    the one process and held by each rank (:func:`hold_to_saved`)."""
+    cfg, *_, p = colbert_tp_values(reduced)
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, dtype=torch.float32))
+    _peak_reset(dev)
+    built = cells_mod.retrieval_cell(CELLS_ARCH, cfg, configs.cells_of(CELLS_ARCH)["train_triples"],
+                                     p, dev, mesh=mesh)
+    params, opt_state, batch = built.args
+    losses, ms = [], []
+    for _ in range(COLBERT_TP_STEPS):
+        t0 = time.perf_counter()
+        params, opt_state, m = built.fn(params, opt_state, batch)
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    rec = dict(values=p, dtype="float32", losses=losses, step_ms=ms,
+               step_p50_ms=statistics.median(ms[1:]), peak_device_bytes=_peak(dev))
+    rec.update(hold_to_saved(train_tree.leaves(params), Path(tmp) / "colbert_train",
+                             colbert_placements(cfg, mesh), dev))
+    return rec
+
+
+def colbert_tp_int8(dev, tmp: str, reduced=False, mesh=None) -> dict:
+    """(c) One int8 step (error feedback from zero) of (b)'s weights, batch
+    and optimizer as drawn, under ``mesh`` (each split gradient quantized
+    whole: ``training.loop``): the loss, step ms, the error feedback's
+    largest |value|, the stepped weights as in (b)."""
+    cfg, *_, p = colbert_tp_values(reduced)
+    cfg = dataclasses.replace(cfg, nway=p["nway"], backbone=dataclasses.replace(
+        cfg.backbone, dtype=torch.float32))
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(sharding.use_mesh(mesh))
+        model = colbert.init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        place = model.placement_tree()
+        opt = cells_mod._default_optimizer()
+        step = train_loop.make_train_step(colbert.loss_fn(model), opt, compression="int8",
+                                          donate=True, placements=place)
+        params = colbert.train_params(model)
+        state = train_loop.init_opt_state(opt, params, "int8")
+        batch = next(synthetic.colbert_batches(cfg.backbone.vocab, p["global_batch"],
+                                               q_len=p["q_len"], d_len=p["d_len"], nway=p["nway"]))
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    rec = dict(values=p, dtype="float32", loss=float(m["loss"]), step_ms=ms,
+               ef_max=max(float(e.abs().max()) for e in train_tree.leaves(state["ef"])))
+    rec.update(hold_to_saved(train_tree.leaves(params), Path(tmp) / "colbert_int8",
+                             place and train_tree.leaves(place), dev))
+    del model, params, state
+    return rec
+
+
+def colbert_placements(cfg, mesh):
+    """The leaves' placements of a ColBERT training tree (no ``lm_head``)
+    under ``mesh``, in ``training.tree.leaves`` order; None without one."""
+    if mesh is None:
+        return None
+    with sharding.use_mesh(mesh):
+        place = colbert.ColBERT(cfg, transformer.Transformer(cfg.backbone, "meta")).placement_tree()
+    return place and train_tree.leaves(place)
+
+
+def colbert_tp_lines(ranks: list, one: dict, info: dict) -> int:
+    """Phase lm_tp's ColBERT checks, one ``lm_tp`` line for each of (a)-(c)
+    (``lm_tp_phase`` prints (d)'s).  Returns K7's launches on the ranks'
+    encodes."""
+    mesh_shape = {"data": 1, "model": LM_TP_MODEL}
+    recs = [r["colbert_encode"] for r in ranks]
+    enc = one["colbert_encode"]
+    dim = enc["vectors"].shape[-1]
+    rows = [lm_logits_agree(r["vectors"], enc["vectors"], dim) for r in recs]
+    for row in rows:  # the |diff| share is held by the spread (COLBERT_TP_PASSAGES' note)
+        row["ok"] = row["min_cos"] >= LM_TP_COS_MIN
+    line = dict(
+        run="colbert_encode", layers=enc["layers"], mesh=mesh_shape,
+        cut=dict(passages=enc["passages"], encode_corpus_batch=4096, doc_len=enc["doc_len"],
+                 queries=enc["queries"], q_len=enc["q_len"], encode_batch=enc["chunk"]),
+        vectors=int(enc["vectors"].shape[0]), against_one_process=rows,
+        one_process_bf16_vs_f32=lm_logits_agree(enc["vectors"], enc["vectors32"], dim),
+        ranks_bf16_vs_f32=lm_logits_agree(recs[0]["vectors"], enc["vectors32"], dim),
+        k7_launches=[r["k7_launches"] for r in recs], one_process_k7_launches=enc["k7_launches"],
+        encode_p50_ms=[statistics.median(r["encode_ms"]) for r in recs],
+        one_process_encode_p50_ms=statistics.median(enc["encode_ms"]),
+        query_ms=[r["query_ms"] for r in recs], one_process_query_ms=enc["query_ms"],
+        weight_bytes=[r["weight_bytes"] for r in recs], one_process_weight_bytes=enc["weight_bytes"],
+        peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+        one_process_peak_device_bytes=enc["peak_device_bytes"],
+        collectives=[_wire_summary(r["wire"], 1) for r in recs],
+        run_s=[r["run_s"] for r in recs], one_process_run_s=enc["run_s"])
+    line["bf16_spread"] = bf16_spread(line["ranks_bf16_vs_f32"], line["one_process_bf16_vs_f32"])
+    emit({"lm_tp": line, "card": info["card"]})
+    assert all(x["ok"] for x in rows) and line["bf16_spread"]["ok"], line
+    assert all(bool(torch.isfinite(r["vectors"]).all()) for r in recs), line
+    assert all(torch.equal(recs[0]["vectors"], r["vectors"]) for r in recs), "ranks' vectors"
+    assert all(r["k7_launches"] == r["layers"] * r["calls"] for r in recs), line
+
+    for key, steps in (("colbert_train", COLBERT_TP_STEPS), ("colbert_int8", 1)):
+        recs, want = [r[key] for r in ranks], one[key]
+        got, ref_losses = ((recs[0]["losses"], want["losses"]) if key == "colbert_train"
+                           else ([recs[0]["loss"]], [want["loss"]]))
+        line = dict(run=key, mesh=mesh_shape, steps=steps, losses=got,
+                    one_process_losses=ref_losses,
+                    max_loss_rel=max(abs(a / b - 1) for a, b in zip(got, ref_losses)),
+                    params_outside=[r["params_outside"] for r in recs],
+                    params_held=[r["params_held"] for r in recs],
+                    max_param_abs_diff=[r["max_param_abs_diff"] for r in recs],
+                    adam_flip_bound=adam_flip_bound(steps),
+                    split_leaves=recs[0]["split_leaves"], whole_leaves=recs[0]["whole_leaves"],
+                    replicated_identical=all(torch.equal(r["replicated_checksums"],
+                                                         recs[0]["replicated_checksums"])
+                                             for r in recs),
+                    collectives_a_step=[_wire_summary(r["wire"], steps) for r in recs],
+                    run_s=[r["run_s"] for r in recs], one_process_run_s=want["run_s"])
+        line["cut"] = dict(want["values"], full_batch=256, full_n_micro=8, dtype=want["dtype"])
+        if key == "colbert_train":
+            line.update(step_ms=[r["step_ms"] for r in recs],
+                        step_p50_ms=[r["step_p50_ms"] for r in recs],
+                        one_process_step_ms=want["step_ms"],
+                        one_process_step_p50_ms=want["step_p50_ms"],
+                        peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+                        one_process_peak_device_bytes=want["peak_device_bytes"])
+        else:
+            line.update(step_ms=[r["step_ms"] for r in recs], one_process_step_ms=want["step_ms"],
+                        ef_max=[r["ef_max"] for r in recs], one_process_ef_max=want["ef_max"])
+        emit({"lm_tp": line, "card": info["card"]})
+        assert all(r.get("losses", [r.get("loss")]) == recs[0].get("losses", [recs[0].get("loss")])
+                   for r in recs), "ranks' losses"
+        assert line["max_loss_rel"] <= LM_TP_LOSS_RTOL and line["replicated_identical"], line
+        assert all(params_agree(r["params_outside"], r["params_held"], r["max_param_abs_diff"],
+                                steps) for r in recs), line
+        assert all(r.get("ef_max", 1.0) > 0 for r in recs), line
+    return sum(r["colbert_encode"]["k7_launches"] for r in ranks)
+
+
+def hold_to_saved(leaves: list, out_dir: Path, place, dev) -> dict:
+    """The one process's stepped weights (``place`` None) saved whole to
+    ``out_dir`` (.npy a leaf); a rank's pieces (``place``: the leaves'
+    placements, in order) held to them: the weights outside
+    FAMILY_MESH_PARAM_TOL, the largest difference, the weights held, the
+    split and whole leaves, and the whole leaves' checksums."""
+    if place is None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for i, x in enumerate(leaves):
+            np.save(out_dir / f"{i}.npy", x.cpu().numpy())
+        return {}
+    outside, worst, split, held = 0, 0.0, [], 0
+    for i, (x, pl) in enumerate(zip(leaves, place)):
+        want = torch.from_numpy(np.array(pl.piece(np.load(out_dir / f"{i}.npy",
+                                                          mmap_mode="r")))).to(dev)
+        n, d = _within(x, want, **FAMILY_MESH_PARAM_TOL)
+        outside, worst, held = outside + n, max(worst, d), held + x.numel()
+        split.append(pl.split)
+        del want
+    return dict(params_outside=outside, max_param_abs_diff=worst, params_held=held,
+                split_leaves=sum(split), whole_leaves=len(split) - sum(split),
+                replicated_checksums=train_loop.replica_checksums(
+                    [x for x, s in zip(leaves, split) if not s]).cpu())
+
+
 def lm_tp_phase(seed, dev, info: dict, reduced=False) -> dict:
     """Phase lm_tp (see the module docstring, 18): the one-process runs,
     then the ranks, then the checks; one ``lm_tp`` line a run.  Returns
-    K7's launches on the ranks' main path (their prefills)."""
-    single = []
+    K7's launches on the ranks' main path (their prefills and ColBERT
+    encodes)."""
+    single, t_phase = [], time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         for i, (arch, layers, pbs, dbs) in enumerate(LM_TP_RUNS):
             rec = lm_tp_serve(arch, layers, pbs, dbs, seed + 91 + i, dev, reduced)
             torch.save(rec["routes"], f"{tmp}/routes{i}.pt")
             single.append(rec)
-        train_one = lm_tp_train(LM_TP_TRAIN_ARGV + (["--reduced"] if reduced else []), dev,
-                                f"{tmp}/ckpt_one")
+        red = ["--reduced"] if reduced else []
+        train_one = lm_tp_train(LM_TP_TRAIN_ARGV + red, dev, f"{tmp}/ckpt_one")
+        colbert_one = {}
+        for key, run in (
+                ("colbert_encode", lambda: colbert_tp_encode(seed + 95, dev, reduced, twin=True)),
+                ("colbert_train", lambda: colbert_tp_train(dev, tmp, reduced)),
+                ("colbert_int8", lambda: colbert_tp_int8(dev, tmp, reduced)),
+                ("colbert_cli", lambda: lm_tp_train(COLBERT_TP_TRAIN_ARGV + red, dev,
+                                                    f"{tmp}/ckpt_colbert_one"))):
+            t0 = time.perf_counter()
+            colbert_one[key] = dict(run(), run_s=time.perf_counter() - t0)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        info["one_process_s"] = t0 - t_phase
         ranks = spawn_gloo_ranks(tmp, lm_tp_rank, seed, str(dev), reduced, n=LM_TP_MODEL)
         info["ranks_s"] = time.perf_counter() - t0
-    launches = 0
+    launches = colbert_tp_lines(ranks, colbert_one, info)
     for (arch, layers, pbs, dbs), one in zip(LM_TP_RUNS, single):
         recs = [r[arch] for r in ranks]
         rows = {"prefill": [lm_logits_agree(r["prefill"], one["prefill"], one["vocab"],
@@ -4635,27 +4926,37 @@ def lm_tp_phase(seed, dev, info: dict, reduced=False) -> dict:
         assert all(layer0) and all(r["k7_launches"] == one["layers"] for r in recs), line
         assert all(torch.equal(recs[0]["prefill"], r["prefill"]) for r in recs), "ranks' logits"
         launches += sum(r["k7_launches"] for r in recs)
-    recs = [r["train"] for r in ranks]
-    rels = [abs(a / b - 1) for a, b in zip(recs[0]["losses"], train_one["losses"])]
-    line = dict(run="train", argv=LM_TP_TRAIN_ARGV, mesh={"data": 1, "model": LM_TP_MODEL},
-                losses=recs[0]["losses"], one_process_losses=train_one["losses"],
-                max_loss_rel=max(rels), step_ms=[r["step_ms"] for r in recs],
-                step_p50_ms=[r["step_p50_ms"] for r in recs],
-                one_process_step_ms=train_one["step_ms"],
-                one_process_step_p50_ms=train_one["step_p50_ms"],
-                replicated_leaves=int(recs[0]["replicated_checksums"].numel()),
-                replicated_identical=all(torch.equal(r["replicated_checksums"],
-                                                     recs[0]["replicated_checksums"]) for r in recs),
-                peak_device_bytes=[r["peak_device_bytes"] for r in recs],
-                one_process_peak_device_bytes=train_one["peak_device_bytes"],
-                one_process_resident_bytes=train_one["resident_bytes"],
-                collectives_a_step=[_wire_summary(r["wire"], r["steps"]) for r in recs],
-                checkpoints="writes skipped on both sides (tests/test_torch_tensor_parallel.py "
-                            "holds the gathered checkpoint)")
-    emit({"lm_tp": line, "card": info["card"]})
-    assert all(r["losses"] == recs[0]["losses"] for r in recs), "ranks' losses"
-    assert line["max_loss_rel"] <= LM_TP_LOSS_RTOL and line["replicated_identical"], line
-    info["runs"] = [a for a, *_ in LM_TP_RUNS] + ["train"]
+    # (c) and (d): launch.train over the ranks; ColBERT's full config runs
+    # in its bf16 compute dtype (COLBERT_TP_TRAIN_ARGV)
+    for key, argv, one, rtol, held in (
+            ("train", LM_TP_TRAIN_ARGV, train_one, LM_TP_LOSS_RTOL, None),
+            ("colbert_cli", COLBERT_TP_TRAIN_ARGV, colbert_one["colbert_cli"], DP_LOSS_RTOL, 1)):
+        recs = [r[key] for r in ranks]
+        rels = [abs(a / b - 1) for a, b in zip(recs[0]["losses"], one["losses"])]
+        line = dict(run=key, argv=argv, mesh={"data": 1, "model": LM_TP_MODEL},
+                    losses=recs[0]["losses"], one_process_losses=one["losses"],
+                    loss_rel=rels, held_losses=held or len(rels), loss_rtol=rtol,
+                    step_ms=[r["step_ms"] for r in recs],
+                    step_p50_ms=[r["step_p50_ms"] for r in recs],
+                    one_process_step_ms=one["step_ms"],
+                    one_process_step_p50_ms=one["step_p50_ms"],
+                    replicated_leaves=int(recs[0]["replicated_checksums"].numel()),
+                    replicated_identical=all(torch.equal(r["replicated_checksums"],
+                                                         recs[0]["replicated_checksums"])
+                                             for r in recs),
+                    peak_device_bytes=[r["peak_device_bytes"] for r in recs],
+                    one_process_peak_device_bytes=one["peak_device_bytes"],
+                    one_process_resident_bytes=one["resident_bytes"],
+                    collectives_a_step=[_wire_summary(r["wire"], r["steps"]) for r in recs],
+                    run_s=[r["run_s"] for r in recs], one_process_run_s=one.get("run_s"),
+                    checkpoints="writes skipped on both sides (tests/test_torch_tensor_parallel.py "
+                                "and tests/test_torch_colbert_mesh.py hold the gathered state)")
+        emit({"lm_tp": line, "card": info["card"]})
+        assert all(r["losses"] == recs[0]["losses"] for r in recs), "ranks' losses"
+        assert max(rels[:held]) <= rtol and line["replicated_identical"], line
+        assert all(math.isfinite(x) for x in recs[0]["losses"]), line
+    info["runs"] = [a for a, *_ in LM_TP_RUNS] + ["train", "colbert_encode", "colbert_train",
+                                                  "colbert_int8", "colbert_cli"]
     return {"flash_attention": launches}
 
 
@@ -5244,9 +5545,8 @@ def cells_dry_sweep(info: dict) -> dict:
     """(b) ``launch.dryrun --all --both-meshes`` in a subprocess that sees
     no card, within DRYRUN_LIMIT_S: the tally of ok / skip / fail, each
     fail with its ROADMAP item, and yi-34b train_4k's per-rank bytes (what
-    the port's rank holds beside the rules' plan).  Fails when an LM,
-    recsys, SchNet or search record is not ok, or a fail is not an
-    item-named NotImplementedError."""
+    the port's rank holds beside the rules' plan).  Fails when a record
+    is neither ok nor skip."""
     out = Path(tempfile.mkdtemp(prefix="chip_smoke_dry_")) / "dry.jsonl"
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     jobs = min(DRYRUN_JOBS, os.cpu_count() or 1)
@@ -5271,11 +5571,7 @@ def cells_dry_sweep(info: dict) -> dict:
                                                              r.get("mem_args_plan")]
                                 for r in recs if r["kind"] == "train" and r["status"] == "ok"})
     emit({"dry_sweep": line, "card": info["card"]})
-    placed = {a for a in configs.ARCH_IDS if configs.get(a).FAMILY in ("lm", "recsys", "gnn")}
-    bad = [(r["arch"], r["shape"], r["mesh"], r["status"]) for r in recs
-           if (r["arch"] in placed or r["kind"] == "search") and r["status"] not in ("ok", "skip")]
-    assert not bad, bad
-    assert all(f["item"] and f["error"].startswith("NotImplementedError") for f in fails), fails
+    assert not fails, fails
     assert len(recs) == 2 * sum(len(configs.cells_of(a)) for a in configs.ARCH_IDS), len(recs)
     assert seconds <= DRYRUN_LIMIT_S, seconds
     return line
@@ -5433,28 +5729,12 @@ def family_recsys_run(arch: str, seed: int, dev, tmp: str, reduced: bool, mesh=N
                         warmup_ms=ms[0], step_ms=ms[1:], step_p50_ms=p50,
                         examples_per_s=p["batch"] / p50 * 1e3, peak_device_bytes=_peak(dev))
     assert all(math.isfinite(x) for x in losses), rec
-    out_dir = Path(tmp) / arch
-    leaves = train_tree.leaves(params)
-    if mesh is None:
-        out_dir.mkdir(parents=True, exist_ok=True)
-        for i, x in enumerate(leaves):
-            np.save(out_dir / f"{i}.npy", x.cpu().numpy())
-    else:
+    place = None
+    if mesh is not None:
         with sharding.use_mesh(mesh):
             place = train_tree.leaves(recsys.placements(cfg))
-        outside, worst, split, held = 0, 0.0, [], 0
-        for i, (x, pl) in enumerate(zip(leaves, place)):
-            want = torch.from_numpy(np.ascontiguousarray(
-                pl.piece(np.load(out_dir / f"{i}.npy", mmap_mode="r")))).to(dev)
-            n, d = _within(x, want, **FAMILY_MESH_PARAM_TOL)
-            outside, worst, held = outside + n, max(worst, d), held + x.numel()
-            split.append(pl.split)
-            del want
-        rec["train"].update(params_outside=outside, max_param_abs_diff=worst, params_held=held,
-                            split_leaves=sum(split), whole_leaves=len(split) - sum(split),
-                            replicated_checksums=train_loop.replica_checksums(
-                                [x for x, s in zip(leaves, split) if not s]).cpu())
-    del params, opt_state, batch, train, leaves
+    rec["train"].update(hold_to_saved(train_tree.leaves(params), Path(tmp) / arch, place, dev))
+    del params, opt_state, batch, train
     with torch.no_grad():
         for name, (b, p) in built.items():
             _peak_reset(dev)

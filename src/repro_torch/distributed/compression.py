@@ -47,29 +47,52 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, n: int, shape) -> torch.Ten
     return vals.reshape(-1)[:n].reshape(shape)
 
 
-def compress_decompress_with_feedback(grads, ef_state):
+def compress_decompress_with_feedback(grads, ef_state, placements=None):
     """Quantize and dequantize each leaf of ``grads`` plus its error
     feedback; returns (the dequantized grads, the new error feedback).
 
     A layer stack (a list) is ONE leaf of the reference, quantized as one
     flat array: its blocks of ``block`` values run across layer boundaries,
-    as they do over the reference's stacked array."""
+    as they do over the reference's stacked array.
+
+    ``placements`` (the leaves' ``sharding.Placement`` objects, on a
+    ``"model"`` axis above 1): ``grads`` and ``ef_state`` hold this
+    process's pieces; each split leaf's gradient and error feedback are
+    gathered whole over ``"model"`` (a collective), quantized as the whole
+    leaf, and this process's pieces of both results returned."""
     if ef_state is None:
         ef_state = T.tree_map(lambda g: torch.zeros_like(g, dtype=torch.float32), grads)
+    if placements is None:
+        placements = T.tree_map(lambda g: None, grads)
 
-    def one(g, e):
+    def whole(x, p):
+        return x if p is None else p.gather(x)
+
+    def piece(x, p):  # in a storage of its own: the whole leaf is freed
+        return x if p is None or not p.split else p.piece(x).clone(
+            memory_format=torch.contiguous_format)
+
+    def one(g, e, p):
         if isinstance(g, dict):
-            out = {k: one(g[k], e[k]) for k in g}
+            out = {k: one(g[k], e[k], p[k]) for k in g}
             return {k: o[0] for k, o in out.items()}, {k: o[1] for k, o in out.items()}
         if isinstance(g, list):
-            deq, err = one(torch.stack(g), torch.stack(e))
-            return list(deq.unbind(0)), list(err.unbind(0))
-        g32 = g.float() + e
-        q, s, n = quantize(g32)
-        deq = dequantize(q, s, n, g32.shape)
-        return deq, g32 - deq
+            g32 = torch.stack([whole(x.float(), pl) for x, pl in zip(g, p)])
+            deq, err = _quantized(g32, torch.stack([whole(x, pl) for x, pl in zip(e, p)]))
+            return ([piece(x, pl) for x, pl in zip(deq.unbind(0), p)],
+                    [piece(x, pl) for x, pl in zip(err.unbind(0), p)])
+        deq, err = _quantized(whole(g.float(), p), whole(e, p))
+        return piece(deq, p), piece(err, p)
 
-    return one(grads, ef_state)
+    return one(grads, ef_state, placements)
+
+
+def _quantized(g32: torch.Tensor, e: torch.Tensor):
+    """(dequantize(quantize(g32 + e)), the new error) of one whole leaf."""
+    g32 = g32 + e
+    q, s, n = quantize(g32)
+    deq = dequantize(q, s, n, g32.shape)
+    return deq, g32 - deq
 
 
 def compressed_psum(x: torch.Tensor, mesh, block: int = 256) -> torch.Tensor:

@@ -483,8 +483,17 @@ def retrieval_cell(arch, cfg: colbert_lib.ColBERTConfig, cell: ShapeCell, p: dic
     the reference builds it (``index``: :func:`search_index`'s pair when
     built already) on a one-device ``mesh`` (the device's when None), with
     ``impl`` ``"cuda"`` on the card and ``"ref"`` on the host unless given
-    (``"ref"`` on the card: the kernels' plain versions there)."""
+    (``"ref"`` on the card: the kernels' plain versions there).  A train or
+    encode cell under ``mesh`` (one device a process) holds this process's
+    piece of every weight (``models.colbert`` on a ``"model"`` axis),
+    encodes its rows of the batch over the data axes (a model group the
+    same rows), and its callable runs under the mesh."""
     kind = cell.kind
+    if mesh is not None and kind in ("train", "encode"):
+        with sharding.use_mesh(mesh):
+            built = retrieval_cell(arch, cfg, cell, p, device)
+        built.fn = _on_mesh(mesh, built.fn)
+        return built
     bb = cfg.backbone
     dev = resolve_device(device)
     if kind == "train":
@@ -495,13 +504,14 @@ def retrieval_cell(arch, cfg: colbert_lib.ColBERTConfig, cell: ShapeCell, p: dic
                                            nway=p["nway"]))
         batch = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
         fn, args = _train_pieces(colbert_lib.loss_fn(model), colbert_lib.train_params(model),
-                                 p.get("n_micro", 1), batch, cast_dtype=bb.dtype)
+                                 p.get("n_micro", 1), batch, cast_dtype=bb.dtype,
+                                 placements=model.placement_tree())
         return BuiltCell(arch, cell.name, kind, fn, args, retrieval_flops(cfg, kind, p))
     if kind == "encode":
         ecfg = dataclasses.replace(cfg, backbone=dataclasses.replace(bb, attn_impl="flash"))
         model = colbert_lib.init_params(ecfg, torch.Generator(device=dev).manual_seed(0), dev)
         toks = np.random.default_rng(0).integers(0, bb.vocab, (p["batch"], p["d_len"]))
-        tokens = torch.as_tensor(toks, dtype=torch.int32, device=dev)
+        tokens = torch.as_tensor(toks[_data_rows(p["batch"])], dtype=torch.int32, device=dev)
         return BuiltCell(arch, cell.name, kind, colbert_lib.encode, (model, tokens),
                          retrieval_flops(cfg, kind, p))
     if kind == "search":
@@ -600,8 +610,8 @@ def _lm_dry(arch, cfg: T.TransformerConfig, cell: ShapeCell, p, layers=None,
     raise ValueError(kind)
 
 
-def _colbert_dry(cfg: colbert_lib.ColBERTConfig) -> colbert_lib.ColBERT:
-    return colbert_lib.ColBERT(cfg, T.Transformer(cfg.backbone, META))
+def _colbert_dry(cfg: colbert_lib.ColBERTConfig, param_dtype=torch.float32) -> colbert_lib.ColBERT:
+    return colbert_lib.ColBERT(cfg, T.Transformer(cfg.backbone, META, param_dtype=param_dtype))
 
 
 #: a search cell's index arrays: (leading rows, trailing shape, dtype, doc-partitioned)
@@ -639,11 +649,12 @@ def _retrieval_dry(arch, cfg: colbert_lib.ColBERTConfig, cell: ShapeCell, p) -> 
                  "d_tokens": _meta((B, nway, dL), torch.int32), "d_mask": _meta((B, nway, dL)),
                  "target_scores": _meta((B, nway))}
         fn, args = _train_pieces(colbert_lib.loss_fn(model), colbert_lib.train_params(model),
-                                 p.get("n_micro", 1), batch, cast_dtype=bb.dtype)
+                                 p.get("n_micro", 1), batch, cast_dtype=bb.dtype,
+                                 placements=model.placement_tree())
         return BuiltCell(arch, cell.name, kind, fn, args, flops)
-    if kind == "encode":
+    if kind == "encode":  # the weights in the compute dtype, as the reference's cell casts them
         model = _colbert_dry(dataclasses.replace(
-            cfg, backbone=dataclasses.replace(bb, attn_impl="flash")))
+            cfg, backbone=dataclasses.replace(bb, attn_impl="flash")), bb.dtype)
         tokens = _meta((_rows_here(p["batch"]), p["d_len"]), torch.int32)
         return BuiltCell(arch, cell.name, kind, colbert_lib.encode, (model, tokens), flops)
     if kind == "search":

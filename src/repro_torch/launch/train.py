@@ -21,11 +21,14 @@ count also holds.
 process, NCCL; gloo with ``--device cpu``), laid out as the reference's
 ``("data", "model")`` / ``("pod", "data", "model")`` meshes
 (``launch.mesh.make_production_mesh``) with a model extent of ``--model``
-(default 1: data parallelism over every process).  ``--model m`` (an LM
-or recsys arch) splits the weights over groups of ``m`` processes, the
-reference's tensor and expert parallelism on its 16-way axis laid over
-fewer processes (a recsys arch's tables by rows, its dense layers by
-``"mlp"``: ``models.recsys``); checkpoints hold the whole leaves.
+(default 1: data parallelism over every process).  ``--model m`` (an LM,
+recsys or retrieval arch) splits the weights over groups of ``m``
+processes, the reference's tensor and expert parallelism on its 16-way
+axis laid over fewer processes (a recsys arch's tables by rows, its dense
+layers by ``"mlp"``: ``models.recsys``; ColBERTv2's backbone as an LM's,
+its projection whole: ``models.colbert``); ``--compression int8``
+quantizes each split gradient whole (``training.loop``); checkpoints hold
+the whole leaves.
 ``--batch`` is the global batch, split over the data axis, and each step
 is the global batch's.  Only rank 0 prints and writes checkpoints; the
 replicas are checked bit-identical at the end (a model group's in its
@@ -37,6 +40,8 @@ replicated leaves).
         --arch granite-moe-1b-a400m --mesh single --model 2
     torchrun --nproc_per_node=2 -m repro_torch.launch.train \
         --arch wide-deep --mesh single --model 2
+    torchrun --nproc_per_node=2 -m repro_torch.launch.train \
+        --arch plaid-colbertv2 --mesh single --model 2 [--compression int8]
 
 ``run(argv)`` does ``main``'s work and returns what it trained (the
 final state, the config, the losses, and on a model axis the
@@ -111,7 +116,8 @@ def run(argv=None) -> dict:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--mesh", choices=["none", "local", "single", "multi"], default="none")
     ap.add_argument("--model", type=int, default=1,
-                    help="the mesh's model extent (--mesh single|multi, an LM or recsys arch)")
+                    help="the mesh's model extent (--mesh single|multi; an LM, recsys or "
+                         "retrieval arch)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -121,8 +127,9 @@ def run(argv=None) -> dict:
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
     dev = resolve_device(args.device)
     if args.model > 1 and (args.mesh not in ("single", "multi")
-                           or mod.FAMILY not in ("lm", "recsys")):
-        raise SystemExit("--model above 1 takes an LM or recsys arch and --mesh single or multi")
+                           or mod.FAMILY not in ("lm", "recsys", "retrieval")):
+        raise SystemExit("--model above 1 takes an LM, recsys or retrieval arch and "
+                         "--mesh single or multi")
     joined = False
     if args.mesh in ("single", "multi"):
         joined = mesh_mod.init_distributed(backend="gloo" if dev.type == "cpu" else None)
@@ -154,9 +161,7 @@ def _train(args, cfg, family, dev, mesh) -> dict:
     )
     comp = None if args.compression == "none" else args.compression
     # None without a model axis
-    place = (model.placement_tree() if family == "lm"
-             else recsys_lib.placements(cfg) if family == "recsys"
-             else None)
+    place = recsys_lib.placements(cfg) if family == "recsys" else model.placement_tree()
     step = train_loop.make_train_step(loss_fn, optimizer, n_micro=args.n_micro, compression=comp,
                                       donate=True, placements=place)
     train_loop.assert_replicas_agree(params, mesh, place)

@@ -12,8 +12,19 @@ entropy over the candidates (with in-batch negatives, every passage of the
 batch), and KL distillation against teacher scores.  Under a data-parallel
 mesh (``distributed.sharding.data_mesh``) the loss is still the global
 batch's: each process encodes its rows and gathers every process's passage
-vectors, differentiably, for its queries' in-batch negatives.  A mesh with
-a ``"model"`` axis above 1 is refused (ROADMAP Queue 1 item 8.5.5).
+vectors, differentiably, for its queries' in-batch negatives.
+
+On a mesh with a ``"model"`` axis above 1 (tensor parallelism, as the LM
+family's) the backbone holds this process's piece of each split weight
+(``models.transformer``) and returns the hidden states whole on every
+process of a model group; ``proj`` (``("embed_fsdp", None)``, whole on
+every process: the port keeps ``"embed_fsdp"`` whole over ``"data"``) and
+the normalisation then run on them, so each process's vectors are one
+process's.  The batch splits over the other axes alone
+(``sharding.data_mesh``): the processes of a model group take the same
+rows and compute the same loss.  :meth:`ColBERT.placement_tree` gives the
+leaves' placements (the reference's unused ``lm_head`` split over the
+vocabulary, as an LM's head).
 
 The training state is a tree in the reference's layout (``{"backbone":
 {"embed", "final_norm", "dense_layers", ...}, "proj"}``, each layer stack a
@@ -28,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -57,20 +69,35 @@ class ColBERT(nn.Module):
 
     def __init__(self, cfg: ColBERTConfig, backbone: T.Transformer):
         super().__init__()
-        if backbone.tp is not None:
-            raise NotImplementedError(
-                "the ColBERT encoder on a mesh with a 'model' axis above 1 is not ported "
-                "(ROADMAP Queue 1 item 8.5.5)")
         self.cfg = cfg
         self.backbone = backbone
         self.proj = nn.Parameter(
-            torch.zeros((cfg.backbone.d_model, cfg.out_dim), device=backbone.device),
+            torch.zeros((cfg.backbone.d_model, cfg.out_dim), device=backbone.device,
+                        dtype=backbone.embed.dtype),
             requires_grad=False,
         )
 
     @property
     def device(self) -> torch.device:
         return self.backbone.device
+
+    def placement_tree(self, head: bool = False):
+        """Each training leaf's ``sharding.Placement`` in the training
+        tree's layout (with ``head``, the reference's ``backbone/lm_head``
+        too, split over the vocabulary as an LM's head), or None without a
+        ``"model"`` axis: the backbone's placements and ``proj``'s, whose
+        spec splits it over ``"data"`` alone, so every process holds it
+        whole."""
+        if self.backbone.tp is None:
+            return None
+        axes, shapes = T._flat_leaves(self.cfg.backbone, head=True)
+        own = sharding.tree_shardings(
+            {"proj": param_axes(self.cfg)["proj"], "lm_head": axes["lm_head"]},
+            {"proj": tuple(self.proj.shape), "lm_head": shapes["lm_head"]})
+        out = {"backbone": self.backbone.placement_tree(), "proj": own["proj"]}
+        if head:
+            out["backbone"]["lm_head"] = own["lm_head"]
+        return out
 
     def forward(self, tokens, mask=None) -> torch.Tensor:
         """tokens (B, S) -> unit-norm token vectors (B, S, out_dim) f32, on
@@ -93,8 +120,12 @@ class ColBERT(nn.Module):
 
     def numpy_params(self) -> dict:
         """The reference's ``colbert.init_params`` tree as numpy (``lm_head``
-        excepted)."""
-        return tree_lib.to_numpy(train_params(self))
+        excepted); on a ``"model"`` axis the whole leaves, gathered (a
+        collective)."""
+        tree = train_params(self)
+        if self.backbone.tp is not None:
+            tree = sharding.gather_tree(tree, self.placement_tree())
+        return tree_lib.to_numpy(tree)
 
 
 @torch.no_grad()
@@ -118,9 +149,18 @@ def params_from_numpy(
 ) -> ColBERT:
     """A :class:`ColBERT` holding the reference's ``colbert.init_params``
     tree (converted to numpy) value for value; ``backbone/lm_head`` is
-    dropped (``encode`` does not use it)."""
+    dropped (``encode`` does not use it).  On a ``"model"`` axis each
+    process takes its piece of each leaf."""
     model = ColBERT(cfg, T.Transformer(cfg.backbone, device))
-    return assign_params(model, tree_lib.from_numpy(tree, train_params(model)))
+    like = train_params(model)
+    return assign_params(model, _on_devices(
+        T._host_pieces(tree, like, model.placement_tree()), like))
+
+
+def _on_devices(arrays, like):
+    """Host arrays as tensors on the devices of ``like``'s leaves (a tree
+    of the same structure), each a writable copy."""
+    return tree_lib.tree_map(lambda a, t: torch.from_numpy(np.array(a)).to(t.device), arrays, like)
 
 
 @torch.no_grad()
@@ -150,13 +190,14 @@ def train_loss(model: ColBERT, cfg: ColBERTConfig, batch: Mapping):
     back to the process that encoded it) for the in-batch negatives, and
     returns its queries' share of the global means, so the processes'
     losses (and gradients) sum to the global batch's.  The KD term reads a
-    query's own passages and teacher scores, which are in its rows."""
+    query's own passages and teacher scores, which are in its rows.  On a
+    ``"model"`` axis above 1 the rows split over the other axes alone: a
+    model group's processes encode the same rows and return the same
+    loss, and the backbone's ``copy_to`` / ``reduce_from`` pairs give each
+    split leaf its piece's gradient and each whole leaf its whole gradient
+    once."""
     B, nway, Ld = batch["d_tokens"].shape
     dev = model.device
-    if sharding.model_mesh() is not None:
-        raise NotImplementedError(
-            "ColBERT training on a mesh with a 'model' axis above 1 is not ported "
-            "(ROADMAP Queue 1 item 8.5.5)")
     mesh = sharding.data_mesh()
     rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
     if B % world:
@@ -266,7 +307,9 @@ def train_state_from_numpy(
     "step"[, "ef"]}}`` (as numpy) -> (a model holding ``params``, the port's
     state with every leaf on ``device``).  Leaves the encoder does not read
     (the reference's ``lm_head``) stay in the state, so the optimizer
-    updates them (weight decay) as the reference's does."""
+    updates them (weight decay) as the reference's does.  On a ``"model"``
+    axis each process holds its piece of every leaf
+    (:func:`state_placements`)."""
     model = params_from_numpy(tree["params"], cfg, device)
     like = train_params(model)
     if "lm_head" in tree["params"]["backbone"]:
@@ -274,7 +317,15 @@ def train_state_from_numpy(
     state = {"params": like}
     if "opt" in tree:
         state["opt"] = {k: (model.proj if k == "step" else like) for k in tree["opt"]}
-    return model, tree_lib.from_numpy(tree, state)
+    return model, _on_devices(T._host_pieces(tree, state, state_placements(model, state)), state)
+
+
+def state_placements(model: ColBERT, state: Mapping):
+    """Each leaf's ``sharding.Placement`` in a training state ``{"params",
+    "opt": {"mu", "nu", "step"[, "ef"]}}`` of ``model`` (``lm_head`` placed
+    where the state holds it), or None without a ``"model"`` axis."""
+    head = "lm_head" in state["params"]["backbone"]
+    return sharding.state_placements(model.placement_tree(head), state)
 
 
 def numpy_train_state(state: Mapping) -> dict:

@@ -52,8 +52,14 @@ all-reduce runs over those alone, and the processes of a model group
 take the same rows.  The step then needs ``placements``, the leaves'
 ``sharding.Placement`` objects (``Transformer.placement_tree()``): the
 optimizer's global norm sums the squares of split leaves over
-``"model"`` and counts a replicated leaf once.  int8 compression on such a mesh is refused: its
-blocks of 256 values run across the whole leaf, which no process holds.
+``"model"`` and counts a replicated leaf once.  int8 compression on such
+a mesh quantizes each split leaf whole, as the reference does: its blocks
+of 256 values run across the whole leaf (a layer stack's across its
+layers), which no process holds, so each split gradient and its error
+feedback are gathered over ``"model"`` (one gather of each a split leaf a
+step), compressed, and cut back to this process's piece
+(``compression.compress_decompress_with_feedback(placements=)``); the
+error feedback is stored as pieces, placed as its parameters.
 """
 from __future__ import annotations
 
@@ -121,13 +127,9 @@ def make_train_step(
         mesh = sharding.data_mesh()
         if param_axes is not None:
             params = sharding.constrain_tree(params, param_axes)
-        if sharding.model_mesh() is not None:
-            if not norm:
-                raise ValueError("a 'model' axis above 1 needs the step's placements "
-                                 "(Transformer.placement_tree())")
-            if compression is not None:
-                raise NotImplementedError(
-                    "int8 compression on a 'model' axis above 1 (ROADMAP Queue 1 item 8.5.4)")
+        if sharding.model_mesh() is not None and not norm:
+            raise ValueError("a 'model' axis above 1 needs the step's placements "
+                             "(Transformer.placement_tree())")
         dev = T.leaves(params)[0].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if n_micro == 1:
@@ -148,7 +150,8 @@ def make_train_step(
             grads, loss, metrics = _sum_over_replicas(mesh, grads, loss, metrics)
 
         if compression == "int8":
-            grads, ef = comp.compress_decompress_with_feedback(grads, opt_state.get("ef"))
+            split = placements if sharding.model_mesh() is not None else None
+            grads, ef = comp.compress_decompress_with_feedback(grads, opt_state.get("ef"), split)
             opt_state = dict(opt_state, ef=ef)
 
         inner = {k: v for k, v in opt_state.items() if k != "ef"}

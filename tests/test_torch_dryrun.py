@@ -392,7 +392,7 @@ FAMILY_MESH = [(a, c.name) for a in ("wide-deep", "xdeepfm", "bst", "bert4rec", 
 #: the "embed_fsdp" leaves whole over "data" (ROADMAP Queue 1 item 8.5.2),
 #: and a retrieval cell's candidate ids
 WHOLE_IN_THE_PORT = {"train": {"embed_fsdp": None, "batch": None}, "serve": {},
-                     "retrieval": {"candidates": None}}
+                     "retrieval": {"candidates": None}, "encode": {}}
 
 
 @pytest.mark.parametrize("arch,cell", FAMILY_MESH, ids=[f"{a}-{c}" for a, c in FAMILY_MESH])
@@ -414,6 +414,25 @@ def test_the_recsys_and_schnet_records_are_ok_on_both_meshes(arch, cell):
         assert (rec["mem_args"] > rec["mem_args_plan"]) == (kind == "train"), rec
         if arch == "wide-deep" and cell == "serve_p99":
             assert 0.3e9 < rec["mem_args"] < 0.4e9, rec
+
+
+@pytest.mark.parametrize("cell", ["train_triples", "encode_corpus"])
+def test_the_colbert_records_are_ok_on_both_meshes(cell):
+    """ColBERTv2 on the model axis (ROADMAP Queue 1 item 8.5.5): both
+    records ``ok`` on 16 x 16 and 2 x 16 x 16, a rank holding what the plan
+    holds but for WHOLE_IN_THE_PORT, byte for byte (the encoder's weights
+    in bf16 and its rows of the batch, as planned), and its layers'
+    products summed over ``"model"``."""
+    kind = tconfigs.cells_of("plaid-colbertv2")[cell].kind
+    for multi in (False, True):
+        rec = dryrun.run_cell("plaid-colbertv2", cell, multi, verbose=False)
+        assert rec["status"] == "ok", rec
+        mesh = tmesh.make_dry_mesh(multi_pod=multi)
+        with sharding.use_mesh(mesh, dict(dryrun.dry_rules(kind), **WHOLE_IN_THE_PORT[kind])):
+            held = tcells.plan_bytes(tcells.cell_plan("plaid-colbertv2", cell))
+        assert rec["mem_args"] == held, (rec["mem_args"], held, rec["mem_args_plan"])
+        assert (rec["mem_args"] > rec["mem_args_plan"]) == (kind == "train"), rec
+        assert rec["coll_axes"]["model"] > 0, rec
 
 
 def test_the_search_cells_launch_k1_and_k2_meta_paths():

@@ -85,9 +85,13 @@ def test_cells_the_port_lacks_raise_naming_the_roadmap():
         dry = tcells.build_cell("yi-34b", "prefill_32k", mode="dry")
         assert dry.args[1].shape == (2, 32768) and dry.args[1].device.type == "meta"
         assert dry.plan["params/embed"] == ((4000, 7168), torch.bfloat16)
-        # what is left raises naming its item: the encoder on a model mesh
-        with pytest.raises(NotImplementedError, match=r"Queue 1 item 8\.5\.5"):
-            tcells.build_cell("plaid-colbertv2", "encode_corpus", mode="dry")
+        # the encoder on a model mesh (ROADMAP Queue 1 item 8.5.5): rank 0's
+        # piece of the batch and of each weight, on meta
+        enc = tcells.build_cell("plaid-colbertv2", "encode_corpus", mode="dry")
+        assert enc.args[1].shape == (256, 180) and enc.args[1].device.type == "meta"
+        wq = enc.args[0].backbone.layers[0].attn_wq
+        assert wq.device.type == "meta" and wq.shape == (768, 3, 64) and wq.dtype == torch.bfloat16
+        assert enc.args[0].proj.shape == (768, 128)
     enc = tcells.build_cell("plaid-colbertv2", "encode_corpus", device="cpu")
     assert enc.kind == "encode" and enc.fn(*enc.args).shape == (8, 16, 16)
     # the recsys and GNN cells are ported (ROADMAP Queue 1 item 9)
